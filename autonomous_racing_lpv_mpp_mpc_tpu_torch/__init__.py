@@ -1,0 +1,33 @@
+"""PyTorch / CUDA port of the LPV-MPC autonomous-racing engine.
+
+The JAX package ``autonomous_racing_lpv_mpp_mpc_tpu`` is the reference; this
+package mirrors its layout and names module by module, so each function has
+an obvious counterpart:
+
+- ``core``     — frozen dataclass configs (vehicle, MPC, solver).
+- ``track``    — track compiler and curvature lookup.
+- ``models``   — tires, Frenet bicycle ODEs, LPV model, discretization.
+- ``engine``   — horizon scheduling and block-structured QP assembly.
+- ``solver``   — Riccati factor/solve and batched OSQP-semantics ADMM.
+- ``loop``     — receding-horizon controller and closed loop.
+- ``parallel`` — scenario grids.
+- ``ops``      — hand-written CUDA kernels (``ops/csrc``) with their plain
+                 PyTorch versions beside them.
+- ``convert``  — hand JAX-package objects (as numpy arrays) to the port and
+                 carries back.
+
+Everything is float32. Where JAX ``vmap``s, the batch is a written-out
+dimension; where JAX ``lax.scan``s, this package loops in Python or runs a
+kernel. The package imports ``torch`` and numpy only.
+"""
+
+import torch as _torch
+
+__version__ = "0.1.0"
+
+# A reduced-precision (TF32 / bf16) product makes the Riccati/ADMM solve
+# converge to a u0 that is wrong in the third digit while its residuals
+# still report convergence; every product in this package is true f32.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+_torch.set_float32_matmul_precision("highest")

@@ -1,0 +1,119 @@
+"""Hand objects of the JAX package to the port, and carries back.
+
+The JAX package is never imported here: its objects are read by attribute
+and their leaves turned into numpy arrays (``np.asarray``), so the same
+functions accept the JAX objects themselves or any object with the same
+fields holding numpy arrays or floats. The reverse direction returns plain
+numpy dictionaries, from which the JAX side rebuilds its carry
+(``MPCCarry(**d)``). For a system without model weights, this is how state
+carries across: a test can run one step on each side and re-sync one from
+the other.
+
+SolverConfig backends map "xla" -> "plain", "pallas" -> "admm",
+"mega" -> "mega".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.config import MPCBounds, MPCConfig, MPCWeights, SolverConfig, VehicleParams
+from .loop.mpc import MPCCarry
+from .ops.megastep_kernel import MegaCarry
+from .solver.admm import BoxQP
+from .solver.riccati import LQRCost, LQRDynamics
+from .track.track import Track
+
+BACKENDS = {"xla": "plain", "pallas": "admm", "mega": "mega"}
+
+
+def tensor(a, device=None) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+
+def vehicle_params(obj, device=None) -> VehicleParams:
+    """Scalar leaves become floats, batched (B,) leaves float32 tensors."""
+    out = {}
+    for f in dataclasses.fields(VehicleParams):
+        v = np.asarray(getattr(obj, f.name))
+        out[f.name] = float(v) if v.ndim == 0 else tensor(v, device)
+    return VehicleParams(**out)
+
+
+def _floats(cls, obj):
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        out[f.name] = tuple(float(x) for x in v) if isinstance(v, (tuple, list)) else v
+    return out
+
+
+def mpc_config(obj) -> MPCConfig:
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(MPCConfig)
+          if f.name not in ("weights", "bounds")}
+    kw["dt"] = float(kw["dt"])
+    kw["a_lat_frac"] = float(kw["a_lat_frac"])
+    return MPCConfig(weights=MPCWeights(**_floats(MPCWeights, obj.weights)),
+                     bounds=MPCBounds(**{k: float(v) for k, v in _floats(MPCBounds, obj.bounds).items()}),
+                     **kw)
+
+
+def solver_config(obj) -> SolverConfig:
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(SolverConfig)}
+    for name in ("rho", "sigma", "alpha", "eps_abs", "eps_rel", "eps_fallback", "cache_drift_tol"):
+        kw[name] = float(kw[name])
+    if kw["backend"] not in BACKENDS:
+        raise NotImplementedError(f"backend {kw['backend']!r} has no counterpart in the port yet")
+    kw["backend"] = BACKENDS[kw["backend"]]
+    return SolverConfig(**kw)
+
+
+def track(obj, device=None) -> Track:
+    return Track(**{f.name: tensor(getattr(obj, f.name), device) for f in dataclasses.fields(Track)})
+
+
+def mpc_carry(obj, device=None) -> MPCCarry:
+    return MPCCarry(*(tensor(getattr(obj, n), device) for n in MPCCarry._fields))
+
+
+def mega_carry(obj, device=None) -> MegaCarry:
+    return MegaCarry(*(tensor(getattr(obj, n), device) for n in MegaCarry._fields))
+
+
+def _shared_rows(a, device, ndim=2):
+    """Per-row data shared by the batch: ``ndim`` dims, or one more (a
+    leading batch) with identical entries per lane."""
+    a = np.asarray(a)
+    if a.ndim == ndim + 1:
+        if not (a == a[:1]).all():
+            raise ValueError("constraint rows differ across the batch")
+        a = a[0]
+    return tensor(a, device)
+
+
+def boxqp(obj, device=None) -> BoxQP:
+    t = lambda a: tensor(a, device)
+    return BoxQP(
+        dyn=LQRDynamics(t(obj.dyn.A), t(obj.dyn.B), t(obj.dyn.c)),
+        cost=LQRCost(t(obj.cost.Q), t(obj.cost.q), t(obj.cost.R), t(obj.cost.r), t(obj.cost.M)),
+        Dx=_shared_rows(obj.Dx, device), Du=_shared_rows(obj.Du, device),
+        lb=t(obj.lb), ub=t(obj.ub), x0=t(obj.x0), soft=_shared_rows(obj.soft, device, ndim=1),
+    )
+
+
+def to_numpy(carry) -> dict:
+    """A port carry (MPCCarry or MegaCarry) as a dict of numpy arrays."""
+    return {n: getattr(carry, n).detach().cpu().numpy() for n in carry._fields}
+
+
+def boxqp_to_numpy(qp: BoxQP) -> dict:
+    """A port BoxQP as nested numpy dicts: {"dyn": {...}, "cost": {...}, ...}."""
+    np_ = lambda a: a.detach().cpu().numpy()
+    return {
+        "dyn": {n: np_(getattr(qp.dyn, n)) for n in LQRDynamics._fields},
+        "cost": {n: np_(getattr(qp.cost, n)) for n in LQRCost._fields},
+        **{n: np_(getattr(qp, n)) for n in ("Dx", "Du", "lb", "ub", "x0", "soft")},
+    }

@@ -1,0 +1,53 @@
+"""Closed loop: estimate -> solve -> apply -> simulate (the JAX package's
+``loop/closed_loop.py``). The plant is integrated at a fine Euler sub-step
+and may use a different tire model than the controller's LPV."""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.config import MPCConfig, SolverConfig, VehicleParams, broadcast_params
+from ..models import f_model
+from ..track.track import Track, curvature_at
+from .mpc import MPCCarry, mpc_init, mpc_step_batched
+
+
+class ClosedLoopLog(NamedTuple):
+    X: torch.Tensor          # (T, B, nx) plant states after each step
+    U: torch.Tensor          # (T, B, nu) applied controls
+    converged: torch.Tensor  # (T, B)
+    iters: torch.Tensor      # (T, B)
+    r_prim: torch.Tensor     # (T, B)
+    r_dual: torch.Tensor     # (T, B)
+
+
+def plant_step(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
+               u: torch.Tensor, n_sub: int = 10, sim_tire: Optional[str] = None,
+               sim_model: Optional[str] = None):
+    """Integrate the nonlinear plant for one control period; x (B, nx)."""
+    tire = sim_tire or cfg.tire
+    model = sim_model or cfg.model
+    h = cfg.dt / n_sub
+    s_idx = 4 if model == "dynamic" else 2
+    pb = broadcast_params(p, x.dim() - 1)
+    for _ in range(n_sub):
+        kap = curvature_at(track, x[..., s_idx])
+        x = x + h * f_model(pb, x, u, kap, model, tire)
+    return x
+
+
+def closed_loop(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
+                x0: torch.Tensor, x_ref: torch.Tensor, T: int, n_sub: int = 10,
+                sim_tire: Optional[str] = None,
+                carry0: Optional[MPCCarry] = None) -> ClosedLoopLog:
+    """Run T control steps for a batch x0 (B, nx); returns stacked logs."""
+    carry = carry0 if carry0 is not None else mpc_init(p, cfg, track, x0)
+    x = x0
+    outs = []
+    for _ in range(T):
+        u, carry, diag = mpc_step_batched(p, cfg, scfg, track, x, x_ref, carry)
+        x = plant_step(p, cfg, track, x, u, n_sub=n_sub, sim_tire=sim_tire)
+        outs.append((x, u, diag.converged, diag.iters, diag.r_prim, diag.r_dual))
+    return ClosedLoopLog(*(torch.stack(col) for col in zip(*outs)))

@@ -1,0 +1,153 @@
+"""Receding-horizon LPV-MPC controller step (the JAX package's
+``loop/mpc.py``), with the batch written out as the leading dim.
+
+Per step: shift the previous prediction for quasi-LPV scheduling, assemble
+the QP, solve warm-started, apply u0 — or the limp-home controller when the
+solve is not usable — and keep the prediction for the next step.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core.config import MPCConfig, SolverConfig, VehicleParams
+from ..engine.assembly import N_CON, build_boxqp, initial_schedule, shift_schedule
+from ..models import model_nx
+from ..models.dynamics import NU
+from ..solver.admm import ADMMSolution, BoxQP, admm_solve
+from ..track.track import Track, curvature_at
+
+
+class MPCCarry(NamedTuple):
+    X_pred: torch.Tensor   # (B, N+1, nx) previous predicted states
+    U_pred: torch.Tensor   # (B, N, nu)
+    s: torch.Tensor        # (B, N+1, nc) ADMM split warm start
+    lam: torch.Tensor      # (B, N+1, nc) ADMM dual warm start
+    u_prev: torch.Tensor   # (B, nu) last applied control
+    rho: torch.Tensor      # (B,) warm-started ADMM penalty
+
+
+class MPCDiag(NamedTuple):
+    converged: torch.Tensor
+    iters: torch.Tensor
+    r_prim: torch.Tensor
+    r_dual: torch.Tensor
+
+
+def constant_refs(cfg: MPCConfig, vx_ref: float, ey_ref: float = 0.0, device=None) -> torch.Tensor:
+    """(N+1, nx) reference: track vx_ref, hold e_y at ey_ref, rest 0."""
+    nx = model_nx(cfg.model)
+    ey_i = 5 if cfg.model == "dynamic" else 3
+    x_ref = torch.zeros((cfg.N + 1, nx), dtype=torch.float32, device=device)
+    x_ref[:, 0] = vx_ref
+    x_ref[:, ey_i] = ey_ref
+    return x_ref
+
+
+def mpc_init(p: VehicleParams, cfg: MPCConfig, track: Track, x0: torch.Tensor,
+             u0: torch.Tensor | None = None) -> MPCCarry:
+    """Initial carry for a batch of states x0 (B, nx)."""
+    batch = x0.shape[:-1]
+    kw = dict(dtype=torch.float32, device=x0.device)
+    if u0 is None:
+        u0 = torch.zeros(batch + (NU,), **kw)
+    X, U = initial_schedule(p, cfg, track, x0, u0)
+    z = torch.zeros(batch + (cfg.N + 1, N_CON), **kw)
+    return MPCCarry(X_pred=X, U_pred=U, s=z, lam=z.clone(), u_prev=u0,
+                    rho=torch.full(batch, 0.1, **kw))
+
+
+def mpc_prepare(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
+                x_ref: torch.Tensor, carry: MPCCarry, obstacles=None):
+    """Scheduling + assembly + warm start for one step.
+
+    Returns (qp, warm, U_sched) with warm = (s, lam, Xa, U) shifted one
+    stage. ``x_ref`` is (N+1, nx) shared or (B, N+1, nx); planner reference
+    tables are not ported yet.
+    """
+    X_shift, U_sched = shift_schedule(carry.X_pred, carry.U_pred)
+    X_sched = torch.cat([x.unsqueeze(-2), X_shift[..., 1:, :]], dim=-2)
+    qp = build_boxqp(p, cfg, track, x, carry.u_prev, X_sched, U_sched, x_ref,
+                     obstacles=obstacles)
+    s_w = torch.cat([carry.s[..., 1:, :], carry.s[..., -1:, :]], dim=-2)
+    lam_w = torch.cat([carry.lam[..., 1:, :], carry.lam[..., -1:, :]], dim=-2)
+    uprev_part = torch.cat([carry.u_prev.unsqueeze(-2), U_sched], dim=-2)
+    Xa_w = torch.cat([X_sched, uprev_part], dim=-1)
+    return qp, (s_w, lam_w, Xa_w, U_sched), U_sched
+
+
+def _post_solve(p, cfg, scfg, track, x, warm, U_sched, sol: ADMMSolution):
+    """Limp-home fallback + carry update.
+
+    A solve is usable when it converged or both residuals are below
+    ``eps_fallback``; otherwise the car steers geometrically toward the
+    centerline and brakes gently, and the shifted schedule is kept.
+    """
+    nx = model_nx(cfg.model)
+    s_idx = 4 if cfg.model == "dynamic" else 2
+    ey_idx = 5 if cfg.model == "dynamic" else 3
+    kap_now = curvature_at(track, x[..., s_idx])
+    delta_ff = torch.atan(kap_now * (p.lf + p.lr)) - 0.5 * x[..., ey_idx] * torch.sign(x[..., 0])
+    delta_ff = torch.clamp(delta_ff, -cfg.bounds.delta_max, cfg.bounds.delta_max)
+    a_fb = torch.where(x[..., 0] > 2.0 * cfg.bounds.vx_min,
+                       torch.full_like(x[..., 0], -0.5), torch.zeros_like(x[..., 0]))
+    u_fallback = torch.stack([delta_ff, a_fb], dim=-1)
+    X_sched = warm[2][..., :nx]
+    usable = sol.converged | ((sol.r_prim < scfg.eps_fallback) & (sol.r_dual < scfg.eps_fallback))
+    u = torch.where(usable[..., None], sol.U[..., 0, :], u_fallback)
+    X_new = torch.where(usable[..., None, None], sol.X[..., :nx], X_sched)
+    U_new = torch.where(usable[..., None, None], sol.U, U_sched)
+    new_carry = MPCCarry(X_pred=X_new, U_pred=U_new, s=sol.s, lam=sol.lam,
+                         u_prev=u, rho=sol.rho)
+    diag = MPCDiag(converged=sol.converged, iters=sol.iters,
+                   r_prim=sol.r_prim, r_dual=sol.r_dual)
+    return u, new_carry, diag
+
+
+def _check_unit_rows(qp: BoxQP):
+    """With +-1 selector rows Ruiz row equilibration is the identity, so the
+    port solves the rows as they are; other rows would need the scaling."""
+    norm = torch.maximum(qp.Dx.abs().amax(dim=1), qp.Du.abs().amax(dim=1))
+    if not bool(torch.all(norm == 1.0)):
+        raise NotImplementedError(
+            "row equilibration (solver/scaling.py) is not ported; rows must be +-1 selectors")
+
+
+def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
+                     track: Track, x_b: torch.Tensor, x_ref, carry_b: MPCCarry):
+    """Batched control step. Returns (u (B, nu), new_carry, diag).
+
+    ``scfg.backend``: "plain" solves with :func:`solver.admm.admm_solve`;
+    "admm" with the solver-only kernel ``ops.admm_kernel.admm_kernel_solve``
+    (its plain version on CPU tensors). The whole-step kernel is
+    ``ops.megastep_kernel.megastep``.
+    """
+    if scfg.polish or scfg.certify_infeasibility:
+        raise NotImplementedError(
+            "polish and the infeasibility certificate are not ported yet; "
+            "set SolverConfig(polish=False, certify_infeasibility=False)")
+    qp_b, warm_b, U_sched_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b)
+    if scfg.equilibrate:
+        _check_unit_rows(qp_b)
+    if scfg.backend == "plain":
+        sol_b = admm_solve(qp_b, scfg, warm=warm_b, rho0=carry_b.rho)
+    elif scfg.backend == "admm":
+        from ..ops.admm_kernel import admm_kernel_solve
+
+        sol_b = admm_kernel_solve(qp_b, scfg, warm=warm_b, rho0=carry_b.rho)
+    else:
+        raise ValueError(f"mpc_step_batched backend {scfg.backend!r}; "
+                         "the whole-step kernel is ops.megastep_kernel.megastep")
+    return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, U_sched_b, sol_b)
+
+
+def mpc_step(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
+             x: torch.Tensor, x_ref: torch.Tensor, carry: MPCCarry):
+    """One control step for one vehicle: x (nx,), carry leaves unbatched,
+    ``p`` leaves floats or 0-d tensors."""
+    one = lambda t: t.unsqueeze(0)
+    carry_b = MPCCarry(*(one(t) for t in carry))
+    u, new_carry, diag = mpc_step_batched(p, cfg, scfg, track, one(x), x_ref, carry_b)
+    return (u[0], MPCCarry(*(t[0] for t in new_carry)), MPCDiag(*(t[0] for t in diag)))

@@ -1,0 +1,328 @@
+// Shared device code of the hand-written Hopper kernels: per-lane views of
+// batch-last arrays, small fixed-size matrix helpers, the curvature lookup,
+// the dynamic-bicycle LPV stage build with its Van Loan discretization, and
+// the nonlinear plant ODE.
+//
+// Counterparts in the JAX package: the small-matrix helpers of
+// ops/admm_kernel.py (_mm, _mtm, _mv, _mtv, _inv2, _stack_g, _dual_norm),
+// the stage math of ops/stage_math.py (secant_stiffness, _ab_cont_dynamic,
+// _vanloan_aug, f_dynamic_bl) and the curvature lookup of
+// ops/megastep_kernel.py (_make_kap_at).
+//
+// Layout: one thread owns one scenario (lane). Every per-scenario array is
+// batch-last, element i of lane b at base[i * stride + b], so the 32 lanes
+// of a warp touch 32 consecutive floats on every access.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace arl {
+
+constexpr int NX = 6;   // dynamic-bicycle state
+constexpr int NU = 2;   // (delta, a)
+constexpr int NA = 8;   // state augmented with u_prev
+constexpr int NC = 6;   // constraint rows per stage
+constexpr int BLOCK = 128;  // lanes per block = lanes that exit ADMM together
+
+constexpr float VX_EPS = 0.05f;
+constexpr float DENOM_EPS = 0.1f;
+constexpr float PACEJKA_C = 1.3f;
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr float RHO_MIN = 1e-4f;
+constexpr float RHO_MAX = 1e3f;
+constexpr float RHO_TOL = 5.0f;
+
+// One lane of a batch-last array.
+struct Lane {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int i) const { return p[(size_t)i * stride]; }
+};
+
+__device__ __forceinline__ Lane lane_of(const float* base, int b, int stride) {
+  return Lane{const_cast<float*>(base) + b, stride};
+}
+
+template <int R, int C>
+__device__ __forceinline__ void load(float (&m)[R][C], const Lane& a, int off) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) m[i][j] = a[off + i * C + j];
+}
+
+template <int R, int C>
+__device__ __forceinline__ void store(const float (&m)[R][C], const Lane& a, int off) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) a[off + i * C + j] = m[i][j];
+}
+
+template <int R>
+__device__ __forceinline__ void loadv(float (&v)[R], const Lane& a, int off) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) v[i] = a[off + i];
+}
+
+template <int R>
+__device__ __forceinline__ void storev(const float (&v)[R], const Lane& a, int off) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) a[off + i] = v[i];
+}
+
+// y = A x
+template <int R, int C>
+__device__ __forceinline__ void mv(const float (&A)[R][C], const float (&x)[C], float (&y)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float acc = A[i][0] * x[0];
+#pragma unroll
+    for (int j = 1; j < C; ++j) acc += A[i][j] * x[j];
+    y[i] = acc;
+  }
+}
+
+// y = A' x for A (R x C)
+template <int R, int C>
+__device__ __forceinline__ void mtv(const float (&A)[R][C], const float (&x)[R], float (&y)[C]) {
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    float acc = A[0][i] * x[0];
+#pragma unroll
+    for (int j = 1; j < R; ++j) acc += A[j][i] * x[j];
+    y[i] = acc;
+  }
+}
+
+// C = A B for A (R x K), B (K x L)
+template <int R, int K, int L>
+__device__ __forceinline__ void mm(const float (&A)[R][K], const float (&B)[K][L], float (&C)[R][L]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      float acc = A[i][0] * B[0][l];
+#pragma unroll
+      for (int j = 1; j < K; ++j) acc += A[i][j] * B[j][l];
+      C[i][l] = acc;
+    }
+}
+
+// C = A' B for A (K x R), B (K x L)
+template <int K, int R, int L>
+__device__ __forceinline__ void mtm(const float (&A)[K][R], const float (&B)[K][L], float (&C)[R][L]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      float acc = A[0][i] * B[0][l];
+#pragma unroll
+      for (int j = 1; j < K; ++j) acc += A[j][i] * B[j][l];
+      C[i][l] = acc;
+    }
+}
+
+// Closed-form inverse of a 2x2 matrix.
+__device__ __forceinline__ void inv2(const float (&H)[2][2], float (&Hi)[2][2]) {
+  const float inv_det = 1.0f / (H[0][0] * H[1][1] - H[0][1] * H[1][0]);
+  Hi[0][0] = H[1][1] * inv_det;
+  Hi[0][1] = -H[0][1] * inv_det;
+  Hi[1][0] = -H[1][0] * inv_det;
+  Hi[1][1] = H[0][0] * inv_det;
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ bool is_inf(float x) { return fabsf(x) == INFINITY; }
+
+// Curvature of the cell holding arc length s: clamp(int(wrap(s) * inv_ds)).
+// The rounding intrinsics keep the compiler from fusing the wrap into an
+// FMA, so the cell index is the one the plain version computes.
+__device__ __forceinline__ float kap_at(const float* kappa, int n_cells, float length,
+                                        float inv_ds, float s) {
+  const float q = floorf(__fdiv_rn(s, length));
+  const float sm = __fsub_rn(s, __fmul_rn(length, q));
+  int idx = __float2int_rz(__fmul_rn(sm, inv_ds));
+  idx = min(max(idx, 0), n_cells - 1);
+  return __ldg(kappa + idx);
+}
+
+struct VehParams {
+  float m, Iz, lf, lr, Cf, Cr, mu, g, cd0, cd1;
+};
+
+// (10, B) parameter rows, in ops/stage_math.py PARAM_ROWS order.
+__device__ __forceinline__ VehParams load_params(const float* prm, int b, int stride) {
+  const Lane p = lane_of(prm, b, stride);
+  return VehParams{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9]};
+}
+
+// sin(x)/x, 1 at 0 (torch.sinc(x / pi)).
+__device__ __forceinline__ float sinc(float x) {
+  if (x == 0.0f) return 1.0f;
+  const float y = PI_F * (x / PI_F);
+  return sinf(y) / y;
+}
+
+// Cornering stiffnesses: the linear constants (tire 0) or the Pacejka
+// secant stiffness at the scheduled slip (tire 1).
+__device__ __forceinline__ void secant_stiffness(const VehParams& pv, float delta, float vy,
+                                                 float wz, float vxs, int tire, float& Cf,
+                                                 float& Cr) {
+  if (tire != 1) {
+    Cf = pv.Cf;
+    Cr = pv.Cr;
+    return;
+  }
+  const float fzf = pv.mu * pv.m * pv.g * pv.lr / (pv.lf + pv.lr);
+  const float fzr = pv.mu * pv.m * pv.g * pv.lf / (pv.lf + pv.lr);
+  float af = delta - atan2f(vy + pv.lf * wz, vxs);
+  float ar = -atan2f(vy - pv.lr * wz, vxs);
+  if (fabsf(af) < 1e-4f) af = 1e-4f;
+  if (fabsf(ar) < 1e-4f) ar = 1e-4f;
+  const float Bf = pv.Cf / (PACEJKA_C * fmaxf(fzf, 1e-6f));
+  const float Br = pv.Cr / (PACEJKA_C * fmaxf(fzr, 1e-6f));
+  Cf = fzf * sinf(PACEJKA_C * atanf(Bf * af)) / af;
+  Cr = fzr * sinf(PACEJKA_C * atanf(Br * ar)) / ar;
+}
+
+// Continuous-time LPV (A, B) of the dynamic bicycle at (x, u, kappa).
+__device__ __forceinline__ void ab_cont_dynamic(const float (&x)[NX], const float (&u)[NU],
+                                                float kap, const VehParams& pv, int tire,
+                                                float (&A)[NX][NX], float (&B)[NX][NU]) {
+  const float vx = x[0], vy = x[1], wz = x[2], epsi = x[3], ey = x[5];
+  const float delta = u[0];
+  const float vxs = fmaxf(vx, VX_EPS);
+  float Cf, Cr;
+  secant_stiffness(pv, delta, vy, wz, vxs, tire, Cf, Cr);
+  const float sd = sinf(delta), cd = cosf(delta);
+  const float se = sinf(epsi), ce = cosf(epsi);
+  const float den = fmaxf(1.0f - kap * ey, DENOM_EPS);
+  const float m = pv.m, Iz = pv.Iz, lf = pv.lf, lr = pv.lr;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) A[i][j] = 0.0f;
+    B[i][0] = 0.0f;
+    B[i][1] = 0.0f;
+  }
+  A[0][0] = -(pv.cd1 + pv.cd0 / vxs) / m;
+  A[0][1] = Cf * sd / (m * vxs) + wz;
+  A[0][2] = Cf * lf * sd / (m * vxs);
+  A[1][1] = -(Cf * cd + Cr) / (m * vxs);
+  A[1][2] = (-Cf * lf * cd + Cr * lr) / (m * vxs) - vxs;
+  A[2][1] = (-lf * Cf * cd + lr * Cr) / (Iz * vxs);
+  A[2][2] = -(lf * lf * Cf * cd + lr * lr * Cr) / (Iz * vxs);
+  A[3][0] = -kap * ce / den;
+  A[3][1] = kap * se / den;
+  A[3][2] = 1.0f;
+  A[4][0] = ce / den;
+  A[4][1] = -se / den;
+  A[5][1] = ce;
+  A[5][3] = vxs * sinc(epsi);
+  B[0][0] = -Cf * sd / m;
+  B[0][1] = 1.0f;
+  B[1][0] = Cf * cd / m;
+  B[2][0] = lf * Cf * cd / Iz;
+}
+
+// Van Loan exp(dt [[A, B], [0, 0]]) by a 6th-order Taylor series (Horner)
+// with 4 squarings. The bottom block rows of every iterate are [0 I], so
+// only the top blocks E = [Ad Bd] are carried: the same products as the
+// full 8x8 form without its exact-zero terms.
+__device__ __forceinline__ void vanloan(const float (&A)[NX][NX], const float (&B)[NX][NU],
+                                        float dt, float (&Ad)[NX][NX], float (&Bd)[NX][NU]) {
+  constexpr int ORDER = 6, SQUARINGS = 4;
+  const float S = dt / 16.0f;   // dt / 2^SQUARINGS
+  float Ma[NX][NX], Mb[NX][NU], T[NX][NX], Tb[NX][NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      Ma[i][j] = A[i][j] * S;
+      Ad[i][j] = (i == j ? 1.0f : 0.0f) + Ma[i][j] / (float)ORDER;
+    }
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      Mb[i][j] = B[i][j] * S;
+      Bd[i][j] = Mb[i][j] / (float)ORDER;
+    }
+  }
+#pragma unroll
+  for (int k = ORDER - 1; k > 0; --k) {
+    mm(Ma, Ad, T);
+    mm(Ma, Bd, Tb);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Ad[i][j] = (i == j ? 1.0f : 0.0f) + T[i][j] / (float)k;
+#pragma unroll
+      for (int j = 0; j < NU; ++j) Bd[i][j] = (Tb[i][j] + Mb[i][j]) / (float)k;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < SQUARINGS; ++q) {
+    mm(Ad, Ad, T);
+    mm(Ad, Bd, Tb);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) Ad[i][j] = T[i][j];
+#pragma unroll
+      for (int j = 0; j < NU; ++j) Bd[i][j] = Tb[i][j] + Bd[i][j];
+    }
+  }
+}
+
+// Nonlinear dynamic-bicycle Frenet ODE dx/dt (tire 0 linear, 1 Pacejka).
+__device__ __forceinline__ void f_dynamic(const VehParams& pv, const float (&x)[NX],
+                                          const float (&u)[NU], float kap, int tire,
+                                          float (&dx)[NX]) {
+  const float vx = x[0], vy = x[1], wz = x[2], epsi = x[3], ey = x[5];
+  const float delta = u[0], a = u[1];
+  const float vxs = fmaxf(vx, VX_EPS);
+  const float alpha_f = delta - atan2f(vy + pv.lf * wz, vxs);
+  const float alpha_r = -atan2f(vy - pv.lr * wz, vxs);
+  const float L = pv.lf + pv.lr;
+  const float fzf = pv.mu * pv.m * pv.g * pv.lr / L;
+  const float fzr = pv.mu * pv.m * pv.g * pv.lf / L;
+  float fyf, fyr;
+  if (tire == 1) {
+    const float Bf = pv.Cf / (PACEJKA_C * fmaxf(fzf, 1e-6f));
+    const float Br = pv.Cr / (PACEJKA_C * fmaxf(fzr, 1e-6f));
+    fyf = fzf * sinf(PACEJKA_C * atanf(Bf * alpha_f));
+    fyr = fzr * sinf(PACEJKA_C * atanf(Br * alpha_r));
+  } else {
+    fyf = pv.Cf * alpha_f;
+    fyr = pv.Cr * alpha_r;
+  }
+  const float sd = sinf(delta), cd = cosf(delta);
+  const float se = sinf(epsi), ce = cosf(epsi);
+  const float denom = fmaxf(1.0f - kap * ey, DENOM_EPS);
+  const float sdot = (vx * ce - vy * se) / denom;
+  dx[0] = a - (fyf * sd) / pv.m + wz * vy - (pv.cd0 + pv.cd1 * vx) / pv.m;
+  dx[1] = (fyf * cd + fyr) / pv.m - wz * vx;
+  dx[2] = (pv.lf * fyf * cd - pv.lr * fyr) / pv.Iz;
+  dx[3] = wz - kap * sdot;
+  dx[4] = sdot;
+  dx[5] = vx * se + vy * ce;
+}
+
+// Running maxima of one ADMM iteration, in the z-space of the splitting:
+// |G - s|, |D'(s - s_prev)|, |G|, |s|, |D' lam| (the OSQP termination test).
+struct Resid {
+  float r_p, dual_ds, g_max, s_max, dual_lam;
+};
+
+__device__ __forceinline__ bool converged(const Resid& r, float rho, float eps_abs,
+                                          float eps_rel) {
+  const float e_p = eps_abs + eps_rel * fmaxf(r.g_max, r.s_max);
+  const float e_d = eps_abs + eps_rel * r.dual_lam;
+  return r.r_p <= e_p && rho * r.dual_ds <= e_d;
+}
+
+}  // namespace arl

@@ -1,0 +1,169 @@
+"""Batch-last stage math in plain PyTorch (the JAX package's
+``ops/stage_math.py``), used by the plain megastep.
+
+The scenario batch is the LAST axis; any axes between the matrix axes and
+the batch are carried along (the plain megastep builds all N stages at
+once as (..., N, B)). The CUDA kernels compute the same functions per lane
+in ``csrc/arl_common.cuh``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NX, NU, NA, NC = 6, 2, 8, 6            # dynamic-bicycle dims
+VX_EPS = 0.05
+DENOM_EPS = 0.1
+PACEJKA_C = 1.3
+PARAM_ROWS = ("m", "Iz", "lf", "lr", "Cf", "Cr", "mu", "g", "cd0", "cd1")
+
+
+def unpack_params(prm: torch.Tensor) -> dict:
+    """(10, B) vehicle-parameter rows -> named (B,) values."""
+    return dict(zip(PARAM_ROWS, prm))
+
+
+def _mm(a, b):
+    """(i, j, ...) @ (j, l, ...) -> (i, l, ...)"""
+    return torch.einsum("ij...,jl...->il...", a, b)
+
+
+def _sinc(x):
+    return torch.sinc(x / math.pi)
+
+
+def secant_stiffness(pv, delta, vy, wz, vxs, tire: str):
+    """Per-lane cornering stiffnesses: the linear constants or the Pacejka
+    secant stiffness at the scheduled slip."""
+    if tire != "pacejka":
+        return pv["Cf"], pv["Cr"]
+    lf, lr = pv["lf"], pv["lr"]
+    fzf = pv["mu"] * pv["m"] * pv["g"] * lr / (lf + lr)
+    fzr = pv["mu"] * pv["m"] * pv["g"] * lf / (lf + lr)
+    af = delta - torch.atan2(vy + lf * wz, vxs)
+    ar = -torch.atan2(vy - lr * wz, vxs)
+    eps = 1e-4
+    af = torch.where(torch.abs(af) < eps, torch.full_like(af, eps), af)
+    ar = torch.where(torch.abs(ar) < eps, torch.full_like(ar, eps), ar)
+    Bf_ = pv["Cf"] / (PACEJKA_C * torch.clamp_min(fzf, 1e-6))
+    Br_ = pv["Cr"] / (PACEJKA_C * torch.clamp_min(fzr, 1e-6))
+    Cf = fzf * torch.sin(PACEJKA_C * torch.atan(Bf_ * af)) / af
+    Cr = fzr * torch.sin(PACEJKA_C * torch.atan(Br_ * ar)) / ar
+    return Cf, Cr
+
+
+def _ab_cont_dynamic(x, u, kap, pv, tire: str):
+    """Continuous-time LPV (A, B) for the dynamic bicycle, batch-last:
+    x (NX, ...), u (NU, ...), kap (...) -> (NX, NX, ...), (NX, NU, ...)."""
+    m_, Iz, lf, lr = pv["m"], pv["Iz"], pv["lf"], pv["lr"]
+    cd0, cd1 = pv["cd0"], pv["cd1"]
+    vx, vy, wz, epsi, ey = x[0], x[1], x[2], x[3], x[5]
+    delta = u[0]
+    vxs = torch.clamp_min(vx, VX_EPS)
+    Cf, Cr = secant_stiffness(pv, delta, vy, wz, vxs, tire)
+
+    sd, cd_ = torch.sin(delta), torch.cos(delta)
+    se, ce = torch.sin(epsi), torch.cos(epsi)
+    den = torch.clamp_min(1.0 - kap * ey, DENOM_EPS)
+    z = torch.zeros_like(vx)
+    one = torch.ones_like(vx)
+
+    a00 = -(cd1 + cd0 / vxs) / m_
+    a01 = Cf * sd / (m_ * vxs) + wz
+    a02 = Cf * lf * sd / (m_ * vxs)
+    a11 = -(Cf * cd_ + Cr) / (m_ * vxs)
+    a12 = (-Cf * lf * cd_ + Cr * lr) / (m_ * vxs) - vxs
+    a21 = (-lf * Cf * cd_ + lr * Cr) / (Iz * vxs)
+    a22 = -(lf ** 2 * Cf * cd_ + lr ** 2 * Cr) / (Iz * vxs)
+    a30 = -kap * ce / den
+    a31 = kap * se / den
+    a40 = ce / den
+    a41 = -se / den
+    a51 = ce
+    a53 = vxs * _sinc(epsi)
+    A6 = torch.stack([
+        torch.stack([a00, a01, a02, z, z, z]),
+        torch.stack([z, a11, a12, z, z, z]),
+        torch.stack([z, a21, a22, z, z, z]),
+        torch.stack([a30, a31, one, z, z, z]),
+        torch.stack([a40, a41, z, z, z, z]),
+        torch.stack([z, a51, z, a53, z, z]),
+    ])
+    b00 = -Cf * sd / m_
+    b10 = Cf * cd_ / m_
+    b20 = lf * Cf * cd_ / Iz
+    B6 = torch.stack([
+        torch.stack([b00, one]),
+        torch.stack([b10, z]),
+        torch.stack([b20, z]),
+        torch.stack([z, z]),
+        torch.stack([z, z]),
+        torch.stack([z, z]),
+    ])
+    return A6, B6
+
+
+def _vanloan_aug(A_c, B_c, *, dt: float, squarings: int, order: int):
+    """Van Loan exp([[A, B], [0, 0]] dt) + (x, u_prev) augmentation,
+    batch-last. Returns (Aa (NA, NA, ...), Ba (NA, NU, ...))."""
+    nx = A_c.shape[0]
+    na = nx + NU
+    lanes = A_c.shape[2:]
+    kw = dict(dtype=A_c.dtype, device=A_c.device)
+    top = torch.cat([A_c, B_c], dim=1)
+    Mv = torch.cat([top, torch.zeros((NU, na) + lanes, **kw)], dim=0) * (dt / (2.0 ** squarings))
+    Iav = torch.eye(na, **kw).reshape((na, na) + (1,) * len(lanes))
+    E = Iav + Mv / order
+    for j in range(order - 1, 0, -1):
+        E = Iav + _mm(Mv, E) / j
+    for _ in range(squarings):
+        E = _mm(E, E)
+    Ad = E[:nx, :nx]
+    Bd = E[:nx, nx:]
+    Aa = torch.zeros((na, na) + lanes, **kw)
+    Aa[:nx, :nx] = Ad
+    Ba = torch.cat([Bd, torch.eye(NU, **kw).reshape((NU, NU) + (1,) * len(lanes)).expand((NU, NU) + lanes)], dim=0)
+    return Aa, Ba
+
+
+def stage_aug_ab(x, u, kap, pv, *, dt: float, tire: str, squarings: int = 4, order: int = 6):
+    """One scheduled stage (or a stack of them): LPV linearization + Van
+    Loan discretization + augmentation, batch-last."""
+    A_c, B_c = _ab_cont_dynamic(x, u, kap, pv, tire)
+    return _vanloan_aug(A_c, B_c, dt=dt, squarings=squarings, order=order)
+
+
+def f_dynamic_bl(pv, x, u, kap, tire: str):
+    """Batch-last nonlinear dynamic-bicycle Frenet ODE. x (NX, B)."""
+    vx, vy, wz, epsi, ey = x[0], x[1], x[2], x[3], x[5]
+    delta, a = u[0], u[1]
+    m_, Iz, lf, lr = pv["m"], pv["Iz"], pv["lf"], pv["lr"]
+    vxs = torch.clamp_min(vx, VX_EPS)
+
+    alpha_f = delta - torch.atan2(vy + lf * wz, vxs)
+    alpha_r = -torch.atan2(vy - lr * wz, vxs)
+    L = lf + lr
+    fzf = pv["mu"] * m_ * pv["g"] * lr / L
+    fzr = pv["mu"] * m_ * pv["g"] * lf / L
+    if tire == "pacejka":
+        Bf_ = pv["Cf"] / (PACEJKA_C * torch.clamp_min(fzf, 1e-6))
+        Br_ = pv["Cr"] / (PACEJKA_C * torch.clamp_min(fzr, 1e-6))
+        fyf = fzf * torch.sin(PACEJKA_C * torch.atan(Bf_ * alpha_f))
+        fyr = fzr * torch.sin(PACEJKA_C * torch.atan(Br_ * alpha_r))
+    else:
+        fyf = pv["Cf"] * alpha_f
+        fyr = pv["Cr"] * alpha_r
+
+    sd, cd_ = torch.sin(delta), torch.cos(delta)
+    dvx = a - (fyf * sd) / m_ + wz * vy - (pv["cd0"] + pv["cd1"] * vx) / m_
+    dvy = (fyf * cd_ + fyr) / m_ - wz * vx
+    dwz = (lf * fyf * cd_ - lr * fyr) / Iz
+
+    se, ce = torch.sin(epsi), torch.cos(epsi)
+    denom = torch.clamp_min(1.0 - kap * ey, DENOM_EPS)
+    sdot = (vx * ce - vy * se) / denom
+    depsi = wz - kap * sdot
+    dey = vx * se + vy * ce
+    return torch.stack([dvx, dvy, dwz, depsi, sdot, dey])
