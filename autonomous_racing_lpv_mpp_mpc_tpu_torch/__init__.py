@@ -5,11 +5,13 @@ package mirrors its layout and names module by module, so each function has
 an obvious counterpart:
 
 - ``core``     — frozen dataclass configs (vehicle, MPC, solver).
-- ``track``    — track compiler and curvature lookup.
+- ``track``    — track compiler, curvature lookup, Frenet transforms.
 - ``models``   — tires, Frenet bicycle ODEs, LPV model, discretization.
 - ``engine``   — horizon scheduling and block-structured QP assembly.
 - ``solver``   — Riccati factor/solve and batched OSQP-semantics ADMM.
-- ``loop``     — receding-horizon controller and closed loop.
+- ``loop``     — receding-horizon controller, closed loop, EKF, friction
+                 RLS, world-frame plant and the composed race loop.
+- ``planner``  — reference tables.
 - ``parallel`` — scenario grids.
 - ``ops``      — hand-written CUDA kernels (``ops/csrc``) with their plain
                  PyTorch versions beside them.

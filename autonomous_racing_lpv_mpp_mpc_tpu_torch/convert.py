@@ -21,8 +21,13 @@ import numpy as np
 import torch
 
 from .core.config import MPCBounds, MPCConfig, MPCWeights, SolverConfig, VehicleParams
+from .loop.estimator import EKFState
+from .loop.friction import FrictionState
 from .loop.mpc import MPCCarry
+from .loop.race import RaceCarry
 from .ops.megastep_kernel import MegaCarry
+from .ops.racestep_kernel import RaceMegaCarry
+from .planner.reftable import RefTable
 from .solver.admm import BoxQP
 from .solver.riccati import LQRCost, LQRDynamics
 from .track.track import Track
@@ -83,6 +88,32 @@ def mega_carry(obj, device=None) -> MegaCarry:
     return MegaCarry(*(tensor(getattr(obj, n), device) for n in MegaCarry._fields))
 
 
+def race_mega_carry(obj, device=None) -> RaceMegaCarry:
+    return RaceMegaCarry(*(tensor(getattr(obj, n), device) for n in RaceMegaCarry._fields))
+
+
+def ref_table(obj, device=None) -> RefTable:
+    return RefTable(*(tensor(getattr(obj, f.name), device) for f in dataclasses.fields(RefTable)))
+
+
+def ekf_state(obj, device=None) -> EKFState:
+    return EKFState(*(tensor(getattr(obj, n), device) for n in EKFState._fields))
+
+
+def friction_state(obj, device=None) -> FrictionState:
+    return FrictionState(*(tensor(getattr(obj, n), device) for n in FrictionState._fields))
+
+
+def race_carry(obj, device=None) -> RaceCarry:
+    """A (batched) JAX ``RaceCarry``. Its PRNG key has no counterpart: the
+    carry comes without a noise stream (``generator=None``, clean
+    measurements) until the caller ``_replace``s one in."""
+    return RaceCarry(xg=tensor(obj.xg, device), mpc=mpc_carry(obj.mpc, device),
+                     ekf=ekf_state(obj.ekf, device), fric=friction_state(obj.fric, device),
+                     x_prev_f=tensor(obj.x_prev_f, device), u_prev=tensor(obj.u_prev, device),
+                     generator=None)
+
+
 def _shared_rows(a, device, ndim=2):
     """Per-row data shared by the batch: ``ndim`` dims, or one more (a
     leading batch) with identical entries per lane."""
@@ -105,8 +136,19 @@ def boxqp(obj, device=None) -> BoxQP:
 
 
 def to_numpy(carry) -> dict:
-    """A port carry (MPCCarry or MegaCarry) as a dict of numpy arrays."""
-    return {n: getattr(carry, n).detach().cpu().numpy() for n in carry._fields}
+    """A port carry (MPCCarry, MegaCarry, RaceMegaCarry, EKFState,
+    FrictionState, RaceCarry) or RefTable as a dict of numpy arrays; nested
+    carries become nested dicts and RaceCarry's generator is left out."""
+    if isinstance(carry, RefTable):
+        return {f.name: getattr(carry, f.name).detach().cpu().numpy() for f in dataclasses.fields(carry)}
+    out = {}
+    for n in carry._fields:
+        v = getattr(carry, n)
+        if isinstance(v, torch.Tensor):
+            out[n] = v.detach().cpu().numpy()
+        elif isinstance(v, tuple):
+            out[n] = to_numpy(v)
+    return out
 
 
 def boxqp_to_numpy(qp: BoxQP) -> dict:

@@ -1,4 +1,15 @@
 from .closed_loop import ClosedLoopLog, closed_loop, plant_step
+from .estimator import DEFAULT_EKF_Q, EKFState, ekf_init, ekf_step, noisy_measurement
+from .friction import (
+    MU_MAX,
+    MU_MIN,
+    FrictionState,
+    friction_init,
+    friction_step,
+    measured_axle_forces,
+)
+from .global_loop import estimate_frenet, f_global, global_plant_step
+from .lap_learning import initial_table
 from .mpc import (
     MPCCarry,
     MPCDiag,
@@ -8,16 +19,43 @@ from .mpc import (
     mpc_step,
     mpc_step_batched,
 )
+from .race import (
+    BatchedRaceLog,
+    RaceCarry,
+    batched_race_sweep,
+    make_racestep_scan,
+    mega_race_sweep,
+)
 
 __all__ = [
+    "BatchedRaceLog",
     "ClosedLoopLog",
+    "DEFAULT_EKF_Q",
+    "EKFState",
+    "FrictionState",
     "MPCCarry",
     "MPCDiag",
+    "MU_MAX",
+    "MU_MIN",
+    "RaceCarry",
+    "batched_race_sweep",
     "closed_loop",
     "constant_refs",
+    "ekf_init",
+    "ekf_step",
+    "estimate_frenet",
+    "f_global",
+    "friction_init",
+    "friction_step",
+    "global_plant_step",
+    "initial_table",
+    "make_racestep_scan",
+    "measured_axle_forces",
+    "mega_race_sweep",
     "mpc_init",
     "mpc_prepare",
     "mpc_step",
     "mpc_step_batched",
+    "noisy_measurement",
     "plant_step",
 ]

@@ -16,6 +16,7 @@ from ..core.config import MPCConfig, SolverConfig, VehicleParams
 from ..engine.assembly import N_CON, build_boxqp, initial_schedule, shift_schedule
 from ..models import model_nx
 from ..models.dynamics import NU
+from ..planner.reftable import RefTable, refs_from_table
 from ..solver.admm import ADMMSolution, BoxQP, admm_solve
 from ..track.track import Track, curvature_at
 
@@ -60,15 +61,17 @@ def mpc_init(p: VehicleParams, cfg: MPCConfig, track: Track, x0: torch.Tensor,
 
 
 def mpc_prepare(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
-                x_ref: torch.Tensor, carry: MPCCarry, obstacles=None):
+                x_ref, carry: MPCCarry, obstacles=None):
     """Scheduling + assembly + warm start for one step.
 
     Returns (qp, warm, U_sched) with warm = (s, lam, Xa, U) shifted one
-    stage. ``x_ref`` is (N+1, nx) shared or (B, N+1, nx); planner reference
-    tables are not ported yet.
+    stage. ``x_ref`` is (N+1, nx) shared, (B, N+1, nx), or a
+    :class:`RefTable` sampled along each lane's scheduled s.
     """
     X_shift, U_sched = shift_schedule(carry.X_pred, carry.U_pred)
     X_sched = torch.cat([x.unsqueeze(-2), X_shift[..., 1:, :]], dim=-2)
+    if isinstance(x_ref, RefTable):
+        x_ref = refs_from_table(cfg, x_ref, X_sched[..., 4 if cfg.model == "dynamic" else 2])
     qp = build_boxqp(p, cfg, track, x, carry.u_prev, X_sched, U_sched, x_ref,
                      obstacles=obstacles)
     s_w = torch.cat([carry.s[..., 1:, :], carry.s[..., -1:, :]], dim=-2)
@@ -144,7 +147,7 @@ def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
 
 
 def mpc_step(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
-             x: torch.Tensor, x_ref: torch.Tensor, carry: MPCCarry):
+             x: torch.Tensor, x_ref, carry: MPCCarry):
     """One control step for one vehicle: x (nx,), carry leaves unbatched,
     ``p`` leaves floats or 0-d tensors."""
     one = lambda t: t.unsqueeze(0)

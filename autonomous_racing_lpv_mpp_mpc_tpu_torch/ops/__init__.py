@@ -11,10 +11,13 @@ from .megastep_kernel import (
     megastep_params,
     megastep_plain,
     megastep_refs,
+    mpc_core_plain,
 )
+from .racestep_kernel import RaceMegaCarry, racestep, racestep_init, racestep_plain
 
 __all__ = [
     "MegaCarry",
+    "RaceMegaCarry",
     "admm_kernel_solve",
     "admm_solve_plain",
     "megastep",
@@ -22,4 +25,8 @@ __all__ = [
     "megastep_params",
     "megastep_plain",
     "megastep_refs",
+    "mpc_core_plain",
+    "racestep",
+    "racestep_init",
+    "racestep_plain",
 ]

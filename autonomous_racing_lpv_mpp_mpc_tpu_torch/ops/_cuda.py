@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels in ``ops/csrc``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-happens at first use, into ``<package>/_build/``, under a name that carries
-the hash of the sources, so an edited source rebuilds and an unchanged one
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` per ``.cu`` file, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build happens
+at first use, into ``<package>/_build/``, under a name that carries the
+hash of the sources, so an edited source rebuilds and an unchanged one
 loads the existing library. Nothing here runs at import time.
 """
 
@@ -22,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _sources():
@@ -50,18 +51,39 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels if the library for the current sources is
-    missing; returns its path. The compiler's log (registers, spills) is
+    missing; returns its path. The compilers' log (registers, spills) is
     written beside it as ``.log``."""
     lib = BUILD_DIR / f"libarl_kernels_{source_hash()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(p) for p in _sources() if p.suffix == ".cu"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) on {cmd[-1]}:\n{err[-4000:]}")
+    tmp = lib.with_name(f"{tag}.tmp")
+    if not failed:
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp)]
+        link += [str(obj) for _, obj, _ in jobs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, lib)
     return lib
 
@@ -74,7 +96,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     sig = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    for name in ("arl_admm_solve", "arl_megastep"):
+    for name in ("arl_admm_solve", "arl_megastep", "arl_racestep"):
         fn = getattr(lib, name)
         fn.argtypes = sig
         fn.restype = ctypes.c_int
@@ -84,7 +106,10 @@ def library() -> ctypes.CDLL:
 def launch(name: str, tensors, floats, ints) -> None:
     """Call the C entry ``name`` with device pointers, float and int
     parameters on the current stream; raise if the launch failed."""
+    lib = library()
     dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: operands on {dev}; the kernels take CUDA tensors")
     for t in tensors:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: every operand must be a contiguous float32 tensor on {dev}")
@@ -92,9 +117,9 @@ def launch(name: str, tensors, floats, ints) -> None:
     fv = (ctypes.c_float * len(floats))(*floats)
     iv = (ctypes.c_int * len(ints))(*ints)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(library(), name)(ptrs, len(tensors), fv, len(floats), iv, len(ints),
-                                  dev.index if dev.index is not None else torch.cuda.current_device(),
-                                  ctypes.c_void_p(stream))
+    rc = getattr(lib, name)(ptrs, len(tensors), fv, len(floats), iv, len(ints),
+                            dev.index if dev.index is not None else torch.cuda.current_device(),
+                            ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed with code {rc}"
                            + (" (operand count mismatch)" if rc < 0 else " (cudaError_t)"))

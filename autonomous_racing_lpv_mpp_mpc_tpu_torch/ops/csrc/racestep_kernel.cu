@@ -1,0 +1,443 @@
+// Racestep: the composed deployment step of every lane in one launch, for
+// NVIDIA Hopper (sm_90a).
+//
+// Replaces the JAX package's ops/racestep_kernel.py::_racestep_kernel, a
+// Pallas TPU kernel. Plain PyTorch version:
+// ops/racestep_kernel.py::racestep_plain.
+//
+// Design. One thread owns one lane (a car); 128 threads form a block, as
+// in the megastep. Each thread runs, in order:
+//   1. measurement: the nearest centerline node to the world-frame truth
+//      among the cells within +-win_cells of the EKF's s (plain indexed
+//      loads, cell ids wrapped mod n_cells, ties to the smallest id), the
+//      tangent projection, e_psi by atan2f, the lap unwrap
+//      floor((s_hint - s_w) / L + 0.5), plus the pre-scaled noise -> z;
+//   2. EKF at mu-hat: n_sub_ekf Euler sub-steps of the Frenet model, the
+//      forward-difference Jacobian (reusing the centre evaluation),
+//      F = prod(I + h J), Pp = F P F' + diag(q), optional per-channel
+//      gating, S = Pp + diag(R) inverted by unpivoted Gauss-Jordan,
+//      K = Pp S^-1, xf = x + K nu, P = sym((I - K) Pp);
+//   3. friction RLS: axle forces at the midpoint of x_prev_f and xf, two
+//      excitation-gated scalar updates with the analytic dFy/dmu (the
+//      result is the next step's mu-hat);
+//   4. references: a shared RefTable sampled into the lane's workspace
+//      rows along the shifted schedule (linear interpolation of vx, e_y and
+//      the precomputed e_psi node channel), or the caller's tensor rows;
+//   5. the tracker core of mpc_core.cuh at mu-hat (the megastep's code,
+//      with its 128-lane early-exit vote);
+//   6. n_sub Euler sub-steps of the world-frame plant at the lane's true mu.
+//
+// What bounds it on the H100: the tracker core, as in the megastep — a
+// long serial chain of small dense algebra per lane over a per-lane
+// workspace in device memory (L2-resident at B=4096) — plus the EKF's
+// 6x6 products (7 model evaluations per sub-step, a Gauss-Jordan inverse),
+// which live in registers and spill to local memory. The measurement reads
+// 2 (2 win_cells + 1) table floats per lane from the L1/L2-cached pose
+// tables. The design keeps every stage of the composed step in one launch,
+// so nothing but the carry crosses device memory between stages; shared-
+// memory staging of the EKF and finer-grained lanes are later work.
+#include "mpc_core.cuh"
+
+namespace arl {
+
+struct RaceParams {
+  CoreParams C;
+  // inputs, batch-last
+  const float *xg, *ekx, *ekP, *fr, *xprev, *noise, *mu_true, *xref, *prm;
+  // tables: pose X, Y, psi (n_cells,), EKF q, r (6,), reference vx, ey,
+  // e_psi nodes (n_ref,), reference [length, 1/ds]
+  const float *Xt, *Yt, *Pt, *ekq, *ekr, *rvx, *rey, *rep, *rtaux;
+  // outputs, batch-last
+  float *xg_out, *ekx_out, *ekP_out, *fr_out, *xf_out, *z_out, *ws;
+  int n_sub, sim_tire, ws_rows, n_sub_ekf, use_ekf, adapt_mu, use_table, n_ref, win_cells;
+  float gate_sigma, forgetting, min_sensitivity, fd_eps, inv_fd_eps;
+};
+
+constexpr int RACE_PTRS = 39;
+constexpr int RACE_INTS = 17;
+constexpr int RACE_FLOATS = CORE_FLOATS + 5;
+constexpr float MU_MIN = 0.1f;
+constexpr float MU_MAX = 1.5f;
+
+// s wrapped into [0, length), rounded as the plain version rounds it.
+__device__ __forceinline__ float wrap_s(float s, float length) {
+  return __fsub_rn(s, __fmul_rn(length, floorf(__fdiv_rn(s, length))));
+}
+
+// World-frame dynamic bicycle ODE, xg = (vx, vy, wz, X, Y, psi).
+__device__ __forceinline__ void f_global(const VehParams& pv, const float (&x)[NX],
+                                         const float (&u)[NU], int tire, float (&dx)[NX]) {
+  const float vx = x[0], vy = x[1], wz = x[2], psi = x[5];
+  const float delta = u[0], a = u[1];
+  const float vxs = fmaxf(vx, VX_EPS);
+  const float alpha_f = delta - atan2f(vy + pv.lf * wz, vxs);
+  const float alpha_r = -atan2f(vy - pv.lr * wz, vxs);
+  const float L = pv.lf + pv.lr;
+  const float fzf = pv.mu * pv.m * pv.g * pv.lr / L;
+  const float fzr = pv.mu * pv.m * pv.g * pv.lf / L;
+  float fyf, fyr;
+  if (tire == 1) {
+    const float Bf = pv.Cf / (PACEJKA_C * fmaxf(fzf, 1e-6f));
+    const float Br = pv.Cr / (PACEJKA_C * fmaxf(fzr, 1e-6f));
+    fyf = fzf * sinf(PACEJKA_C * atanf(Bf * alpha_f));
+    fyr = fzr * sinf(PACEJKA_C * atanf(Br * alpha_r));
+  } else {
+    fyf = pv.Cf * alpha_f;
+    fyr = pv.Cr * alpha_r;
+  }
+  const float sd = sinf(delta), cd = cosf(delta);
+  const float sp = sinf(psi), cp = cosf(psi);
+  dx[0] = a - (fyf * sd) / pv.m + wz * vy - (pv.cd0 + pv.cd1 * vx) / pv.m;
+  dx[1] = (fyf * cd + fyr) / pv.m - wz * vx;
+  dx[2] = (pv.lf * fyf * cd - pv.lr * fyr) / pv.Iz;
+  dx[3] = vx * cp - vy * sp;
+  dx[4] = vx * sp + vy * cp;
+  dx[5] = wz;
+}
+
+// Magic formula Fy = mu fz sin(C atan(B alpha)), B = stiff / (C mu fz), and
+// its analytic dFy/dmu = fz [sin th - cos th C t / (1 + t^2)].
+__device__ __forceinline__ void pacejka_mu_sensitivity(float mu, float alpha, float stiff,
+                                                       float fz, float& fy, float& dfy) {
+  const float D = fmaxf(mu * fz, 1e-6f);
+  const float t = stiff / (PACEJKA_C * D) * alpha;
+  const float th = PACEJKA_C * atanf(t);
+  const float s = sinf(th), c = cosf(th);
+  fy = mu * fz * s;
+  dfy = fz * (s - c * PACEJKA_C * t / (1.0f + t * t));
+}
+
+// In-place inverse of an SPD 6x6 matrix by Gauss-Jordan without pivoting
+// (an innovation covariance: positive diagonal, no vanishing pivot).
+__device__ __forceinline__ void inv6(float (&M)[NX][NX], float (&Inv)[NX][NX]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Inv[i][j] = i == j ? 1.0f : 0.0f;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    const float rec = 1.0f / M[j][j];
+    float Mj[NX], Ij[NX];
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      Mj[c] = M[j][c] * rec;
+      Ij[c] = Inv[j][c] * rec;
+    }
+#pragma unroll
+    for (int r = 0; r < NX; ++r) {
+      const float fac = M[r][j];
+#pragma unroll
+      for (int c = 0; c < NX; ++c) {
+        M[r][c] = r == j ? Mj[c] : M[r][c] - fac * Mj[c];
+        Inv[r][c] = r == j ? Ij[c] : Inv[r][c] - fac * Ij[c];
+      }
+    }
+  }
+}
+
+// 1. The Frenet measurement of the world-frame pose, hint-windowed.
+__device__ __forceinline__ void measure(const RaceParams& P, const float (&xg)[NX], float s_hint,
+                                        float (&z)[NX]) {
+  const int n = P.C.n_cells, W = P.win_cells;
+  const float length = P.C.taux[0], inv_ds = P.C.taux[1];
+  const float ds = 1.0f / inv_ds;
+  const float Xw = xg[3], Yw = xg[4], psiw = xg[5];
+  const int i_hint = min(max(__float2int_rz(__fmul_rn(wrap_s(s_hint, length), inv_ds)), 0), n - 1);
+  float best = INFINITY;
+  int i_star = n;
+  const bool all = 2 * W + 1 >= n;
+  const int lo = all ? 0 : -W, hi = all ? n - 1 : W;
+  for (int d = lo; d <= hi; ++d) {
+    int c = all ? d : i_hint + d;
+    if (c < 0) c += n;
+    if (c >= n) c -= n;
+    const float dx = __fsub_rn(Xw, __ldg(P.Xt + c)), dy = __fsub_rn(Yw, __ldg(P.Yt + c));
+    const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+    if (d2 < best || (d2 == best && c < i_star)) {
+      best = d2;
+      i_star = c;
+    }
+  }
+  const float Pi = __ldg(P.Pt + i_star);
+  const float tx = cosf(Pi), ty = sinf(Pi);
+  const float ddx = __fsub_rn(Xw, __ldg(P.Xt + i_star)), ddy = __fsub_rn(Yw, __ldg(P.Yt + i_star));
+  const float along = __fadd_rn(__fmul_rn(ddx, tx), __fmul_rn(ddy, ty));
+  const float e_y = __fadd_rn(__fmul_rn(-ddx, ty), __fmul_rn(ddy, tx));
+  const float s_w = wrap_s(__fadd_rn(__fmul_rn((float)i_star, ds), along), length);
+  const float dpsi = psiw - (Pi + kap_at(P.C.kappa, n, length, inv_ds, s_w) * along);
+  const float e_psi = atan2f(sinf(dpsi), cosf(dpsi));
+  const float lap = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(s_hint, s_w), length), 0.5f));
+  z[0] = xg[0];
+  z[1] = xg[1];
+  z[2] = xg[2];
+  z[3] = e_psi;
+  z[4] = __fadd_rn(s_w, __fmul_rn(lap, length));
+  z[5] = e_y;
+}
+
+// 2. EKF predict + update at pv (mu = mu-hat): xf, and P in place.
+__device__ __forceinline__ void ekf(const RaceParams& P, const VehParams& pv,
+                                    const float (&u_prev)[NU], const float (&z)[NX],
+                                    float (&x)[NX], float (&Pm)[NX][NX]) {
+  const float length = P.C.taux[0], inv_ds = P.C.taux[1];
+  const float h = P.C.dt / (float)P.n_sub_ekf;
+  float F[NX][NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) F[i][j] = i == j ? 1.0f : 0.0f;
+  for (int it = 0; it < P.n_sub_ekf; ++it) {
+    const float kap = kap_at(P.C.kappa, P.C.n_cells, length, inv_ds, x[4]);
+    float fx[NX], G[NX][NX];
+    f_dynamic(pv, x, u_prev, kap, P.C.tire, fx);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float xp[NX], fp[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xp[i] = i == j ? x[i] + P.fd_eps : x[i];
+      f_dynamic(pv, xp, u_prev, kap, P.C.tire, fp);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) G[i][j] = (i == j ? 1.0f : 0.0f) + h * ((fp[i] - fx[i]) * P.inv_fd_eps);
+    }
+    float Fn[NX][NX];
+    mm(G, F, Fn);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+#pragma unroll
+      for (int j = 0; j < NX; ++j) F[i][j] = Fn[i][j];
+      x[i] = x[i] + h * fx[i];
+    }
+  }
+  // Pp = F (P F') + diag(q)
+  float T[NX][NX], Pp[NX][NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int l = 0; l < NX; ++l) {
+      float acc = Pm[i][0] * F[l][0];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) acc += Pm[i][j] * F[l][j];
+      T[i][l] = acc;
+    }
+  mm(F, T, Pp);
+  float nu[NX], Rd[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    Pp[i][i] += __ldg(P.ekq + i);
+    nu[i] = z[i] - x[i];
+    Rd[i] = __ldg(P.ekr + i);
+  }
+  if (P.gate_sigma > 0.0f) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      const float s0 = Pp[i][i] + Rd[i];
+      if (fabsf(nu[i]) > P.gate_sigma * sqrtf(s0)) Rd[i] += 1e6f * s0;
+    }
+  }
+  float Sm[NX][NX], Sinv[NX][NX], K[NX][NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Sm[i][j] = i == j ? Pp[i][j] + Rd[i] : Pp[i][j];
+  inv6(Sm, Sinv);
+  mm(Pp, Sinv, K);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    float acc = K[i][0] * nu[0];
+#pragma unroll
+    for (int j = 1; j < NX; ++j) acc += K[i][j] * nu[j];
+    x[i] = x[i] + acc;
+  }
+  // P <- sym((I - K) Pp)
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int l = 0; l < NX; ++l) {
+      float acc = ((i == 0 ? 1.0f : 0.0f) - K[i][0]) * Pp[0][l];
+#pragma unroll
+      for (int j = 1; j < NX; ++j) acc += ((i == j ? 1.0f : 0.0f) - K[i][j]) * Pp[j][l];
+      T[i][l] = acc;
+    }
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Pm[i][j] = 0.5f * (T[i][j] + T[j][i]);
+}
+
+// 3. One step of the friction RLS; returns the updated [mu, P].
+__device__ __forceinline__ void friction_rls(const RaceParams& P, const VehParams& pv,
+                                             const float (&xp)[NX], const float (&xf)[NX],
+                                             const float (&u_prev)[NU], float& mu, float& Pr) {
+  const float dt = P.C.dt;
+  const float vx = 0.5f * (xp[0] + xf[0]), vy = 0.5f * (xp[1] + xf[1]), wz = 0.5f * (xp[2] + xf[2]);
+  const float delta = u_prev[0];
+  const float y1 = pv.m * ((xf[1] - xp[1]) / dt + wz * vx);
+  const float y2 = pv.Iz * ((xf[2] - xp[2]) / dt);
+  const float L = pv.lf + pv.lr;
+  float cd = cosf(delta);
+  if (fabsf(cd) < 0.1f) cd = 0.1f;
+  const float vxs = fmaxf(vx, VX_EPS);
+  const float y_m[2] = {(pv.lr * y1 + y2) / (L * cd), (pv.lf * y1 - y2) / L};
+  const float a_x[2] = {delta - atan2f(vy + pv.lf * wz, vxs), -atan2f(vy - pv.lr * wz, vxs)};
+  const float stiff[2] = {pv.Cf, pv.Cr};
+  const float fz[2] = {pv.m * pv.g * pv.lr / L, pv.m * pv.g * pv.lf / L};
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    float hval, J;
+    pacejka_mu_sensitivity(mu, a_x[a], stiff[a], fz[a], hval, J);
+    if (fabsf(J) >= P.min_sensitivity * fz[a]) {
+      const float K = Pr * J / (P.forgetting + J * Pr * J);
+      const float mu2 = clampf(mu + K * (y_m[a] - hval), MU_MIN, MU_MAX);
+      Pr = (Pr - K * J * Pr) / P.forgetting;
+      mu = mu2;
+    }
+  }
+}
+
+// 4. The lane's (N+1, NX) reference rows from the shared table, sampled at
+// the shifted schedule's s: row 0 at xf, row k at X_pred[min(k+1, N)].
+__device__ __forceinline__ void table_refs(const RaceParams& P, int b, float s0, const Lane& rows) {
+  const int N = P.C.N, S = P.C.B, n = P.n_ref;
+  const Lane Xp = lane_of(P.C.Xp, b, S);
+  const float Lt = P.rtaux[0], inv_dst = P.rtaux[1];
+  for (int k = 0; k <= N; ++k) {
+    const float s = k == 0 ? s0 : Xp[min(k + 1, N) * NX + 4];
+    const float ff = __fmul_rn(wrap_s(s, Lt), inv_dst);
+    const int i0 = min(max(__float2int_rz(ff), 0), n - 1);
+    const int i1 = i0 + 1 == n ? 0 : i0 + 1;
+    const float t = __fsub_rn(ff, (float)i0), w0 = 1.0f - t;
+    const float vx = __fadd_rn(__fmul_rn(__ldg(P.rvx + i0), w0), __fmul_rn(__ldg(P.rvx + i1), t));
+    const float ey = __fadd_rn(__fmul_rn(__ldg(P.rey + i0), w0), __fmul_rn(__ldg(P.rey + i1), t));
+    const float ep = __fadd_rn(__fmul_rn(__ldg(P.rep + i0), w0), __fmul_rn(__ldg(P.rep + i1), t));
+    rows[k * NX + 0] = vx;
+    rows[k * NX + 1] = 0.0f;
+    rows[k * NX + 2] = 0.0f;
+    rows[k * NX + 3] = ep;
+    rows[k * NX + 4] = 0.0f;
+    rows[k * NX + 5] = ey;
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK) racestep_kernel(const __grid_constant__ RaceParams P) {
+  const int b = blockIdx.x * BLOCK + threadIdx.x;
+  const int S = P.C.B;
+  const bool active = b < S;
+  const WsLayout W(P.C.N);
+  const Lane ws = lane_of(P.ws, active ? b : 0, S);
+  VehParams pv{}, pv_hat{};
+  float xf[NX] = {}, xg[NX] = {}, z[NX] = {}, Pm[NX][NX], u_prev[NU] = {};
+  float mu = 0.0f, Pr = 0.0f;
+  Lane xref = lane_of(P.ws, 0, S);
+  if (active) {
+    pv = load_params(P.prm, b, S);
+    const Lane fr = lane_of(P.fr, b, S);
+    mu = fr[0];
+    Pr = fr[1];
+    pv_hat = pv;
+    if (P.adapt_mu) pv_hat.mu = mu;
+    const Lane xgl = lane_of(P.xg, b, S), ekx = lane_of(P.ekx, b, S), up = lane_of(P.C.uprev, b, S);
+    const Lane noise = lane_of(P.noise, b, S), ekP = lane_of(P.ekP, b, S);
+    for (int i = 0; i < NX; ++i) xg[i] = xgl[i];
+    for (int i = 0; i < NU; ++i) u_prev[i] = up[i];
+    load(Pm, ekP, 0);
+
+    // 1. measurement
+    measure(P, xg, ekx[4], z);
+    for (int i = 0; i < NX; ++i) z[i] += noise[i];
+
+    // 2. EKF at mu-hat
+    if (P.use_ekf) {
+      for (int i = 0; i < NX; ++i) xf[i] = ekx[i];
+      ekf(P, pv_hat, u_prev, z, xf, Pm);
+    } else {
+      for (int i = 0; i < NX; ++i) xf[i] = z[i];
+    }
+
+    // 3. friction RLS: the next step's mu-hat
+    if (P.adapt_mu) {
+      float xp[NX];
+      const Lane xpl = lane_of(P.xprev, b, S);
+      for (int i = 0; i < NX; ++i) xp[i] = xpl[i];
+      friction_rls(P, pv, xp, xf, u_prev, mu, Pr);
+    }
+
+    // 4. references
+    if (P.use_table) {
+      xref = Lane{ws.p + (size_t)W.total * S, S};
+      table_refs(P, b, xf[4], xref);
+    } else {
+      xref = lane_of(P.xref, b, S);
+    }
+
+    const Lane ekx_out = lane_of(P.ekx_out, b, S), xf_out = lane_of(P.xf_out, b, S);
+    const Lane z_out = lane_of(P.z_out, b, S), fr_out = lane_of(P.fr_out, b, S);
+    for (int i = 0; i < NX; ++i) {
+      ekx_out[i] = xf[i];
+      xf_out[i] = xf[i];
+      z_out[i] = z[i];
+    }
+    store(Pm, lane_of(P.ekP_out, b, S), 0);
+    fr_out[0] = mu;
+    fr_out[1] = Pr;
+  }
+
+  // 5. tracker at mu-hat
+  float u0[NU];
+  mpc_core(P.C, b, active, xf, pv_hat, xref, ws, u0);
+  if (!active) return;
+  const Lane st = lane_of(P.C.stats, b, S);
+  st[5] = mu;
+  st[6] = 0.0f;
+  st[7] = 0.0f;
+
+  // 6. plant: world-frame Euler sub-steps at the lane's true mu
+  VehParams pv_plant = pv;
+  pv_plant.mu = P.mu_true[b];
+  const float hp = P.C.dt / (float)P.n_sub;
+  for (int it = 0; it < P.n_sub; ++it) {
+    float dx[NX];
+    f_global(pv_plant, xg, u0, P.sim_tire, dx);
+#pragma unroll
+    for (int j = 0; j < NX; ++j) xg[j] = xg[j] + hp * dx[j];
+  }
+  const Lane xg_out = lane_of(P.xg_out, b, S);
+  for (int i = 0; i < NX; ++i) xg_out[i] = xg[i];
+}
+
+}  // namespace arl
+
+// C entry: device pointers, float and int parameters in the order of
+// ops/racestep_kernel.py::_racestep_cuda. Returns -1 on an operand-count
+// mismatch, -2 on a workspace-size mismatch, -3 on a bad size, else
+// cudaGetLastError().
+extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
+                            int n_i, int device, void* stream) {
+  using namespace arl;
+  if (n_ptrs != RACE_PTRS || n_f != RACE_FLOATS || n_i != RACE_INTS) return -1;
+  RaceParams P;
+  CoreParams& C = P.C;
+  const float** in[] = {&P.xg, &P.ekx, &P.ekP, &P.fr, &P.xprev, &P.noise, &P.mu_true,
+                        &C.Xp, &C.Up, &C.sw, &C.lamw, &C.uprev, &C.rho, &P.xref, &P.prm,
+                        &C.kappa, &C.taux, &P.Xt, &P.Yt, &P.Pt, &P.ekq, &P.ekr,
+                        &P.rvx, &P.rey, &P.rep, &P.rtaux};
+  float** out[] = {&P.xg_out, &P.ekx_out, &P.ekP_out, &P.fr_out, &P.xf_out, &P.z_out,
+                   &C.Xp_out, &C.Up_out, &C.s_out, &C.lam_out, &C.u0_out, &C.stats, &P.ws};
+  int p = 0;
+  for (auto q : in) *q = static_cast<const float*>(ptrs[p++]);
+  for (auto q : out) *q = static_cast<float*>(ptrs[p++]);
+  int* ints[] = {&C.B, &C.N, &C.n_cells, &P.n_sub, &C.max_iter, &C.check, &C.early_exit,
+                 &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows, &P.n_sub_ekf,
+                 &P.use_ekf, &P.adapt_mu, &P.use_table, &P.n_ref, &P.win_cells};
+  for (int i = 0; i < RACE_INTS; ++i) *ints[i] = iv[i];
+  read_core_floats(C, fv);
+  float* extra[] = {&P.gate_sigma, &P.forgetting, &P.min_sensitivity, &P.fd_eps, &P.inv_fd_eps};
+  for (int i = 0; i < 5; ++i) *extra[i] = fv[CORE_FLOATS + i];
+  if (P.ws_rows != WsLayout(C.N).total + (C.N + 1) * NX) return -2;
+  if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1 || P.n_sub < 1 || P.n_sub_ekf < 1 ||
+      C.n_cells < 1 || (P.use_table && P.n_ref < 1))
+    return -3;
+  cudaSetDevice(device);
+  const int grid = (C.B + BLOCK - 1) / BLOCK;
+  racestep_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}

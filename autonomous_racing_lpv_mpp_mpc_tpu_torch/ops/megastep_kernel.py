@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core.config import MPCConfig, SolverConfig, VehicleParams
+from ..planner.reftable import RefTable, refs_from_table
 from ..solver.admm import _RHO_MAX, _RHO_MIN, _RHO_TOL
 from ..track.track import Track
 from . import _cuda
@@ -130,11 +131,15 @@ def megastep_params(p_b: VehicleParams, B: int, device=None) -> torch.Tensor:
 
 
 def megastep_refs(cfg: MPCConfig, x_ref, carry: MegaCarry) -> torch.Tensor:
-    """(N+1, NX, B) batch-last reference from a shared (N+1, NX) array or
-    an already batch-last one. Planner reference tables are not ported."""
-    if not isinstance(x_ref, torch.Tensor):
-        raise NotImplementedError("megastep_refs: only tensor references are ported (no RefTable)")
+    """(N+1, NX, B) batch-last reference from a shared (N+1, NX) array, an
+    already batch-last one, or a :class:`RefTable` sampled along the
+    scheduled s ``[x, X_pred[2:], X_pred[N]]`` (``mpc_prepare``'s)."""
     B = carry.x.shape[-1]
+    if isinstance(x_ref, RefTable):
+        if x_ref.vx.dim() != 1:
+            raise NotImplementedError("per-lane reference tables are not ported yet")
+        s_sched = torch.cat([carry.x[4][None], carry.X_pred[2:, 4], carry.X_pred[-1:, 4]], dim=0)
+        return refs_from_table(cfg, x_ref.to(carry.x.device), s_sched.T).permute(1, 2, 0).contiguous()
     x_ref = x_ref.to(device=carry.x.device, dtype=torch.float32)
     if x_ref.dim() == 2:
         x_ref = x_ref[:, :, None].expand(x_ref.shape + (B,))
@@ -198,24 +203,25 @@ def _groups_done(da):
     return done.reshape(n_g, GROUP).all(dim=1).repeat_interleave(GROUP)[:B]
 
 
-def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.Tensor,
-                   x_ref, carry: MegaCarry, n_sub: int = 4, sim_tire: str | None = None,
-                   eyb=None, cache=None):
-    """Plain PyTorch version of the megastep kernel (any device).
+def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: dict, kap_at,
+                   carry, xref: torch.Tensor, k: MegaConsts):
+    """The tracker step of the kernels, sections 1-8, in plain PyTorch:
+    schedule shift, curvature + bounds, LPV + Van Loan, warm start, Riccati
+    factor, ADMM (with the 128-lane early exit), residuals / rho, accept or
+    limp-home (the JAX package's ``_mpc_core``, shared by the megastep and
+    the racestep).
 
-    Returns (new_carry, u0 (NU, B), diag (5, B): r_prim, r_dual, converged,
-    rho_next, iters)."""
-    _check_supported(cfg, scfg, eyb, cache)
+    ``x_now`` (NX, B) is the state the step starts from, ``pv`` the
+    per-lane parameter rows (mu may be an estimate), ``carry`` anything
+    with the warm-start fields of :class:`MegaCarry`, ``xref`` (N+1, NX, B).
+    Returns (X_pred, U_pred, s, lam, u0 (NU, B), diag (5, B): r_prim,
+    r_dual, converged, rho_next, iters)."""
     N, dt = cfg.N, float(cfg.dt)
-    dev = carry.x.device
+    dev = x_now.device
     f32 = dict(dtype=torch.float32, device=dev)
-    B = carry.x.shape[-1]
+    B = x_now.shape[-1]
     b = cfg.bounds
-    pv = unpack_params(prm)
-    k = _make_consts(cfg, scfg, dev)
-    kap_at = _kap_lookup(track, dev)
-    xref = megastep_refs(cfg, x_ref, carry)
-    x_now, rho = carry.x, carry.rho
+    rho = carry.rho
     sigma, alpha = float(scfg.sigma), float(scfg.alpha)
 
     # 1. shift schedule
@@ -373,15 +379,33 @@ def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
     u0 = torch.where(usable, Usol[0], torch.stack([delta_ff, a_fb]))
     X_pred = torch.where(usable, Xsol[:, :NX], Xs)
     U_pred = torch.where(usable, Usol, Us)
+    diag = torch.stack([r_prim, r_dual, converged.to(torch.float32), rho_next, iters])
+    return X_pred, U_pred, s_f, lam_f, u0, diag
+
+
+def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.Tensor,
+                   x_ref, carry: MegaCarry, n_sub: int = 4, sim_tire: str | None = None,
+                   eyb=None, cache=None):
+    """Plain PyTorch version of the megastep kernel (any device): the
+    shared tracker core, then ``n_sub`` Euler sub-steps of the Frenet plant.
+
+    Returns (new_carry, u0 (NU, B), diag (5, B): r_prim, r_dual, converged,
+    rho_next, iters)."""
+    _check_supported(cfg, scfg, eyb, cache)
+    dev = carry.x.device
+    pv = unpack_params(prm)
+    kap_at = _kap_lookup(track, dev)
+    X_pred, U_pred, s_f, lam_f, u0, diag = mpc_core_plain(
+        cfg, scfg, carry.x, pv, kap_at, carry, megastep_refs(cfg, x_ref, carry),
+        _make_consts(cfg, scfg, dev))
 
     # 9. plant: fine Euler sub-steps
-    h = dt / n_sub
-    x = x_now
+    h = float(cfg.dt) / n_sub
+    x = carry.x
     for _ in range(n_sub):
         x = x + h * f_dynamic_bl(pv, x, u0, kap_at(x[4]), sim_tire or cfg.tire)
 
-    new = MegaCarry(x=x, X_pred=X_pred, U_pred=U_pred, s=s_f, lam=lam_f, u_prev=u0, rho=rho_next)
-    diag = torch.stack([r_prim, r_dual, converged.to(torch.float32), rho_next, iters])
+    new = MegaCarry(x=x, X_pred=X_pred, U_pred=U_pred, s=s_f, lam=lam_f, u_prev=u0, rho=diag[3])
     return new, u0, diag
 
 

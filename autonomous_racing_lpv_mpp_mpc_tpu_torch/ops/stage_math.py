@@ -167,3 +167,59 @@ def f_dynamic_bl(pv, x, u, kap, tire: str):
     depsi = wz - kap * sdot
     dey = vx * se + vy * ce
     return torch.stack([dvx, dvy, dwz, depsi, sdot, dey])
+
+
+def f_global_bl(pv, xg, u, tire: str):
+    """Batch-last world-frame dynamic-bicycle ODE; xg (6, B) = (vx, vy,
+    wz, X, Y, psi). No curvature: the Frenet state is measured from it."""
+    vx, vy, wz, psi = xg[0], xg[1], xg[2], xg[5]
+    delta, a = u[0], u[1]
+    m_, Iz, lf, lr = pv["m"], pv["Iz"], pv["lf"], pv["lr"]
+    vxs = torch.clamp_min(vx, VX_EPS)
+    alpha_f = delta - torch.atan2(vy + lf * wz, vxs)
+    alpha_r = -torch.atan2(vy - lr * wz, vxs)
+    L = lf + lr
+    fzf = pv["mu"] * m_ * pv["g"] * lr / L
+    fzr = pv["mu"] * m_ * pv["g"] * lf / L
+    if tire == "pacejka":
+        Bf_ = pv["Cf"] / (PACEJKA_C * torch.clamp_min(fzf, 1e-6))
+        Br_ = pv["Cr"] / (PACEJKA_C * torch.clamp_min(fzr, 1e-6))
+        fyf = fzf * torch.sin(PACEJKA_C * torch.atan(Bf_ * alpha_f))
+        fyr = fzr * torch.sin(PACEJKA_C * torch.atan(Br_ * alpha_r))
+    else:
+        fyf = pv["Cf"] * alpha_f
+        fyr = pv["Cr"] * alpha_r
+    sd, cd_ = torch.sin(delta), torch.cos(delta)
+    dvx = a - (fyf * sd) / m_ + wz * vy - (pv["cd0"] + pv["cd1"] * vx) / m_
+    dvy = (fyf * cd_ + fyr) / m_ - wz * vx
+    dwz = (lf * fyf * cd_ - lr * fyr) / Iz
+    sp, cp = torch.sin(psi), torch.cos(psi)
+    return torch.stack([dvx, dvy, dwz, vx * cp - vy * sp, vx * sp + vy * cp, wz])
+
+
+def pacejka_mu_sensitivity(mu, alpha, stiffness, fz):
+    """(Fy, dFy/dmu) of the magic formula Fy = mu fz sin(C atan(B alpha)),
+    B = stiffness / (C mu fz), in closed form: dFy/dmu = fz [sin th -
+    cos th C t / (1 + t^2)] with t = B alpha, th = C atan(t)."""
+    D = torch.clamp_min(mu * fz, 1e-6)
+    t = stiffness / (PACEJKA_C * D) * alpha
+    th = PACEJKA_C * torch.atan(t)
+    fy = mu * fz * torch.sin(th)
+    return fy, fz * (torch.sin(th) - torch.cos(th) * PACEJKA_C * t / (1.0 + t * t))
+
+
+def _inv6(S):
+    """Batched (6, 6, B) inverse by unrolled Gauss-Jordan without pivoting:
+    S is an innovation covariance (SPD, positive diagonal), so no pivot
+    vanishes."""
+    M = S
+    Inv = torch.eye(S.shape[0], dtype=S.dtype, device=S.device)[:, :, None].expand_as(S)
+    for j in range(S.shape[0]):
+        rec = 1.0 / M[j, j]
+        Mj, Ij = M[j] * rec, Inv[j] * rec
+        fac = M[:, j][:, None, :]
+        M = M - fac * Mj[None]
+        Inv = Inv - fac * Ij[None]
+        M = torch.cat([M[:j], Mj[None], M[j + 1:]])
+        Inv = torch.cat([Inv[:j], Ij[None], Inv[j + 1:]])
+    return Inv

@@ -3,11 +3,13 @@
 Counterpart of the JAX package's ``track/track.py``. The ``(length,
 curvature)`` segment spec is compiled once on the host (numpy, float64) into
 a uniform-``ds`` table; runtime lookups are index arithmetic plus a gather.
+The Frenet transforms take any leading batch shape on their query arrays.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -34,6 +36,12 @@ class Track:
     @property
     def n_cells(self) -> int:
         return self.kappa.shape[0]
+
+    @functools.cached_property
+    def ds_host(self) -> float:
+        """``ds`` as a Python float, read from the device once per track
+        (sizing a search window then costs no device sync per step)."""
+        return float(self.ds)
 
 
 def compile_track(
@@ -105,3 +113,59 @@ def _cell_index(track: Track, s: torch.Tensor) -> torch.Tensor:
 def curvature_at(track: Track, s: torch.Tensor) -> torch.Tensor:
     """Piecewise-constant curvature lookup (``sm / ds`` cell index)."""
     return track.kappa[_cell_index(track, s)]
+
+
+def centerline_pose(track: Track, s: torch.Tensor):
+    """Interpolated centerline pose (X, Y, psi) at arc length ``s``."""
+    sm = wrap_s(track, s)
+    f = sm / track.ds
+    i0 = torch.clamp(f.to(torch.int32), 0, track.n_cells - 1).long()
+    t = f - i0.to(f.dtype)
+    lerp = lambda a: a[i0] * (1 - t) + a[i0 + 1] * t
+    return lerp(track.X), lerp(track.Y), lerp(track.psi)
+
+
+def frenet_to_global(track: Track, s, e_y, e_psi):
+    """(s, e_y, e_psi) -> global (X, Y, psi)."""
+    Xc, Yc, pc = centerline_pose(track, s)
+    return Xc - e_y * torch.sin(pc), Yc + e_y * torch.cos(pc), pc + e_psi
+
+
+def _project(track: Track, i, X, Y, psi):
+    """Tangent projection at node ``i``: (s, e_y, e_psi)."""
+    tx, ty = torch.cos(track.psi[i]), torch.sin(track.psi[i])
+    ddx, ddy = X - track.X[i], Y - track.Y[i]
+    along = ddx * tx + ddy * ty
+    e_y = -ddx * ty + ddy * tx
+    s = wrap_s(track, i.to(torch.float32) * track.ds + along)
+    pc = track.psi[i] + curvature_at(track, s) * along
+    e_psi = torch.atan2(torch.sin(psi - pc), torch.cos(psi - pc))
+    return s, e_y, e_psi
+
+
+def global_to_frenet(track: Track, X, Y, psi):
+    """Global pose -> (s, e_y, e_psi): nearest node over the whole table,
+    then the tangent projection."""
+    d2 = (X[..., None] - track.X[:-1]) ** 2 + (Y[..., None] - track.Y[:-1]) ** 2
+    return _project(track, torch.argmin(d2, dim=-1), X, Y, psi)
+
+
+def global_to_frenet_windowed(track: Track, X, Y, psi, s_hint, window_m: float = 3.0):
+    """Hint-windowed :func:`global_to_frenet`: the nearest node among the
+    cells within ``window_m`` of the hint's cell. A lane whose nearest
+    windowed node is farther than ``window_m`` from the query (a wrong hint)
+    takes the dense answer instead (the JAX version's ``lax.cond``, here a
+    per-lane ``torch.where``)."""
+    n = track.X.shape[0] - 1
+    W = max(2, int(window_m / track.ds_host))
+    sm = s_hint - track.length * torch.floor(s_hint / track.length)
+    i_hint = (sm / track.ds).to(torch.int32).long()
+    idx = torch.remainder(i_hint[..., None] + torch.arange(-W, W + 1, device=sm.device), n)
+    d2 = (X[..., None] - track.X[idx]) ** 2 + (Y[..., None] - track.Y[idx]) ** 2
+    i_w = torch.gather(idx, -1, torch.argmin(d2, dim=-1, keepdim=True))[..., 0]
+    windowed = _project(track, i_w, X, Y, psi)
+    implausible = d2.amin(dim=-1) > window_m * window_m
+    if not bool(implausible.any()):
+        return windowed
+    dense = global_to_frenet(track, X, Y, psi)
+    return tuple(torch.where(implausible, d, w) for d, w in zip(dense, windowed))

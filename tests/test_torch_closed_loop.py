@@ -15,7 +15,9 @@ the oracle rung of the bench solver configuration (CPU).
   handed, as numpy arrays, to the JAX package's ``stack_boxqp`` and the f64
   OSQP-semantics oracle, and u0 must agree within 5e-5
   (tests/test_headline_oracle.py). The same at N=20 on the racetrack, the
-  bench's own shape.
+  bench's own shape, with constant references and with a reference table
+  whose racing line is a sinusoid (vx, e_y and the e_psi slope sampled
+  along each step's scheduled s).
 """
 
 import jax
@@ -49,6 +51,7 @@ from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import (
     admm_kernel_solve, megastep_init, megastep_params, megastep_plain,
 )
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import RefTable
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track, racetrack
 
 B = 4
@@ -156,12 +159,23 @@ def _jax_boxqp(qp_np):
                   **{n: j(qp_np[n]) for n in ("Dx", "Du", "lb", "ub", "x0", "soft")})
 
 
-@pytest.mark.parametrize("N,track_name", [(12, "oval"), (20, "racetrack")])
+def _sinusoidal_table(track, ds=0.05):
+    """A racing line e_y = 0.1 sin(6 pi s / L) with vx 1.5 +- 0.3: the
+    e_psi reference is not zero."""
+    L = float(track.length)
+    n = int(round(L / ds))
+    w = 2 * np.pi * 3 * np.arange(n) * (L / n) / L
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    return RefTable(ds=t(L / n), length=t(L), vx=t(1.5 + 0.3 * np.sin(w)), ey=t(0.1 * np.sin(w)),
+                    delta=t(0.02 * np.cos(w)))
+
+
+@pytest.mark.parametrize("N,track_name", [(12, "oval"), (20, "racetrack"), (20, "racetrack-table")])
 def test_oracle_rung_at_bench_solver_config(N, track_name):
     p, cfg = VehicleParams(), MPCConfig(N=N, model="dynamic")
     scfg = SolverConfig(max_iter=20, rho_interval=0, early_exit=True, check_termination=2)
-    track = {"oval": oval_track, "racetrack": racetrack}[track_name]()
-    x_ref = constant_refs(cfg, 1.5)
+    track = {"oval": oval_track, "racetrack": racetrack}[track_name.split("-")[0]]()
+    x_ref = _sinusoidal_table(track) if track_name.endswith("table") else constant_refs(cfg, 1.5)
     car = megastep_init(p, cfg, track, torch.tensor([[1.0, 0.0, 0.0, 0.0, 0.0, 0.05]]))
     prm = megastep_params(p, 1)
     max_du, n_checked = 0.0, 0

@@ -5,26 +5,36 @@
   tensors to the kernel, anything else raises; without a card, asking for
   the kernels or for CUDA tensors raises, and CPU calls count no launches.
 - Tests marked ``cuda`` hold each kernel against its plain version on the
-  card (tolerances of chip_smoke.py); without a card they skip.
+  card (tolerances of chip_smoke.py); without a card they skip. This file
+  imports no JAX, so it runs on a machine with a card and no JAX.
 """
 
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPCConfig, SolverConfig, VehicleParams
-from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import constant_refs, mpc_init, mpc_prepare
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
+    DEFAULT_EKF_Q, constant_refs, initial_table, mpc_init, mpc_prepare,
+)
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import racestep_kernel as rk
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.admm_kernel import admm_kernel_solve, admm_solve_plain
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.megastep_kernel import (
     MegaCarry, megastep, megastep_init, megastep_params, megastep_plain, megastep_workspace,
 )
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.racestep_kernel import (
+    RaceMegaCarry, racestep, racestep_init, racestep_plain,
+)
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.parallel import make_scenario_grid
-from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import racetrack
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track, racetrack
 
 PKG = "autonomous_racing_lpv_mpp_mpc_tpu_torch"
+_SIGMA = np.array([0.03, 0.01, 0.02, 0.01, 0.02, 0.01], np.float32)
+_EKF_Q = np.asarray(DEFAULT_EKF_Q, np.float32)
 
 
 def test_port_imports_no_jax():
@@ -88,11 +98,13 @@ def test_cuda_requests_raise_without_a_card():
 
 def test_kernel_sources_and_workspace_layout():
     """The library name follows the sources' content; the megastep's
-    workspace formula matches the per-lane layout in the CUDA source."""
+    workspace formula matches the per-lane layout of the tracker core's CUDA
+    source (mpc_core.cuh, shared with the racestep)."""
     names = {p.name for p in _cuda._sources()}
-    assert {"arl_common.cuh", "admm_kernel.cu", "megastep_kernel.cu"} <= names
+    assert {"arl_common.cuh", "mpc_core.cuh", "admm_kernel.cu", "megastep_kernel.cu",
+            "racestep_kernel.cu"} <= names
     assert len(_cuda.source_hash()) == 16
-    src = (_cuda.CSRC / "megastep_kernel.cu").read_text()
+    src = (_cuda.CSRC / "mpc_core.cuh").read_text()
     terms = src.split("struct WsLayout")[1].split("total = o;")[0].count("o +=")
     assert terms == 14
     # per stage: Xs 6, Us 2, kap 1, lb/ub 12, Ad 36, Bd 12, q0 6, K 16,
@@ -141,3 +153,79 @@ def test_megastep_kernel_matches_plain_on_card(cuda_device, early_exit, tol_u, t
         assert (uk - up).abs().max().item() <= tol_u
         assert (ck.x - cp.x).abs().max().item() <= tol_x
     assert megastep.launches == before + 5
+
+
+def test_racestep_wrapper_routes_by_device():
+    """CPU tensors take the plain version and count no launch; a carry on
+    another device raises; CUDA tensors cannot be made without a card; the
+    parts left out raise."""
+    track = oval_track()
+    cfg = MPCConfig(N=8, model="dynamic", tire="pacejka")
+    scfg = SolverConfig(max_iter=10)
+    x0 = torch.zeros((2, 6))
+    x0[:, 0] = 1.2
+    car = racestep_init(VehicleParams(), cfg, track, x0, 0.8)
+    prm = megastep_params(VehicleParams(mu=0.8), 2)
+    args = (torch.zeros((6, 2)), torch.full((2,), 0.8), _EKF_Q, _SIGMA ** 2)
+    racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2), car, *args)
+    assert racestep.launches == 0
+    meta = RaceMegaCarry(*(torch.empty_like(t, device="meta") for t in car))
+    with pytest.raises(ValueError, match="expected cpu or cuda"):
+        racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2), meta, *args)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            racestep_init(VehicleParams(), cfg, track, x0.to("cuda"), 0.8)
+        # the kernel route itself never falls back to the plain version
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rk._racestep_cuda(cfg, scfg, track, prm, constant_refs(cfg, 1.2), car, *args, 10, 4, None,
+                              True, True, 0.0, 0.995, 0.05, 3.0, None)
+    with pytest.raises(NotImplementedError):
+        racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2), car, *args, eyb=torch.zeros(9, 2, 2))
+    with pytest.raises(NotImplementedError):
+        racestep(cfg.replace(model="kinematic"), scfg, track, prm, constant_refs(cfg, 1.2), car, *args)
+    per_lane = initial_table(track)
+    per_lane = per_lane.replace(vx=per_lane.vx[None].expand(2, -1))
+    with pytest.raises(NotImplementedError):
+        racestep(cfg, scfg, track, prm, per_lane, car, *args)
+    assert rk.racestep_workspace(20) == 123 * 20 + 33 + 21 * 6
+    assert racestep.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refs,gate", [("table", 0.0), ("constant", 3.0)])
+def test_racestep_kernel_matches_plain_on_card(cuda_device, refs, gate):
+    """The racetrack protocol at B=300, N=20, 5 fixed-count steps; the
+    bounds of chip_smoke.py on the lanes that converged throughout, 5e-3 on
+    every lane."""
+    Bc = 300
+    track = racetrack(device=cuda_device)
+    cfg = MPCConfig(N=20, model="dynamic", tire="pacejka")
+    scfg = SolverConfig(max_iter=20, rho_interval=0, check_termination=2)
+    x0 = torch.zeros((Bc, 6), device=cuda_device)
+    x0[:, 0] = 1.5
+    x0[:, 4] = torch.arange(Bc, device=cuda_device) * (float(track.length) / Bc)
+    ref = initial_table(track, ds=0.05, vx0=1.5) if refs == "table" else constant_refs(cfg, 1.5, device=cuda_device)
+    mu_b = torch.linspace(0.5, 1.2, Bc, device=cuda_device)
+    prm = megastep_params(VehicleParams(mu=0.85), Bc, device=cuda_device)
+    sig = torch.tensor(_SIGMA, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ck = cp = racestep_init(VehicleParams(), cfg, track, x0, 0.85)
+    before = racestep.launches
+    conv = torch.ones(Bc, dtype=torch.bool, device=cuda_device)
+    worst = {}
+    for _ in range(5):
+        noise = sig[:, None] * torch.randn((6, Bc), generator=gen, device=cuda_device)
+        a = (cfg, scfg, track, prm, ref)
+        ck, uk, dk, zk = racestep(*a, ck, noise, mu_b, _EKF_Q, _SIGMA ** 2, gate_sigma=gate)
+        cp, up, dp, zp = racestep_plain(*a, cp, noise, mu_b, _EKF_Q, _SIGMA ** 2, gate_sigma=gate)
+        torch.cuda.synchronize()
+        conv &= (dk[2] > 0.5) & (dp[2] > 0.5)
+        for key, x, y in (("u0", uk, up), ("z", zk, zp), ("xg", ck.xg, cp.xg), ("ekx", ck.ekx, cp.ekx),
+                          ("X_pred", ck.X_pred, cp.X_pred), ("fr", ck.fr, cp.fr)):
+            d = (x - y).abs().reshape(-1, Bc).amax(dim=0)
+            worst[key] = torch.maximum(worst[key], d) if key in worst else d
+    assert racestep.launches == before + 5
+    assert int(conv.sum()) >= 0.9 * Bc
+    for key, tol in (("u0", 2e-4), ("z", 5e-4), ("xg", 5e-4), ("ekx", 5e-4), ("X_pred", 5e-4), ("fr", 1e-4)):
+        assert worst[key][conv].max().item() <= tol, key
+        assert worst[key].max().item() <= 5e-3, key

@@ -1,0 +1,144 @@
+"""The port's composed race loop vs the JAX package's ``batched_race_sweep``
+on the CPU, and the carries handed across by ``convert``.
+
+- ``mega_race_sweep`` (every step one racestep; the plain version on CPU
+  tensors) and ``batched_race_sweep`` (the module composition) against the
+  JAX ``batched_race_sweep``: T=80 steps, B=3 lanes on the oval, clean
+  measurements, per-lane plant friction, adaptation on; Xf, U and mu-hat
+  within 1e-4 (tests/test_racestep.py's kernel-vs-composition bound).
+- ``convert`` hands RefTable, RaceMegaCarry, EKFState, FrictionState and
+  RaceCarry objects of the JAX package to the port and back unchanged.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from autonomous_racing_lpv_mpp_mpc_tpu.core import MPCConfig as JMPCConfig
+from autonomous_racing_lpv_mpp_mpc_tpu.core import SolverConfig as JSolverConfig
+from autonomous_racing_lpv_mpp_mpc_tpu.core import VehicleParams as JVehicleParams
+from autonomous_racing_lpv_mpp_mpc_tpu.loop import batched_race_sweep as jbatched_race_sweep
+from autonomous_racing_lpv_mpp_mpc_tpu.loop.estimator import ekf_init as jekf_init
+from autonomous_racing_lpv_mpp_mpc_tpu.loop.friction import friction_init as jfriction_init
+from autonomous_racing_lpv_mpp_mpc_tpu.loop.lap_learning import initial_table as jinitial_table
+from autonomous_racing_lpv_mpp_mpc_tpu.loop.mpc import mpc_init as jmpc_init
+from autonomous_racing_lpv_mpp_mpc_tpu.loop.race import RaceCarry as JRaceCarry
+from autonomous_racing_lpv_mpp_mpc_tpu.ops.racestep_kernel import racestep_init as jracestep_init
+from autonomous_racing_lpv_mpp_mpc_tpu.track import oval_track as joval
+
+from autonomous_racing_lpv_mpp_mpc_tpu_torch import convert
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import VehicleParams
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
+    EKFState, FrictionState, RaceCarry, batched_race_sweep, initial_table, make_racestep_scan,
+    mega_race_sweep,
+)
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import RaceMegaCarry, racestep
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import RefTable
+
+P = JVehicleParams()
+CFG = JMPCConfig(N=8, model="dynamic", tire="pacejka")
+SCFG = JSolverConfig(max_iter=30)
+MU = np.array([0.5, 0.8, 1.1], np.float32)
+T = 80
+
+
+def _x0():
+    x0 = np.zeros((3, 6), np.float32)
+    x0[:, 0] = 1.2
+    x0[:, 4] = 2.0           # corner entry: lateral dynamics and RLS excitation from the start
+    return x0
+
+
+@pytest.fixture(scope="module")
+def jax_sweep():
+    track = joval()
+    log = jbatched_race_sweep(P, CFG, SCFG, track, jinitial_table(track, ds=0.05, vx0=1.2),
+                              jnp.asarray(_x0()), T=T, mu_true_b=jnp.asarray(MU), mu0=0.8)
+    return track, {k: np.asarray(getattr(log, k)) for k in ("Xg", "Xf", "U", "mu_hat", "converged")}
+
+
+@pytest.mark.parametrize("sweep", ["mega_race_sweep", "batched_race_sweep"])
+def test_composed_sweep_matches_jax(jax_sweep, sweep):
+    track, ref = jax_sweep
+    ptrack = convert.track(track)
+    fn = {"mega_race_sweep": mega_race_sweep, "batched_race_sweep": batched_race_sweep}[sweep]
+    out = fn(VehicleParams(), convert.mpc_config(CFG), convert.solver_config(SCFG), ptrack,
+             initial_table(ptrack, ds=0.05, vx0=1.2), torch.tensor(_x0()), T, torch.tensor(MU), mu0=0.8)
+    for name in ("Xf", "U", "mu_hat"):
+        np.testing.assert_allclose(getattr(out, name).numpy(), ref[name], atol=1e-4, rtol=0, err_msg=name)
+    np.testing.assert_allclose(out.Xg.numpy(), ref["Xg"], atol=1e-4, rtol=0)
+    assert out.Xf.shape == (3, T, 6) and out.mu_hat.shape == (3, T)
+    assert abs(float(out.mu_hat[0, -1]) - 0.8) > 0.02           # the adaptation moved
+    assert float(out.converged.mean()) > 0.9
+    assert racestep.launches == 0
+
+
+def test_racestep_scan_runner_and_noise():
+    """The runner built once takes a carry and a generator; the same seed
+    gives the same noisy run, another seed another one."""
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPCConfig, SolverConfig
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import racestep_init
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track
+
+    track = oval_track()
+    cfg = MPCConfig(N=8, model="dynamic", tire="pacejka")
+    scfg = SolverConfig(max_iter=20)
+    table = initial_table(track, ds=0.05, vx0=1.2)
+    sigma = np.array([0.03, 0.01, 0.02, 0.01, 0.02, 0.01], np.float32)
+    car0 = racestep_init(VehicleParams(), cfg, track, torch.tensor(_x0()), 0.8)
+    run = make_racestep_scan(VehicleParams(mu=0.8), cfg, scfg, track, table, 4, torch.tensor(MU), sigma)
+    gen = lambda s: torch.Generator().manual_seed(s)
+    c1, o1 = run(car0, gen(0))
+    c2, o2 = run(car0, gen(0))
+    _, o3 = run(car0, gen(1))
+    assert all(a.shape[0] == 4 for a in o1) and o1[0].shape == (4, 6, 3)
+    for a, b in zip(o1, o2):
+        assert torch.equal(a, b)
+    assert not torch.equal(o1[5], o3[5])                       # the raw measurements differ
+    assert (o1[5] - o1[1]).abs().max() > 1e-3                   # z is not the filtered state
+    with pytest.raises(NotImplementedError):
+        make_racestep_scan(VehicleParams(), cfg, scfg, track, table, 4, torch.tensor(MU), sigma,
+                           obstacles=np.zeros((1, 4), np.float32))
+
+
+def test_convert_round_trips_race_objects():
+    track = joval()
+    x0 = jnp.asarray(_x0())
+    jtab = jinitial_table(track, ds=0.05, vx0=1.2)
+    tab = convert.ref_table(jtab)
+    assert isinstance(tab, RefTable)
+    for k, v in convert.to_numpy(tab).items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(jtab, k)))
+
+    jmc = jracestep_init(P, CFG, track, x0, 0.8)
+    mc = convert.race_mega_carry(jmc)
+    assert isinstance(mc, RaceMegaCarry)
+    back = convert.to_numpy(mc)
+    assert set(back) == set(RaceMegaCarry._fields)
+    for k in RaceMegaCarry._fields:
+        np.testing.assert_array_equal(back[k], np.asarray(getattr(jmc, k)))
+
+    jek = jax.vmap(jekf_init)(x0)
+    ek = convert.ekf_state(jek)
+    assert isinstance(ek, EKFState) and ek.P.shape == (3, 6, 6)
+    jfr = jax.vmap(lambda m: jfriction_init(m))(jnp.asarray(MU))
+    fr = convert.friction_state(jfr)
+    assert isinstance(fr, FrictionState)
+    np.testing.assert_array_equal(convert.to_numpy(fr)["mu"], MU)
+
+    jrc = JRaceCarry(xg=jnp.zeros((3, 6)), mpc=jax.vmap(lambda x: jmpc_init(P, CFG, track, x))(x0),
+                     ekf=jek, fric=jfr, x_prev_f=x0, u_prev=jnp.zeros((3, 2)),
+                     key=jax.random.split(jax.random.PRNGKey(0), 3))
+    rc = convert.race_carry(jrc)
+    assert isinstance(rc, RaceCarry) and rc.generator is None
+    back = convert.to_numpy(rc)
+    assert "generator" not in back
+    for k in ("xg", "x_prev_f", "u_prev"):
+        np.testing.assert_array_equal(back[k], np.asarray(getattr(jrc, k)))
+    for k, v in back["mpc"].items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(jrc.mpc, k)))
+    for k, v in back["ekf"].items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(jrc.ekf, k)))
+    np.testing.assert_array_equal(back["fric"]["P"], np.asarray(jrc.fric.P))
