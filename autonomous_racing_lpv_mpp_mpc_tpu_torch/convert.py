@@ -9,8 +9,11 @@ numpy dictionaries, from which the JAX side rebuilds its carry
 carries across: a test can run one step on each side and re-sync one from
 the other.
 
+Every function that makes tensors takes ``device``; ``None`` is the CUDA
+card, ``device="cpu"`` a CPU run.
+
 SolverConfig backends map "xla" -> "plain", "pallas" -> "admm",
-"mega" -> "mega".
+"mega" -> "mega", "fused" -> "fused".
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .core.config import MPCBounds, MPCConfig, MPCWeights, SolverConfig, VehicleParams
+from .core.device import resolve_device
 from .loop.estimator import EKFState
 from .loop.friction import FrictionState
 from .loop.mpc import MPCCarry
@@ -32,15 +36,16 @@ from .solver.admm import BoxQP
 from .solver.riccati import LQRCost, LQRDynamics
 from .track.track import Track
 
-BACKENDS = {"xla": "plain", "pallas": "admm", "mega": "mega"}
+BACKENDS = {"xla": "plain", "pallas": "admm", "mega": "mega", "fused": "fused"}
 
 
 def tensor(a, device=None) -> torch.Tensor:
-    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=resolve_device(device))
 
 
 def vehicle_params(obj, device=None) -> VehicleParams:
     """Scalar leaves become floats, batched (B,) leaves float32 tensors."""
+    device = resolve_device(device)
     out = {}
     for f in dataclasses.fields(VehicleParams):
         v = np.asarray(getattr(obj, f.name))

@@ -6,6 +6,7 @@ from .config import (
     VehicleParams,
     broadcast_params,
 )
+from .device import resolve_device
 
 __all__ = [
     "MPCBounds",
@@ -14,4 +15,5 @@ __all__ = [
     "SolverConfig",
     "VehicleParams",
     "broadcast_params",
+    "resolve_device",
 ]

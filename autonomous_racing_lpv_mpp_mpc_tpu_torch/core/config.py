@@ -12,6 +12,7 @@ Python values.
     "plain" (default)  <->  "xla"    batched PyTorch ADMM (solver/admm.py)
     "admm"             <->  "pallas" solver-only kernel (ops/admm_kernel.py)
     "mega"             <->  "mega"   the whole step, via ops.megastep_kernel
+    "fused"            <->  "fused"  assembly + solve kernel (ops/fused_kernel.py)
 """
 
 from __future__ import annotations

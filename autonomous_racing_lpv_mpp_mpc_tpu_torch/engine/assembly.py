@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from ..core.config import MPCConfig, VehicleParams, broadcast_params
+from ..core.device import resolve_device
 from ..models import discretize, lpv_ab, model_nx
 from ..models.dynamics import NU, f_model
 from ..solver.admm import BoxQP
@@ -87,7 +88,9 @@ def augment_dynamics(Ad, Bd, cd):
 
 
 def constraint_rows(model: str, dtype=torch.float32, device=None):
-    """The 6 standard rows on (xa, u): vx, e_y, delta, a, Ddelta, Da."""
+    """The 6 standard rows on (xa, u): vx, e_y, delta, a, Ddelta, Da, on
+    ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
     nx = model_nx(model)
     na = nx + NU
     vx_i, ey_i = state_indices(model)
@@ -126,13 +129,16 @@ def tracker_bounds(p: VehicleParams, cfg: MPCConfig, track: Track, X_sched,
     disabled."""
     if obstacles is not None:
         raise NotImplementedError("obstacle corridors are not ported yet")
-    f32 = dict(dtype=X_sched.dtype, device=X_sched.device)
     b = cfg.bounds
-    lo = torch.tensor([b.vx_min, -b.ey_max, -b.delta_max, b.a_min, -b.ddelta_max, -b.da_max], **f32)
-    hi = torch.tensor([b.vx_max, b.ey_max, b.delta_max, b.a_max, b.ddelta_max, b.da_max], **f32)
+    lo = (b.vx_min, -b.ey_max, -b.delta_max, b.a_min, -b.ddelta_max, -b.da_max)
+    hi = (b.vx_max, b.ey_max, b.delta_max, b.a_max, b.ddelta_max, b.da_max)
     shape = X_sched.shape[:-1] + (N_CON,)
-    lb = lo.expand(shape).clone()
-    ub = hi.expand(shape).clone()
+    # filled on the device column by column: a tensor built from a Python
+    # list would be a host-to-device copy, which waits for the device
+    lb, ub = X_sched.new_empty(shape), X_sched.new_empty(shape)
+    for c in range(N_CON):
+        lb[..., c] = lo[c]
+        ub[..., c] = hi[c]
     if cfg.kappa_speed_cap:
         pb = broadcast_params(p, X_sched.dim() - 1)
         ub[..., 0] = speed_cap_at(pb, track, X_sched[..., _s_index(cfg.model)],

@@ -16,6 +16,7 @@ from .mpc import (
     constant_refs,
     mpc_init,
     mpc_prepare,
+    mpc_prepare_light,
     mpc_step,
     mpc_step_batched,
 )
@@ -54,6 +55,7 @@ __all__ = [
     "mega_race_sweep",
     "mpc_init",
     "mpc_prepare",
+    "mpc_prepare_light",
     "mpc_step",
     "mpc_step_batched",
     "noisy_measurement",

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.config import VehicleParams
+from ..core.device import resolve_device
 from ..models.dynamics import VX_EPS
 from ..models.tires import tire_force_pacejka
 
@@ -32,7 +33,9 @@ class FrictionState(NamedTuple):
 
 
 def friction_init(mu0: float = 1.0, P0: float = 0.25, batch=(), device=None) -> FrictionState:
-    kw = dict(dtype=torch.float32, device=device)
+    """Initial estimate mu0 with covariance P0 per lane, on ``device``
+    (``None``: the CUDA card)."""
+    kw = dict(dtype=torch.float32, device=resolve_device(device))
     return FrictionState(mu=torch.full(batch, mu0, **kw), P=torch.full(batch, P0, **kw))
 
 

@@ -13,9 +13,11 @@ from typing import NamedTuple
 import torch
 
 from ..core.config import MPCConfig, SolverConfig, VehicleParams
-from ..engine.assembly import N_CON, build_boxqp, initial_schedule, shift_schedule
+from ..core.device import resolve_device
+from ..engine.assembly import N_CON, build_boxqp, initial_schedule, shift_schedule, tracker_bounds
 from ..models import model_nx
 from ..models.dynamics import NU
+from ..ops.stage_math import model_s_ey
 from ..planner.reftable import RefTable, refs_from_table
 from ..solver.admm import ADMMSolution, BoxQP, admm_solve
 from ..track.track import Track, curvature_at
@@ -38,10 +40,11 @@ class MPCDiag(NamedTuple):
 
 
 def constant_refs(cfg: MPCConfig, vx_ref: float, ey_ref: float = 0.0, device=None) -> torch.Tensor:
-    """(N+1, nx) reference: track vx_ref, hold e_y at ey_ref, rest 0."""
+    """(N+1, nx) reference: track vx_ref, hold e_y at ey_ref, rest 0, on
+    ``device`` (``None``: the CUDA card)."""
     nx = model_nx(cfg.model)
-    ey_i = 5 if cfg.model == "dynamic" else 3
-    x_ref = torch.zeros((cfg.N + 1, nx), dtype=torch.float32, device=device)
+    _, ey_i = model_s_ey(cfg.model)
+    x_ref = torch.zeros((cfg.N + 1, nx), dtype=torch.float32, device=resolve_device(device))
     x_ref[:, 0] = vx_ref
     x_ref[:, ey_i] = ey_ref
     return x_ref
@@ -60,6 +63,19 @@ def mpc_init(p: VehicleParams, cfg: MPCConfig, track: Track, x0: torch.Tensor,
                     rho=torch.full(batch, 0.1, **kw))
 
 
+def _shift_and_warm(x: torch.Tensor, carry: MPCCarry):
+    """The schedule for this step and the warm start, both shifted one
+    stage: (X_sched (B, N+1, nx) with x in row 0, U_sched, warm = (s, lam,
+    Xa, U_sched))."""
+    X_shift, U_sched = shift_schedule(carry.X_pred, carry.U_pred)
+    X_sched = torch.cat([x.unsqueeze(-2), X_shift[..., 1:, :]], dim=-2)
+    s_w = torch.cat([carry.s[..., 1:, :], carry.s[..., -1:, :]], dim=-2)
+    lam_w = torch.cat([carry.lam[..., 1:, :], carry.lam[..., -1:, :]], dim=-2)
+    uprev_part = torch.cat([carry.u_prev.unsqueeze(-2), U_sched], dim=-2)
+    Xa_w = torch.cat([X_sched, uprev_part], dim=-1)
+    return X_sched, U_sched, (s_w, lam_w, Xa_w, U_sched)
+
+
 def mpc_prepare(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
                 x_ref, carry: MPCCarry, obstacles=None):
     """Scheduling + assembly + warm start for one step.
@@ -68,17 +84,32 @@ def mpc_prepare(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
     stage. ``x_ref`` is (N+1, nx) shared, (B, N+1, nx), or a
     :class:`RefTable` sampled along each lane's scheduled s.
     """
-    X_shift, U_sched = shift_schedule(carry.X_pred, carry.U_pred)
-    X_sched = torch.cat([x.unsqueeze(-2), X_shift[..., 1:, :]], dim=-2)
+    X_sched, U_sched, warm = _shift_and_warm(x, carry)
     if isinstance(x_ref, RefTable):
-        x_ref = refs_from_table(cfg, x_ref, X_sched[..., 4 if cfg.model == "dynamic" else 2])
+        x_ref = refs_from_table(cfg, x_ref, X_sched[..., model_s_ey(cfg.model)[0]])
     qp = build_boxqp(p, cfg, track, x, carry.u_prev, X_sched, U_sched, x_ref,
                      obstacles=obstacles)
-    s_w = torch.cat([carry.s[..., 1:, :], carry.s[..., -1:, :]], dim=-2)
-    lam_w = torch.cat([carry.lam[..., 1:, :], carry.lam[..., -1:, :]], dim=-2)
-    uprev_part = torch.cat([carry.u_prev.unsqueeze(-2), U_sched], dim=-2)
-    Xa_w = torch.cat([X_sched, uprev_part], dim=-1)
-    return qp, (s_w, lam_w, Xa_w, U_sched), U_sched
+    return qp, warm, U_sched
+
+
+def mpc_prepare_light(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor, x_ref,
+                      carry: MPCCarry):
+    """Scheduling, bounds and warm start WITHOUT the stage matrices: the
+    fused solve (``ops.fused_kernel``) builds those itself.
+
+    Returns (X_sched (B, N+1, nx), U_sched, kappas (B, N) by
+    ``curvature_at``, x_ref (B, N+1, nx) with vx clamped to the per-stage
+    friction cap, lb, ub, x0a (B, na), warm)."""
+    X_sched, U_sched, warm = _shift_and_warm(x, carry)
+    s_idx, _ = model_s_ey(cfg.model)
+    kappas = curvature_at(track, X_sched[..., :cfg.N, s_idx])
+    if isinstance(x_ref, RefTable):
+        x_ref = refs_from_table(cfg, x_ref, X_sched[..., s_idx])
+    lb, ub = tracker_bounds(p, cfg, track, X_sched)
+    x_ref = x_ref.to(X_sched).expand(X_sched.shape).clone()
+    x_ref[..., 0] = torch.minimum(x_ref[..., 0], ub[..., 0])
+    x0a = torch.cat([x, carry.u_prev], dim=-1)
+    return X_sched, U_sched, kappas, x_ref, lb, ub, x0a, warm
 
 
 def _post_solve(p, cfg, scfg, track, x, warm, U_sched, sol: ADMMSolution):
@@ -89,8 +120,7 @@ def _post_solve(p, cfg, scfg, track, x, warm, U_sched, sol: ADMMSolution):
     centerline and brakes gently, and the shifted schedule is kept.
     """
     nx = model_nx(cfg.model)
-    s_idx = 4 if cfg.model == "dynamic" else 2
-    ey_idx = 5 if cfg.model == "dynamic" else 3
+    s_idx, ey_idx = model_s_ey(cfg.model)
     kap_now = curvature_at(track, x[..., s_idx])
     delta_ff = torch.atan(kap_now * (p.lf + p.lr)) - 0.5 * x[..., ey_idx] * torch.sign(x[..., 0])
     delta_ff = torch.clamp(delta_ff, -cfg.bounds.delta_max, cfg.bounds.delta_max)
@@ -123,14 +153,23 @@ def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
     """Batched control step. Returns (u (B, nu), new_carry, diag).
 
     ``scfg.backend``: "plain" solves with :func:`solver.admm.admm_solve`;
-    "admm" with the solver-only kernel ``ops.admm_kernel.admm_kernel_solve``
-    (its plain version on CPU tensors). The whole-step kernel is
+    "admm" with the solver-only kernel ``ops.admm_kernel.admm_kernel_solve``;
+    "fused" assembles and solves in one kernel,
+    ``ops.fused_kernel.fused_mpc_solve``, after :func:`mpc_prepare_light`
+    (each kernel's plain version on CPU tensors). The whole-step kernel is
     ``ops.megastep_kernel.megastep``.
     """
     if scfg.polish or scfg.certify_infeasibility:
         raise NotImplementedError(
             "polish and the infeasibility certificate are not ported yet; "
             "set SolverConfig(polish=False, certify_infeasibility=False)")
+    if scfg.backend == "fused":
+        from ..ops.fused_kernel import fused_mpc_solve
+
+        Xs, Us, kap, xr, lb, ub, x0a, warm_b = mpc_prepare_light(p_b, cfg, track, x_b, x_ref, carry_b)
+        sol_b = fused_mpc_solve(cfg, scfg, p_b, Xs, Us, kap, xr, lb, ub, x0a, warm_b[0], warm_b[1],
+                                carry_b.rho)
+        return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, warm_b[3], sol_b)
     qp_b, warm_b, U_sched_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b)
     if scfg.equilibrate:
         _check_unit_rows(qp_b)

@@ -4,6 +4,7 @@ Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors, counting launches in ``<wrapper>.launches``."""
 
 from .admm_kernel import admm_kernel_solve, admm_solve_plain
+from .fused_kernel import fused_mpc_solve, fused_solve_plain
 from .megastep_kernel import (
     MegaCarry,
     megastep,
@@ -20,6 +21,8 @@ __all__ = [
     "RaceMegaCarry",
     "admm_kernel_solve",
     "admm_solve_plain",
+    "fused_mpc_solve",
+    "fused_solve_plain",
     "megastep",
     "megastep_init",
     "megastep_params",

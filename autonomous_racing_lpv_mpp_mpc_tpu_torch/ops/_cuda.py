@@ -96,7 +96,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     sig = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    for name in ("arl_admm_solve", "arl_megastep", "arl_racestep"):
+    for name in ("arl_admm_solve", "arl_megastep", "arl_racestep", "arl_fused_solve"):
         fn = getattr(lib, name)
         fn.argtypes = sig
         fn.restype = ctypes.c_int

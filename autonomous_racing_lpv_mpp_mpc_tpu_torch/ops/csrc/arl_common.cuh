@@ -1,12 +1,14 @@
 // Shared device code of the hand-written Hopper kernels: per-lane views of
 // batch-last arrays, small fixed-size matrix helpers, the curvature lookup,
-// the dynamic-bicycle LPV stage build with its Van Loan discretization, and
-// the nonlinear plant ODE.
+// the LPV stage builds of the dynamic and the kinematic bicycle with their
+// Van Loan discretization, the nonlinear plant ODEs, and the model traits
+// (Dynamic, Kinematic) that the tracker core is templated on.
 //
 // Counterparts in the JAX package: the small-matrix helpers of
 // ops/admm_kernel.py (_mm, _mtm, _mv, _mtv, _inv2, _stack_g, _dual_norm),
 // the stage math of ops/stage_math.py (secant_stiffness, _ab_cont_dynamic,
-// _vanloan_aug, f_dynamic_bl) and the curvature lookup of
+// _ab_cont_kinematic, _vanloan_aug, f_dynamic_bl, f_kinematic_bl) and the
+// curvature lookup of
 // ops/megastep_kernel.py (_make_kap_at).
 //
 // Layout: one thread owns one scenario (lane). Every per-scenario array is
@@ -19,9 +21,11 @@
 
 namespace arl {
 
-constexpr int NX = 6;   // dynamic-bicycle state
+constexpr int NX = 6;   // dynamic-bicycle state (the racestep and admm kernels' model)
 constexpr int NU = 2;   // (delta, a)
-constexpr int NA = 8;   // state augmented with u_prev
+constexpr int NA = 8;   // dynamic state augmented with u_prev
+constexpr int KIN_NX = 4;   // kinematic-bicycle state (vx, e_psi, s, e_y)
+constexpr int KIN_NA = 6;
 constexpr int NC = 6;   // constraint rows per stage
 constexpr int BLOCK = 128;  // lanes per block = lanes that exit ADMM together
 
@@ -230,19 +234,46 @@ __device__ __forceinline__ void ab_cont_dynamic(const float (&x)[NX], const floa
   B[2][0] = lf * Cf * cd / Iz;
 }
 
+// Continuous-time LPV (A, B) of the kinematic bicycle at (x, u, kappa);
+// x = (vx, e_psi, s, e_y). No tires.
+__device__ __forceinline__ void ab_cont_kinematic(const float (&x)[KIN_NX], const float (&u)[NU],
+                                                  float kap, const VehParams& pv,
+                                                  float (&A)[KIN_NX][KIN_NX],
+                                                  float (&B)[KIN_NX][NU]) {
+  const float vx = x[0], epsi = x[1], ey = x[3];
+  const float vxs = fmaxf(vx, VX_EPS);
+  const float L = pv.lf + pv.lr;
+  const float se = sinf(epsi), ce = cosf(epsi);
+  const float den = fmaxf(1.0f - kap * ey, DENOM_EPS);
+#pragma unroll
+  for (int i = 0; i < KIN_NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < KIN_NX; ++j) A[i][j] = 0.0f;
+    B[i][0] = 0.0f;
+    B[i][1] = 0.0f;
+  }
+  A[0][0] = -(pv.cd1 + pv.cd0 / vxs) / pv.m;
+  A[1][0] = -kap * ce / den;
+  A[2][0] = ce / den;
+  A[3][1] = vxs * sinc(epsi);
+  B[0][1] = 1.0f;
+  B[1][0] = vxs / L;
+}
+
 // Van Loan exp(dt [[A, B], [0, 0]]) by a 6th-order Taylor series (Horner)
-// with 4 squarings. The bottom block rows of every iterate are [0 I], so
-// only the top blocks E = [Ad Bd] are carried: the same products as the
-// full 8x8 form without its exact-zero terms.
-__device__ __forceinline__ void vanloan(const float (&A)[NX][NX], const float (&B)[NX][NU],
-                                        float dt, float (&Ad)[NX][NX], float (&Bd)[NX][NU]) {
+// with 4 squarings, for an nx-state model. The bottom block rows of every
+// iterate are [0 I], so only the top blocks E = [Ad Bd] are carried: the
+// same products as the full (nx+2)^2 form without its exact-zero terms.
+template <int nx>
+__device__ __forceinline__ void vanloan(const float (&A)[nx][nx], const float (&B)[nx][NU],
+                                        float dt, float (&Ad)[nx][nx], float (&Bd)[nx][NU]) {
   constexpr int ORDER = 6, SQUARINGS = 4;
   const float S = dt / 16.0f;   // dt / 2^SQUARINGS
-  float Ma[NX][NX], Mb[NX][NU], T[NX][NX], Tb[NX][NU];
+  float Ma[nx][nx], Mb[nx][NU], T[nx][nx], Tb[nx][NU];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
+  for (int i = 0; i < nx; ++i) {
 #pragma unroll
-    for (int j = 0; j < NX; ++j) {
+    for (int j = 0; j < nx; ++j) {
       Ma[i][j] = A[i][j] * S;
       Ad[i][j] = (i == j ? 1.0f : 0.0f) + Ma[i][j] / (float)ORDER;
     }
@@ -257,9 +288,9 @@ __device__ __forceinline__ void vanloan(const float (&A)[NX][NX], const float (&
     mm(Ma, Ad, T);
     mm(Ma, Bd, Tb);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
+    for (int i = 0; i < nx; ++i) {
 #pragma unroll
-      for (int j = 0; j < NX; ++j) Ad[i][j] = (i == j ? 1.0f : 0.0f) + T[i][j] / (float)k;
+      for (int j = 0; j < nx; ++j) Ad[i][j] = (i == j ? 1.0f : 0.0f) + T[i][j] / (float)k;
 #pragma unroll
       for (int j = 0; j < NU; ++j) Bd[i][j] = (Tb[i][j] + Mb[i][j]) / (float)k;
     }
@@ -269,9 +300,9 @@ __device__ __forceinline__ void vanloan(const float (&A)[NX][NX], const float (&
     mm(Ad, Ad, T);
     mm(Ad, Bd, Tb);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) {
+    for (int i = 0; i < nx; ++i) {
 #pragma unroll
-      for (int j = 0; j < NX; ++j) Ad[i][j] = T[i][j];
+      for (int j = 0; j < nx; ++j) Ad[i][j] = T[i][j];
 #pragma unroll
       for (int j = 0; j < NU; ++j) Bd[i][j] = Tb[i][j] + Bd[i][j];
     }
@@ -311,6 +342,56 @@ __device__ __forceinline__ void f_dynamic(const VehParams& pv, const float (&x)[
   dx[4] = sdot;
   dx[5] = vx * se + vy * ce;
 }
+
+// Nonlinear kinematic-bicycle Frenet ODE dx/dt; tan(delta) as sin / cos,
+// as the plain version computes it.
+__device__ __forceinline__ void f_kinematic(const VehParams& pv, const float (&x)[KIN_NX],
+                                            const float (&u)[NU], float kap,
+                                            float (&dx)[KIN_NX]) {
+  const float vx = x[0], epsi = x[1], ey = x[3];
+  const float delta = u[0], a = u[1];
+  const float L = pv.lf + pv.lr;
+  const float psidot = vx * sinf(delta) / (cosf(delta) * L);
+  const float se = sinf(epsi), ce = cosf(epsi);
+  const float denom = fmaxf(1.0f - kap * ey, DENOM_EPS);
+  const float sdot = vx * ce / denom;
+  dx[0] = a - (pv.cd0 + pv.cd1 * vx) / pv.m;
+  dx[1] = psidot - kap * sdot;
+  dx[2] = sdot;
+  dx[3] = vx * se;
+}
+
+// Model traits of the tracker core (mpc_core.cuh): state width nx, the
+// augmented width na = nx + NU, the indices of s and e_y in the state, the
+// LPV stage build and the plant ODE. The plain version selects the same by
+// MPCConfig.model (ops/stage_math.py::model_dims, model_s_ey).
+struct Dynamic {
+  static constexpr int NX = arl::NX, NA = arl::NA, S = 4, EY = 5;
+  static __device__ __forceinline__ void ab_cont(const float (&x)[NX], const float (&u)[NU],
+                                                 float kap, const VehParams& pv, int tire,
+                                                 float (&A)[NX][NX], float (&B)[NX][NU]) {
+    ab_cont_dynamic(x, u, kap, pv, tire, A, B);
+  }
+  static __device__ __forceinline__ void f(const VehParams& pv, const float (&x)[NX],
+                                           const float (&u)[NU], float kap, int tire,
+                                           float (&dx)[NX]) {
+    f_dynamic(pv, x, u, kap, tire, dx);
+  }
+};
+
+struct Kinematic {
+  static constexpr int NX = KIN_NX, NA = KIN_NA, S = 2, EY = 3;
+  static __device__ __forceinline__ void ab_cont(const float (&x)[NX], const float (&u)[NU],
+                                                 float kap, const VehParams& pv, int /*tire*/,
+                                                 float (&A)[NX][NX], float (&B)[NX][NU]) {
+    ab_cont_kinematic(x, u, kap, pv, A, B);
+  }
+  static __device__ __forceinline__ void f(const VehParams& pv, const float (&x)[NX],
+                                           const float (&u)[NU], float kap, int /*tire*/,
+                                           float (&dx)[NX]) {
+    f_kinematic(pv, x, u, kap, dx);
+  }
+};
 
 // Running maxima of one ADMM iteration, in the z-space of the splitting:
 // |G - s|, |D'(s - s_prev)|, |G|, |s|, |D' lam| (the OSQP termination test).

@@ -3,7 +3,9 @@
 //
 // Replaces the JAX package's ops/megastep_kernel.py::_megastep_kernel
 // (with its body _mpc_core), a Pallas TPU kernel. Plain PyTorch version:
-// ops/megastep_kernel.py::megastep_plain.
+// ops/megastep_kernel.py::megastep_plain. One instantiation per model:
+// the dynamic bicycle (nx=6) and the kinematic one (nx=4, BASELINE
+// config 1), selected by the last int parameter.
 //
 // Design. One thread owns one scenario; 128 threads form a block. Each
 // thread runs the tracker core of mpc_core.cuh (sections 1-8: schedule
@@ -29,17 +31,20 @@
 
 namespace arl {
 
+template <class M>
 struct MegaParams {
-  CoreParams C;
-  const float *x, *xref, *prm;   // (NX, B), (N+1, NX, B), (10, B)
-  float *x_out, *ws;             // (NX, B), (ws_rows, B) per-lane workspace
+  CoreParams<M> C;
+  const float *x, *xref, *prm;   // (nx, B), (N+1, nx, B), (10, B)
+  float *x_out, *ws;             // (nx, B), (ws_rows, B) per-lane workspace
   int n_sub, sim_tire, ws_rows;
 };
 
 constexpr int MEGA_PTRS = 19;
-constexpr int MEGA_INTS = 11;
+constexpr int MEGA_INTS = 12;
 
-__global__ void __launch_bounds__(BLOCK) megastep_kernel(const __grid_constant__ MegaParams P) {
+template <class M>
+__global__ void __launch_bounds__(BLOCK) megastep_kernel(const __grid_constant__ MegaParams<M> P) {
+  constexpr int NX = M::NX;
   const int b = blockIdx.x * BLOCK + threadIdx.x;
   const bool active = b < P.C.B;
   const int S = P.C.B;
@@ -64,7 +69,7 @@ __global__ void __launch_bounds__(BLOCK) megastep_kernel(const __grid_constant__
   const float h = P.C.dt / (float)P.n_sub;
   for (int i = 0; i < P.n_sub; ++i) {
     float dx[NX];
-    f_dynamic(pv, x, u0, kap_at(P.C.kappa, P.C.n_cells, length, inv_ds, x[4]), P.sim_tire, dx);
+    M::f(pv, x, u0, kap_at(P.C.kappa, P.C.n_cells, length, inv_ds, x[M::S]), P.sim_tire, dx);
 #pragma unroll
     for (int j = 0; j < NX; ++j) x[j] = x[j] + h * dx[j];
   }
@@ -72,18 +77,12 @@ __global__ void __launch_bounds__(BLOCK) megastep_kernel(const __grid_constant__
   for (int i = 0; i < NX; ++i) x_out[i] = x[i];
 }
 
-}  // namespace arl
-
-// C entry: device pointers, float and int parameters in the order of
-// ops/megastep_kernel.py::_megastep_cuda. Returns -1 on an operand-count
-// mismatch, -2 on a workspace-size mismatch, -3 on a bad size, else
-// cudaGetLastError().
-extern "C" int arl_megastep(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
-                            int n_i, int device, void* stream) {
-  using namespace arl;
-  if (n_ptrs != MEGA_PTRS || n_f != CORE_FLOATS || n_i != MEGA_INTS) return -1;
-  MegaParams P;
-  CoreParams& C = P.C;
+template <class M>
+int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int device,
+                    void* stream) {
+  if (n_f != core_floats<M>()) return -1;
+  MegaParams<M> P;
+  CoreParams<M>& C = P.C;
   const float** in[] = {&P.x, &C.Xp, &C.Up, &C.sw, &C.lamw, &C.uprev, &C.rho, &P.xref,
                         &P.prm, &C.kappa, &C.taux};
   float** out[] = {&P.x_out, &C.Xp_out, &C.Up_out, &C.s_out, &C.lam_out, &C.u0_out,
@@ -93,12 +92,30 @@ extern "C" int arl_megastep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
   for (auto q : out) *q = static_cast<float*>(ptrs[p++]);
   int* ints[] = {&C.B, &C.N, &C.n_cells, &P.n_sub, &C.max_iter, &C.check, &C.early_exit,
                  &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows};
-  for (int i = 0; i < MEGA_INTS; ++i) *ints[i] = iv[i];
+  for (int i = 0; i < MEGA_INTS - 1; ++i) *ints[i] = iv[i];
   read_core_floats(C, fv);
-  if (P.ws_rows != WsLayout(C.N).total) return -2;
+  if (P.ws_rows != WsLayout<M>(C.N).total) return -2;
   if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1 || P.n_sub < 1) return -3;
   cudaSetDevice(device);
   const int grid = (C.B + BLOCK - 1) / BLOCK;
-  megastep_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(P);
+  megastep_kernel<M><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(P);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace arl
+
+// C entry: device pointers, float and int parameters in the order of
+// ops/megastep_kernel.py::_megastep_cuda; the last int selects the model
+// (0 dynamic, 1 kinematic). Returns -1 on an operand-count mismatch, -2 on
+// a workspace-size mismatch, -3 on a bad size or model, else
+// cudaGetLastError().
+extern "C" int arl_megastep(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
+                            int n_i, int device, void* stream) {
+  using namespace arl;
+  if (n_ptrs != MEGA_PTRS || n_i != MEGA_INTS) return -1;
+  switch (iv[MEGA_INTS - 1]) {
+    case 0: return launch_megastep<Dynamic>(ptrs, fv, n_f, iv, device, stream);
+    case 1: return launch_megastep<Kinematic>(ptrs, fv, n_f, iv, device, stream);
+    default: return -3;
+  }
 }

@@ -6,7 +6,10 @@
 //
 // Counterpart of the JAX package's ops/megastep_kernel.py::_mpc_core, which
 // its megastep and racestep Pallas kernels share; plain PyTorch version:
-// ops/megastep_kernel.py::mpc_core_plain.
+// ops/megastep_kernel.py::mpc_core_plain. Every piece is a template on the
+// model traits M of arl_common.cuh (Dynamic, Kinematic): the state width,
+// the augmented width, the indices of s and e_y, the stage build. The
+// fused solve (fused_kernel.cu) reuses factor, admm_iteration and z_update.
 #pragma once
 
 #include "arl_common.cuh"
@@ -15,7 +18,9 @@ namespace arl {
 
 // Solver scalars, host-built constants and the warm-start operands of the
 // tracker core. Arrays are batch-last (last dim B).
+template <class M>
 struct CoreParams {
+  static constexpr int nx = M::NX, na = M::NA;
   const float *Xp, *Up, *sw, *lamw, *uprev, *rho;   // warm start in
   const float *kappa;   // (n_cells,) curvature table
   const float *taux;    // (2,) [track length, 1/ds]
@@ -23,17 +28,23 @@ struct CoreParams {
   int B, N, n_cells, max_iter, check, early_exit, tire, kappa_speed_cap;
   float dt, sigma, alpha, eps_abs, eps_rel, eps_fallback;
   float vx_min, vx_max, ey_max, delta_max, a_min, a_max, ddelta_max, da_max, a_lat_frac;
-  // ops/megastep_kernel.py::_make_consts
-  float Dx[NC][NA], Du[NC][NU], soft[NC], Qc[NA][NA], Qtc[NA][NA], Rc[NU][NU], Mc[NA][NU];
-  float DxDx[NA][NA], DuDu[NU][NU], DxDu[NA][NU], qw[NX];
+  // ops/fused_kernel.py::_make_consts
+  float Dx[NC][na], Du[NC][NU], soft[NC], Qc[na][na], Qtc[na][na], Rc[NU][NU], Mc[na][NU];
+  float DxDx[na][na], DuDu[NU][NU], DxDu[na][NU], qw[nx];
 };
 
-// Float parameters of the core in the wrappers' order: 15 scalars, then
-// the constants of _make_consts.
-constexpr int CORE_FLOATS = 15 + NC * NA + NC * NU + NC + 2 * NA * NA + NU * NU + NA * NU +
-                            NA * NA + NU * NU + NA * NU + NX;
+// Float parameters of the core in the wrappers' order (ops/fused_kernel.py::
+// core_floats): 15 scalars, then the constants of _make_consts.
+template <class M>
+constexpr int core_floats() {
+  constexpr int nx = M::NX, na = M::NA;
+  return 15 + NC * na + NC * NU + NC + 2 * na * na + NU * NU + na * NU + na * na + NU * NU +
+         na * NU + nx;
+}
 
-inline void read_core_floats(CoreParams& P, const float* fv) {
+template <class M>
+inline void read_core_floats(CoreParams<M>& P, const float* fv) {
+  constexpr int nx = M::NX, na = M::NA;
   float* scal[] = {&P.dt, &P.sigma, &P.alpha, &P.eps_abs, &P.eps_rel, &P.eps_fallback,
                    &P.vx_min, &P.vx_max, &P.ey_max, &P.delta_max, &P.a_min, &P.a_max,
                    &P.ddelta_max, &P.da_max, &P.a_lat_frac};
@@ -41,40 +52,44 @@ inline void read_core_floats(CoreParams& P, const float* fv) {
   for (auto q : scal) *q = fv[f++];
   float* arrs[] = {&P.Dx[0][0], &P.Du[0][0], P.soft, &P.Qc[0][0], &P.Qtc[0][0], &P.Rc[0][0],
                    &P.Mc[0][0], &P.DxDx[0][0], &P.DuDu[0][0], &P.DxDu[0][0], P.qw};
-  const int sizes[] = {NC * NA, NC * NU, NC, NA * NA, NA * NA, NU * NU, NA * NU, NA * NA,
-                       NU * NU, NA * NU, NX};
+  const int sizes[] = {NC * na, NC * NU, NC, na * na, na * na, NU * NU, na * NU, na * na,
+                       NU * NU, na * NU, nx};
   for (int a = 0; a < 11; ++a)
     for (int i = 0; i < sizes[a]; ++i) arrs[a][i] = fv[f++];
 }
 
-// Per-lane workspace offsets (floats) of the core; ops/megastep_kernel.py::
-// megastep_workspace mirrors the total.
+// Per-lane workspace offsets (floats) of the core; ops/fused_kernel.py::
+// core_workspace mirrors the total.
+template <class M>
 struct WsLayout {
   int Xs, Us, kap, lb, ub, Ad, Bd, q0, K, Hiv, Hux, d, Xsol, Usol, total;
   __host__ __device__ explicit WsLayout(int N) {
+    constexpr int nx = M::NX, na = M::NA;
     int o = 0;
-    Xs = o;   o += (N + 1) * NX;
+    Xs = o;   o += (N + 1) * nx;
     Us = o;   o += N * NU;
     kap = o;  o += N + 1;
     lb = o;   o += (N + 1) * NC;
     ub = o;   o += (N + 1) * NC;
-    Ad = o;   o += N * NX * NX;
-    Bd = o;   o += N * NX * NU;
-    q0 = o;   o += (N + 1) * NX;
-    K = o;    o += N * NU * NA;
+    Ad = o;   o += N * nx * nx;
+    Bd = o;   o += N * nx * NU;
+    q0 = o;   o += (N + 1) * nx;
+    K = o;    o += N * NU * na;
     Hiv = o;  o += N * NU * NU;
-    Hux = o;  o += N * NU * NA;
+    Hux = o;  o += N * NU * na;
     d = o;    o += N * NU;
-    Xsol = o; o += (N + 1) * NA;
+    Xsol = o; o += (N + 1) * na;
     Usol = o; o += N * NU;
     total = o;
   }
 };
 
 // Sections 1-4: schedule, bounds, stage matrices, linear cost, warm start.
-__device__ __forceinline__ void prepare(const CoreParams& P, int b, const WsLayout& W,
-                                        const Lane& ws, const VehParams& pv, const float (&x)[NX],
-                                        const Lane& xref) {
+template <class M>
+__device__ __forceinline__ void prepare(const CoreParams<M>& P, int b, const WsLayout<M>& W,
+                                        const Lane& ws, const VehParams& pv,
+                                        const float (&x)[M::NX], const Lane& xref) {
+  constexpr int NX = M::NX;
   const int N = P.N, S = P.B;
   const Lane Xp = lane_of(P.Xp, b, S), Up = lane_of(P.Up, b, S);
   // 1. shift schedule: Xs = [x, Xp[2..N], Xp[N]], Us = [Up[1..N-1], Up[N-1]]
@@ -93,7 +108,7 @@ __device__ __forceinline__ void prepare(const CoreParams& P, int b, const WsLayo
   const float lo[NC] = {P.vx_min, -P.ey_max, -P.delta_max, P.a_min, -P.ddelta_max, -P.da_max};
   const float hi[NC] = {P.vx_max, P.ey_max, P.delta_max, P.a_max, P.ddelta_max, P.da_max};
   for (int k = 0; k <= N; ++k) {
-    const float kap = kap_at(P.kappa, P.n_cells, length, inv_ds, ws[W.Xs + k * NX + 4]);
+    const float kap = kap_at(P.kappa, P.n_cells, length, inv_ds, ws[W.Xs + k * NX + M::S]);
     ws[W.kap + k] = kap;
     float cap = P.vx_max;
     if (P.kappa_speed_cap)
@@ -117,7 +132,7 @@ __device__ __forceinline__ void prepare(const CoreParams& P, int b, const WsLayo
     float xk[NX], uk[NU], Ac[NX][NX], Bc[NX][NU], Ad[NX][NX], Bd[NX][NU];
     loadv(xk, ws, W.Xs + k * NX);
     loadv(uk, ws, W.Us + k * NU);
-    ab_cont_dynamic(xk, uk, ws[W.kap + k], pv, P.tire, Ac, Bc);
+    M::ab_cont(xk, uk, ws[W.kap + k], pv, P.tire, Ac, Bc);
     vanloan(Ac, Bc, P.dt, Ad, Bd);
     store(Ad, ws, W.Ad + k * NX * NX);
     store(Bd, ws, W.Bd + k * NX * NU);
@@ -145,8 +160,10 @@ __device__ __forceinline__ void prepare(const CoreParams& P, int b, const WsLayo
 }
 
 // Section 5: backward Riccati factorization of the rho-folded cost.
-__device__ __forceinline__ void factor(const CoreParams& P, const WsLayout& W, const Lane& ws,
-                                       float rho) {
+template <class M>
+__device__ __forceinline__ void factor(const CoreParams<M>& P, const WsLayout<M>& W,
+                                       const Lane& ws, float rho) {
+  constexpr int NX = M::NX, NA = M::NA;
   float V[NA][NA];
 #pragma unroll
   for (int i = 0; i < NA; ++i)
@@ -241,10 +258,12 @@ __device__ __forceinline__ void factor(const CoreParams& P, const WsLayout& W, c
 
 // Stage k of the z-update: G_k = Dx x_k + Du u_k, relaxed projection
 // (prox for the soft e_y row) and the dual step, with the running maxima.
-__device__ __forceinline__ void z_update(const CoreParams& P, const WsLayout& W, const Lane& ws,
-                                         const Lane& s_l, const Lane& lam_l, int k,
-                                         const float (&x)[NA], const float (&u)[NU], bool has_u,
+template <class M>
+__device__ __forceinline__ void z_update(const CoreParams<M>& P, const WsLayout<M>& W,
+                                         const Lane& ws, const Lane& s_l, const Lane& lam_l, int k,
+                                         const float (&x)[M::NA], const float (&u)[NU], bool has_u,
                                          float rho, float rinv, Resid& acc) {
+  constexpr int NA = M::NA;
   float ds[NC], lamn[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
@@ -295,9 +314,11 @@ __device__ __forceinline__ void z_update(const CoreParams& P, const WsLayout& W,
 
 // One ADMM iteration (section 6): affine backward sweep, forward rollout,
 // z-update. Returns the iteration's residual maxima.
-static __device__ Resid admm_iteration(const CoreParams& P, const WsLayout& W, const Lane& ws,
-                                       const Lane& s_l, const Lane& lam_l,
-                                       const float (&x0a)[NA], float rho, float rinv) {
+template <class M>
+static __device__ Resid admm_iteration(const CoreParams<M>& P, const WsLayout<M>& W,
+                                       const Lane& ws, const Lane& s_l, const Lane& lam_l,
+                                       const float (&x0a)[M::NA], float rho, float rinv) {
+  constexpr int NX = M::NX, NA = M::NA;
   const int N = P.N;
   const float sigma = P.sigma;
   float vv[NA];
@@ -413,11 +434,13 @@ static __device__ Resid admm_iteration(const CoreParams& P, const WsLayout& W, c
 // done-at) and returns u0. It holds the block's early-exit vote
 // (__syncthreads_and), so every thread of the block calls it; lanes past B
 // (active false) vote "done" and touch no memory.
-__device__ __forceinline__ void mpc_core(const CoreParams& P, int b, bool active,
-                                         const float (&x0)[NX], const VehParams& pv,
+template <class M>
+__device__ __forceinline__ void mpc_core(const CoreParams<M>& P, int b, bool active,
+                                         const float (&x0)[M::NX], const VehParams& pv,
                                          const Lane& xref, const Lane& ws, float (&u0)[NU]) {
+  constexpr int NX = M::NX, NA = M::NA;
   const int S = P.B;
-  const WsLayout W(P.N);
+  const WsLayout<M> W(P.N);
   const Lane s_l = lane_of(P.s_out, active ? b : 0, S);
   const Lane lam_l = lane_of(P.lam_out, active ? b : 0, S);
   float rho = 1.0f, rinv = 1.0f, da = -1.0f;
@@ -482,9 +505,9 @@ __device__ __forceinline__ void mpc_core(const CoreParams& P, int b, bool active
     u0[0] = ws[W.Usol];
     u0[1] = ws[W.Usol + 1];
   } else {
-    const float kap_now = kap_at(P.kappa, P.n_cells, P.taux[0], P.taux[1], x0[4]);
+    const float kap_now = kap_at(P.kappa, P.n_cells, P.taux[0], P.taux[1], x0[M::S]);
     const float sgn = (float)((x0[0] > 0.0f) - (x0[0] < 0.0f));
-    u0[0] = clampf(atanf(kap_now * (pv.lf + pv.lr)) - 0.5f * x0[5] * sgn, -P.delta_max,
+    u0[0] = clampf(atanf(kap_now * (pv.lf + pv.lr)) - 0.5f * x0[M::EY] * sgn, -P.delta_max,
                    P.delta_max);
     u0[1] = x0[0] > 2.0f * P.vx_min ? -0.5f : 0.0f;
   }

@@ -41,7 +41,7 @@
 namespace arl {
 
 struct RaceParams {
-  CoreParams C;
+  CoreParams<Dynamic> C;
   // inputs, batch-last
   const float *xg, *ekx, *ekP, *fr, *xprev, *noise, *mu_true, *xref, *prm;
   // tables: pose X, Y, psi (n_cells,), EKF q, r (6,), reference vx, ey,
@@ -55,7 +55,7 @@ struct RaceParams {
 
 constexpr int RACE_PTRS = 39;
 constexpr int RACE_INTS = 17;
-constexpr int RACE_FLOATS = CORE_FLOATS + 5;
+constexpr int RACE_FLOATS = core_floats<Dynamic>() + 5;
 constexpr float MU_MIN = 0.1f;
 constexpr float MU_MAX = 1.5f;
 
@@ -322,7 +322,7 @@ __global__ void __launch_bounds__(BLOCK) racestep_kernel(const __grid_constant__
   const int b = blockIdx.x * BLOCK + threadIdx.x;
   const int S = P.C.B;
   const bool active = b < S;
-  const WsLayout W(P.C.N);
+  const WsLayout<Dynamic> W(P.C.N);
   const Lane ws = lane_of(P.ws, active ? b : 0, S);
   VehParams pv{}, pv_hat{};
   float xf[NX] = {}, xg[NX] = {}, z[NX] = {}, Pm[NX][NX], u_prev[NU] = {};
@@ -415,7 +415,7 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
   using namespace arl;
   if (n_ptrs != RACE_PTRS || n_f != RACE_FLOATS || n_i != RACE_INTS) return -1;
   RaceParams P;
-  CoreParams& C = P.C;
+  CoreParams<Dynamic>& C = P.C;
   const float** in[] = {&P.xg, &P.ekx, &P.ekP, &P.fr, &P.xprev, &P.noise, &P.mu_true,
                         &C.Xp, &C.Up, &C.sw, &C.lamw, &C.uprev, &C.rho, &P.xref, &P.prm,
                         &C.kappa, &C.taux, &P.Xt, &P.Yt, &P.Pt, &P.ekq, &P.ekr,
@@ -431,8 +431,8 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
   for (int i = 0; i < RACE_INTS; ++i) *ints[i] = iv[i];
   read_core_floats(C, fv);
   float* extra[] = {&P.gate_sigma, &P.forgetting, &P.min_sensitivity, &P.fd_eps, &P.inv_fd_eps};
-  for (int i = 0; i < 5; ++i) *extra[i] = fv[CORE_FLOATS + i];
-  if (P.ws_rows != WsLayout(C.N).total + (C.N + 1) * NX) return -2;
+  for (int i = 0; i < 5; ++i) *extra[i] = fv[core_floats<Dynamic>() + i];
+  if (P.ws_rows != WsLayout<Dynamic>(C.N).total + (C.N + 1) * NX) return -2;
   if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1 || P.n_sub < 1 || P.n_sub_ekf < 1 ||
       C.n_cells < 1 || (P.use_table && P.n_ref < 1))
     return -3;

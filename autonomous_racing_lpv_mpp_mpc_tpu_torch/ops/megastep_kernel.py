@@ -19,6 +19,10 @@ the cell index ``floor(wrap(s) * inv_ds)`` — the kernel's form, which can
 differ by one cell from ``track.curvature_at``'s ``wrap(s) / ds`` exactly
 at a cell boundary.
 
+Both the dynamic (nx=6) and the kinematic (nx=4, BASELINE config 1)
+bicycle; ``cfg.model`` selects the LPV stages, the plant and the carry's
+state width.
+
 :func:`megastep_plain` is the plain PyTorch version (batch-last); the
 wrapper :func:`megastep` takes it for CPU tensors and launches the kernel
 for CUDA tensors. The carry stays batch-last across steps.
@@ -28,24 +32,43 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..core.config import MPCConfig, SolverConfig, VehicleParams
+from ..core.device import resolve_device
 from ..planner.reftable import RefTable, refs_from_table
 from ..solver.admm import _RHO_MAX, _RHO_MIN, _RHO_TOL
 from ..track.track import Track
 from . import _cuda
-from .stage_math import NA, NC, NU, NX, PARAM_ROWS, f_dynamic_bl, stage_aug_ab, unpack_params
-
-GROUP = 128   # lanes that exit the ADMM loop together (the CUDA block)
+from .fused_kernel import (
+    MODELS,
+    TIRES,
+    MegaConsts,
+    _make_consts,
+    admm_plain,
+    core_floats,
+    core_workspace,
+    residual_rows,
+    riccati_factor_plain,
+)
+from .stage_math import (
+    NC,
+    NU,
+    PARAM_ROWS,
+    f_model_bl,
+    model_dims,
+    model_s_ey,
+    stack_params,
+    stage_aug_ab,
+    unpack_params,
+)
 
 
 class MegaCarry(NamedTuple):
-    """Closed-loop carry, batch-LAST."""
+    """Closed-loop carry, batch-LAST (nx = 6 dynamic, 4 kinematic)."""
 
-    x: torch.Tensor        # (NX, B) plant state
-    X_pred: torch.Tensor   # (N+1, NX, B)
+    x: torch.Tensor        # (nx, B) plant state
+    X_pred: torch.Tensor   # (N+1, nx, B)
     U_pred: torch.Tensor   # (N, NU, B)
     s: torch.Tensor        # (N+1, NC, B) ADMM split warm start
     lam: torch.Tensor      # (N+1, NC, B)
@@ -53,56 +76,9 @@ class MegaCarry(NamedTuple):
     rho: torch.Tensor      # (B,)
 
 
-class MegaConsts(NamedTuple):
-    """Host-side constant operands (the JAX fused kernel's ``_make_consts``)."""
-
-    Dx: torch.Tensor     # (NC, NA)
-    Du: torch.Tensor     # (NC, NU)
-    soft: torch.Tensor   # (NC,)
-    Qc: torch.Tensor     # (NA, NA) stage cost + sigma I
-    Qtc: torch.Tensor    # (NA, NA) terminal cost + sigma I
-    Rc: torch.Tensor     # (NU, NU)
-    Mc: torch.Tensor     # (NA, NU)
-    DxDx: torch.Tensor
-    DuDu: torch.Tensor
-    DxDu: torch.Tensor
-    qw: torch.Tensor     # (NX,)
-
-
-def _make_consts(cfg: MPCConfig, scfg: SolverConfig, device=None) -> MegaConsts:
-    """Constraint rows, soft weights and the sigma-shifted cost blocks."""
-    w = cfg.weights
-    sigma = float(scfg.sigma)
-    nx, na = NX, NA
-    Dx = np.zeros((NC, na), np.float32)
-    Du = np.zeros((NC, NU), np.float32)
-    Dx[0, 0] = 1.0
-    Dx[1, 5] = 1.0
-    Du[2, 0] = 1.0
-    Du[3, 1] = 1.0
-    Dx[4, nx] = -1.0
-    Du[4, 0] = 1.0
-    Dx[5, nx + 1] = -1.0
-    Du[5, 1] = 1.0
-    soft = np.full((NC,), np.inf, np.float32)
-    soft[1] = float(cfg.bounds.ey_soft)
-    q_w = np.asarray(w.q, np.float32)
-    if q_w.shape[0] != nx:
-        raise ValueError(f"MPCWeights.q has {q_w.shape[0]} entries, the dynamic model {nx}")
-    r_w = np.asarray(w.r, np.float32)
-    dr_w = np.asarray(w.dr, np.float32)
-    Qc = np.diag(np.concatenate([q_w, dr_w])) + sigma * np.eye(na, dtype=np.float32)
-    Qtc = np.diag(np.concatenate([q_w, np.zeros(NU, np.float32)])) + sigma * np.eye(na, dtype=np.float32)
-    Rc = np.diag(r_w + dr_w) + sigma * np.eye(NU, dtype=np.float32)
-    Mc = np.zeros((na, NU), np.float32)
-    Mc[nx:, :] = -np.diag(dr_w)
-    arrs = (Dx, Du, soft, Qc, Qtc, Rc, Mc, Dx.T @ Dx, Du.T @ Du, Dx.T @ Du, q_w)
-    return MegaConsts(*(torch.tensor(np.asarray(a, np.float32), device=device) for a in arrs))
-
-
 def _check_supported(cfg: MPCConfig, scfg: SolverConfig, eyb, cache):
-    if cfg.model != "dynamic":
-        raise NotImplementedError("the megastep is ported for the dynamic model only")
+    if cfg.model not in MODELS:
+        raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.linearization != "lpv" or cfg.discretization != "expm":
         raise NotImplementedError("the megastep builds LPV stages with the Van Loan expm")
     if eyb is not None:
@@ -114,7 +90,7 @@ def _check_supported(cfg: MPCConfig, scfg: SolverConfig, eyb, cache):
 
 
 def megastep_init(p_b: VehicleParams, cfg: MPCConfig, track: Track, x0_b: torch.Tensor) -> MegaCarry:
-    """Batch-last carry from the batch-first ``mpc_init``; x0_b (B, NX)."""
+    """Batch-last carry from the batch-first ``mpc_init``; x0_b (B, nx)."""
     from ..loop.mpc import mpc_init
 
     c = mpc_init(p_b, cfg, track, x0_b)
@@ -124,21 +100,22 @@ def megastep_init(p_b: VehicleParams, cfg: MPCConfig, track: Track, x0_b: torch.
 
 
 def megastep_params(p_b: VehicleParams, B: int, device=None) -> torch.Tensor:
-    """(10, B) stacked vehicle-parameter rows (compute once per sweep)."""
-    rows = [torch.as_tensor(getattr(p_b, n), dtype=torch.float32, device=device).reshape(-1)
-            for n in PARAM_ROWS]
-    return torch.stack([r.expand(B) for r in rows]).contiguous()
+    """(10, B) stacked vehicle-parameter rows (compute once per sweep), on
+    ``device`` (``None``: the CUDA card)."""
+    return stack_params(p_b, B, resolve_device(device))
 
 
 def megastep_refs(cfg: MPCConfig, x_ref, carry: MegaCarry) -> torch.Tensor:
-    """(N+1, NX, B) batch-last reference from a shared (N+1, NX) array, an
+    """(N+1, nx, B) batch-last reference from a shared (N+1, nx) array, an
     already batch-last one, or a :class:`RefTable` sampled along the
     scheduled s ``[x, X_pred[2:], X_pred[N]]`` (``mpc_prepare``'s)."""
     B = carry.x.shape[-1]
     if isinstance(x_ref, RefTable):
         if x_ref.vx.dim() != 1:
             raise NotImplementedError("per-lane reference tables are not ported yet")
-        s_sched = torch.cat([carry.x[4][None], carry.X_pred[2:, 4], carry.X_pred[-1:, 4]], dim=0)
+        s_idx, _ = model_s_ey(cfg.model)
+        s_sched = torch.cat([carry.x[s_idx][None], carry.X_pred[2:, s_idx], carry.X_pred[-1:, s_idx]],
+                            dim=0)
         return refs_from_table(cfg, x_ref.to(carry.x.device), s_sched.T).permute(1, 2, 0).contiguous()
     x_ref = x_ref.to(device=carry.x.device, dtype=torch.float32)
     if x_ref.dim() == 2:
@@ -161,48 +138,6 @@ def _kap_lookup(track: Track, device):
     return kap_at
 
 
-# ---- batch-last small-matrix helpers (matrix dims lead, batch last) ----
-
-def _mm(a, b):
-    return torch.einsum("ijb,jlb->ilb", a, b)
-
-
-def _mtm(a, b):
-    return torch.einsum("jib,jlb->ilb", a, b)
-
-
-def _mv(a, x):
-    return torch.einsum("ijb,jb->ib", a, x)
-
-
-def _mtv(a, x):
-    return torch.einsum("jib,jb->ib", a, x)
-
-
-def _inv2(H):
-    a, b, c, d = H[0, 0], H[0, 1], H[1, 0], H[1, 1]
-    inv_det = 1.0 / (a * d - b * c)
-    return torch.stack([torch.stack([d * inv_det, -b * inv_det]),
-                        torch.stack([-c * inv_det, a * inv_det])])
-
-
-def _dual_norm(k: MegaConsts, y, N):
-    """inf-norm of D' y over the stages; y (N+1, NC, B) -> (B,)."""
-    tx = torch.einsum("ci,kcb->kib", k.Dx, y)
-    tu = torch.einsum("ci,kcb->kib", k.Du, y[:N])
-    return torch.maximum(tx.abs().amax(dim=(0, 1)), tu.abs().amax(dim=(0, 1)))
-
-
-def _groups_done(da):
-    """(B,) lane mask: the lane's 128-lane group has a done-at everywhere
-    (lanes past B count as done)."""
-    B = da.shape[0]
-    n_g = -(-B // GROUP)
-    done = torch.ones(n_g * GROUP, dtype=torch.bool, device=da.device)
-    done[:B] = da >= 0.0
-    return done.reshape(n_g, GROUP).all(dim=1).repeat_interleave(GROUP)[:B]
-
-
 def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: dict, kap_at,
                    carry, xref: torch.Tensor, k: MegaConsts):
     """The tracker step of the kernels, sections 1-8, in plain PyTorch:
@@ -211,25 +146,26 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
     limp-home (the JAX package's ``_mpc_core``, shared by the megastep and
     the racestep).
 
-    ``x_now`` (NX, B) is the state the step starts from, ``pv`` the
+    ``x_now`` (nx, B) is the state the step starts from, ``pv`` the
     per-lane parameter rows (mu may be an estimate), ``carry`` anything
-    with the warm-start fields of :class:`MegaCarry`, ``xref`` (N+1, NX, B).
+    with the warm-start fields of :class:`MegaCarry`, ``xref`` (N+1, nx, B).
     Returns (X_pred, U_pred, s, lam, u0 (NU, B), diag (5, B): r_prim,
     r_dual, converged, rho_next, iters)."""
     N, dt = cfg.N, float(cfg.dt)
+    nx, _ = model_dims(cfg.model)
+    s_idx, ey_idx = model_s_ey(cfg.model)
     dev = x_now.device
     f32 = dict(dtype=torch.float32, device=dev)
     B = x_now.shape[-1]
     b = cfg.bounds
     rho = carry.rho
-    sigma, alpha = float(scfg.sigma), float(scfg.alpha)
 
     # 1. shift schedule
-    Xs = torch.cat([x_now[None], carry.X_pred[2:], carry.X_pred[-1:]], dim=0)   # (N+1, NX, B)
+    Xs = torch.cat([x_now[None], carry.X_pred[2:], carry.X_pred[-1:]], dim=0)   # (N+1, nx, B)
     Us = torch.cat([carry.U_pred[1:], carry.U_pred[-1:]], dim=0)              # (N, NU, B)
 
     # 2. curvature + bounds per stage
-    kap = kap_at(Xs[:, 4])                                                     # (N+1, B)
+    kap = kap_at(Xs[:, s_idx])                                                 # (N+1, B)
     if cfg.kappa_speed_cap:
         cap = torch.sqrt(cfg.a_lat_frac * pv["mu"] * pv["g"] / torch.clamp_min(torch.abs(kap), 1e-6))
         cap = torch.clamp(cap, b.vx_min, b.vx_max)
@@ -246,9 +182,9 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
 
     # 3. stage matrices (all N at once) + linear cost, vx-ref clamped to the cap
     Aa, Ba = stage_aug_ab(Xs[:N].permute(1, 0, 2), Us.permute(1, 0, 2), kap[:N], pv,
-                          dt=dt, tire=cfg.tire)
-    A_s = Aa.permute(2, 0, 1, 3)                                               # (N, NA, NA, B)
-    B_s = Ba.permute(2, 0, 1, 3)                                               # (N, NA, NU, B)
+                          dt=dt, tire=cfg.tire, model=cfg.model)
+    A_s = Aa.permute(2, 0, 1, 3)                                               # (N, na, na, B)
+    B_s = Ba.permute(2, 0, 1, 3)                                               # (N, na, NU, B)
     xr = xref.clone()
     xr[:, 0] = torch.minimum(xr[:, 0], ub[:, 0])
     q0 = torch.cat([-(k.qw[None, :, None] * xr), torch.zeros((N + 1, NU, B), **f32)], dim=1)
@@ -258,110 +194,17 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
     lam = torch.cat([carry.lam[1:], carry.lam[-1:]], dim=0)
 
     # 5. folded cost + Riccati factorization
-    c1 = lambda a: a[:, :, None]
-    Qf = c1(k.Qc) + c1(k.DxDx) * rho
-    V = c1(k.Qtc) + c1(k.DxDx) * rho
-    Rf = c1(k.Rc) + c1(k.DuDu) * rho
-    Mf = c1(k.Mc) + c1(k.DxDu) * rho
-    K_s, Hiv_s, Hux_s = [None] * N, [None] * N, [None] * N
-    for i in range(N - 1, -1, -1):
-        Ak, Bk = A_s[i], B_s[i]
-        VB = _mm(V, Bk)
-        Huu = Rf + _mtm(Bk, VB)
-        VA = _mm(V, Ak)
-        Hux = Mf.transpose(0, 1) + _mtm(Bk, VA)
-        Hiv = _inv2(Huu)
-        K = -_mm(Hiv, Hux)
-        K_s[i], Hiv_s[i], Hux_s[i] = K, Hiv, Hux
-        Vn = Qf + _mtm(Ak, VA) + _mtm(Hux, K)
-        V = 0.5 * (Vn + Vn.transpose(0, 1))
+    gains = riccati_factor_plain(k, A_s, B_s, rho)
 
-    # 6. ADMM iterations
-    x0a = torch.cat([x_now, carry.u_prev], dim=0)                             # (NA, B)
-    Xsol = torch.zeros((N + 1, NA, B), **f32)
-    Usol = torch.zeros((N, NU, B), **f32)
-    G = torch.zeros((N + 1, NC, B), **f32)
-    sprev = s
-    beta = torch.clamp_max(k.soft, 1e30)[None, :, None]
-    hard = torch.isinf(k.soft)[None, :, None]
-    rinv = 1.0 / rho
-    soft_blend_inv = 1.0 / (beta + rho)
-
-    def iteration(s, lam, Xsol, Usol):
-        v = s - lam * rinv
-        qv = q0 - rho * torch.einsum("ci,kcb->kib", k.Dx, v) - sigma * Xsol
-        rv = -rho * torch.einsum("ci,kcb->kib", k.Du, v[:N]) - sigma * Usol
-        vvec = qv[N]
-        d = [None] * N
-        for i in range(N - 1, -1, -1):
-            h_u = rv[i] + _mtv(B_s[i], vvec)
-            d[i] = -_mv(Hiv_s[i], h_u)
-            vvec = qv[i] + _mtv(A_s[i], vvec) + _mtv(Hux_s[i], d[i])
-        xs, us = [x0a], []
-        x = x0a
-        for i in range(N):
-            u = _mv(K_s[i], x) + d[i]
-            x = _mv(A_s[i], x) + _mv(B_s[i], u)
-            xs.append(x)
-            us.append(u)
-        Xn, Un = torch.stack(xs), torch.stack(us)
-        Gx = torch.einsum("ci,kib->kcb", k.Dx, Xn)
-        Gu = torch.einsum("ci,kib->kcb", k.Du, Un)
-        Gn = torch.cat([Gx[:N] + Gu, Gx[N:]], dim=0)
-        w_rel = alpha * Gn + (1.0 - alpha) * s
-        wl = w_rel + lam * rinv
-        clipped = torch.clamp(wl, lb, ub)
-        soft_s = (beta * clipped + rho * wl) * soft_blend_inv
-        s_new = torch.where(hard, clipped, soft_s)
-        return s_new, lam + rho * (w_rel - s_new), Xn, Un, Gn, s
-
-    def residuals(G, s, lam, sprev):
-        red = lambda t: t.abs().amax(dim=(0, 1))
-        r_p = red(G - s)
-        r_d = rho * _dual_norm(k, s - sprev, N)
-        e_p = scfg.eps_abs + scfg.eps_rel * torch.maximum(red(G), red(s))
-        e_d = scfg.eps_abs + scfg.eps_rel * _dual_norm(k, lam, N)
-        return r_p, r_d, e_p, e_d
-
-    da = torch.full((B,), -1.0, **f32)
-    state = (s, lam, Xsol, Usol, G, sprev)
-
-    def run(state, n_it, act=None):
-        for _ in range(n_it):
-            new = iteration(*state[:4])
-            if act is None:
-                state = new
-            else:
-                state = tuple(torch.where(act, n, o) for n, o in zip(new, state))
-        return state
-
-    def record(state, da, it1):
-        r_p, r_d, e_p, e_d = residuals(state[4], state[0], state[1], state[5])
-        conv = (r_p <= e_p) & (r_d <= e_d)
-        return torch.where((da < 0.0) & conv, torch.full_like(da, float(it1)), da)
-
-    check = max(1, scfg.check_termination)
-    n_chunks = scfg.max_iter // check
-    rem = scfg.max_iter - n_chunks * check
-    if scfg.early_exit:
-        for c in range(n_chunks):
-            act = ~_groups_done(da)
-            if not bool(act.any()):
-                break
-            state = run(state, check, act)
-            da = record(state, da, (c + 1) * check)
-        act = ~_groups_done(da)
-        if rem and bool(act.any()):
-            state = run(state, rem, act)
-    else:
-        for c in range(n_chunks):
-            state = run(state, check)
-            da = record(state, da, (c + 1) * check)
-        state = run(state, rem)
-    s_f, lam_f, Xsol, Usol, G, sprev = state
+    # 6. ADMM iterations, done-at recorded at chunk boundaries
+    x0a = torch.cat([x_now, carry.u_prev], dim=0)                             # (na, B)
+    s_f, lam_f, Xsol, Usol, G, sprev, da = admm_plain(scfg, k, A_s, B_s, gains, q0, lb, ub, x0a,
+                                                      s, lam, rho, exact_done_at=False)
 
     # 7. residuals / convergence / rho adaptation
-    r_prim, r_dual, eps_prim, eps_dual = residuals(G, s_f, lam_f, sprev)
+    r_prim, r_dual, g_max, s_max, d_lam = residual_rows(k, N, G, s_f, lam_f, sprev, rho)
+    eps_prim = scfg.eps_abs + scfg.eps_rel * torch.maximum(g_max, s_max)
+    eps_dual = scfg.eps_abs + scfg.eps_rel * d_lam
     converged = (r_prim <= eps_prim) & (r_dual <= eps_dual)
     ratio = torch.sqrt((r_prim / torch.clamp_min(eps_prim, 1e-12))
                        / torch.clamp_min(r_dual / torch.clamp_min(eps_dual, 1e-12), 1e-12))
@@ -371,13 +214,13 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
 
     # 8. accept or limp-home
     usable = converged | ((r_prim < scfg.eps_fallback) & (r_dual < scfg.eps_fallback))
-    kap_now = kap_at(x_now[4])
+    kap_now = kap_at(x_now[s_idx])
     L = pv["lf"] + pv["lr"]
-    delta_ff = torch.atan(kap_now * L) - 0.5 * x_now[5] * torch.sign(x_now[0])
+    delta_ff = torch.atan(kap_now * L) - 0.5 * x_now[ey_idx] * torch.sign(x_now[0])
     delta_ff = torch.clamp(delta_ff, -b.delta_max, b.delta_max)
     a_fb = torch.where(x_now[0] > 2.0 * b.vx_min, torch.full_like(rho, -0.5), torch.zeros_like(rho))
     u0 = torch.where(usable, Usol[0], torch.stack([delta_ff, a_fb]))
-    X_pred = torch.where(usable, Xsol[:, :NX], Xs)
+    X_pred = torch.where(usable, Xsol[:, :nx], Xs)
     U_pred = torch.where(usable, Usol, Us)
     diag = torch.stack([r_prim, r_dual, converged.to(torch.float32), rho_next, iters])
     return X_pred, U_pred, s_f, lam_f, u0, diag
@@ -387,7 +230,8 @@ def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
                    x_ref, carry: MegaCarry, n_sub: int = 4, sim_tire: str | None = None,
                    eyb=None, cache=None):
     """Plain PyTorch version of the megastep kernel (any device): the
-    shared tracker core, then ``n_sub`` Euler sub-steps of the Frenet plant.
+    shared tracker core, then ``n_sub`` Euler sub-steps of the Frenet plant
+    of ``cfg.model``.
 
     Returns (new_carry, u0 (NU, B), diag (5, B): r_prim, r_dual, converged,
     rho_next, iters)."""
@@ -400,18 +244,19 @@ def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
         _make_consts(cfg, scfg, dev))
 
     # 9. plant: fine Euler sub-steps
+    s_idx, _ = model_s_ey(cfg.model)
     h = float(cfg.dt) / n_sub
     x = carry.x
     for _ in range(n_sub):
-        x = x + h * f_dynamic_bl(pv, x, u0, kap_at(x[4]), sim_tire or cfg.tire)
+        x = x + h * f_model_bl(cfg.model, pv, x, u0, kap_at(x[s_idx]), sim_tire or cfg.tire)
 
     new = MegaCarry(x=x, X_pred=X_pred, U_pred=U_pred, s=s_f, lam=lam_f, u_prev=u0, rho=diag[3])
     return new, u0, diag
 
 
-def _check_cuda_operands(carry: MegaCarry, prm, N: int):
+def _check_cuda_operands(carry: MegaCarry, prm, N: int, nx: int):
     B = carry.x.shape[-1]
-    want = {"x": (NX, B), "X_pred": (N + 1, NX, B), "U_pred": (N, NU, B), "s": (N + 1, NC, B),
+    want = {"x": (nx, B), "X_pred": (N + 1, nx, B), "U_pred": (N, NU, B), "s": (N + 1, NC, B),
             "lam": (N + 1, NC, B), "u_prev": (NU, B), "rho": (B,)}
     for name, shape in want.items():
         t = getattr(carry, name)
@@ -442,11 +287,11 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
     _check_supported(cfg, scfg, eyb, cache)
     dev = carry.x.device
     N = cfg.N
+    nx, _ = model_dims(cfg.model)
     B = carry.x.shape[-1]
-    _check_cuda_operands(carry, prm, N)
-    tires = {"linear": 0, "pacejka": 1}
+    _check_cuda_operands(carry, prm, N, nx)
     sim_tire = sim_tire or cfg.tire
-    if cfg.tire not in tires or sim_tire not in tires:
+    if cfg.tire not in TIRES or sim_tire not in TIRES:
         raise ValueError(f"megastep: unknown tire {cfg.tire!r} / {sim_tire!r}")
     kw = dict(dtype=torch.float32, device=dev)
     xref = megastep_refs(cfg, x_ref, carry)
@@ -455,26 +300,22 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
     ins = [carry.x, carry.X_pred, carry.U_pred, carry.s, carry.lam, carry.u_prev,
            carry.rho, xref, prm, kappa, taux]
     out = MegaCarry(
-        x=torch.empty((NX, B), **kw), X_pred=torch.empty((N + 1, NX, B), **kw),
+        x=torch.empty((nx, B), **kw), X_pred=torch.empty((N + 1, nx, B), **kw),
         U_pred=torch.empty((N, NU, B), **kw), s=torch.empty((N + 1, NC, B), **kw),
         lam=torch.empty((N + 1, NC, B), **kw), u_prev=torch.empty((NU, B), **kw),
         rho=None,
     )
     stats = torch.empty((8, B), **kw)
-    ws = torch.empty((megastep_workspace(N), B), **kw)
-    k = _make_consts(cfg, scfg)
-    consts = torch.cat([t.reshape(-1) for t in k]).tolist()
-    b = cfg.bounds
+    ws_rows = core_workspace(N, cfg.model)
+    ws = torch.empty((ws_rows, B), **kw)
     _cuda.launch(
         "arl_megastep",
         [t.contiguous() for t in ins] + [out.x, out.X_pred, out.U_pred, out.s, out.lam,
                                          out.u_prev, stats, ws],
-        [cfg.dt, scfg.sigma, scfg.alpha, scfg.eps_abs, scfg.eps_rel, scfg.eps_fallback,
-         b.vx_min, b.vx_max, b.ey_max, b.delta_max, b.a_min, b.a_max, b.ddelta_max, b.da_max,
-         cfg.a_lat_frac] + consts,
+        core_floats(cfg, scfg),
         [B, N, track.n_cells, n_sub, scfg.max_iter, max(1, scfg.check_termination),
-         int(scfg.early_exit), tires[cfg.tire], tires[sim_tire], int(cfg.kappa_speed_cap),
-         megastep_workspace(N)],
+         int(scfg.early_exit), TIRES[cfg.tire], TIRES[sim_tire], int(cfg.kappa_speed_cap),
+         ws_rows, MODELS[cfg.model]],
     )
     megastep.launches += 1
     new = out._replace(rho=stats[3])
@@ -482,10 +323,3 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
 
 
 megastep.launches = 0   # kernel launches (CPU calls never count)
-
-
-def megastep_workspace(N: int) -> int:
-    """Per-lane float32 workspace of the CUDA megastep (see the source)."""
-    return ((N + 1) * NX + N * NU + (N + 1) + 2 * (N + 1) * NC + N * NX * NX
-            + N * NX * NU + (N + 1) * NX + N * NU * NA + N * NU * NU + N * NU * NA
-            + N * NU + (N + 1) * NA + N * NU)

@@ -49,12 +49,12 @@ from ..core.config import MPCConfig, SolverConfig, VehicleParams
 from ..planner.reftable import RefTable
 from ..track.track import Track, frenet_to_global
 from . import _cuda
+from .fused_kernel import TIRES, core_floats, core_workspace
 from .megastep_kernel import (
     _check_supported,
     _kap_lookup,
     _make_consts,
     megastep_refs,
-    megastep_workspace,
     mpc_core_plain,
 )
 from .stage_math import (
@@ -73,7 +73,6 @@ from .stage_math import (
 MU_MIN, MU_MAX = 0.1, 1.5       # loop/friction.py clip range
 FD_EPS = 3e-3                   # forward-difference step of the EKF Jacobian
 EPSI_PROBE = 0.15               # refs_from_table's slope probe [m]
-TIRES = {"linear": 0, "pacejka": 1}
 
 
 class RaceMegaCarry(NamedTuple):
@@ -353,7 +352,7 @@ racestep.launches = 0   # kernel launches (CPU calls never count)
 def racestep_workspace(N: int) -> int:
     """Per-lane float32 workspace of the CUDA racestep: the megastep's plus
     the (N+1, NX) reference rows sampled from a table."""
-    return megastep_workspace(N) + (N + 1) * NX
+    return core_workspace(N) + (N + 1) * NX
 
 
 def _check_race_operands(carry: RaceMegaCarry, prm, noise, mu_true, N: int):
@@ -408,18 +407,12 @@ def _racestep_cuda(cfg, scfg, track, prm, x_ref, carry, noise, mu_true, ekf_q, e
     z = torch.empty((6, B), **kw)
     stats = torch.empty((8, B), **kw)
     ws = torch.empty((racestep_workspace(N), B), **kw)
-    k = _make_consts(cfg, scfg)
-    b = cfg.bounds
     _cuda.launch(
         "arl_racestep",
         [t.contiguous() for t in ins] + [new.xg, new.ekx, new.ekP, new.fr, new.x_prev_f, z,
                                          new.X_pred, new.U_pred, new.s, new.lam, new.u_prev,
                                          stats, ws],
-        [cfg.dt, scfg.sigma, scfg.alpha, scfg.eps_abs, scfg.eps_rel, scfg.eps_fallback,
-         b.vx_min, b.vx_max, b.ey_max, b.delta_max, b.a_min, b.a_max, b.ddelta_max, b.da_max,
-         cfg.a_lat_frac]
-        + torch.cat([t.reshape(-1) for t in k]).tolist()
-        + [gate_sigma, forgetting, min_sensitivity, FD_EPS, 1.0 / FD_EPS],
+        list(core_floats(cfg, scfg)) + [gate_sigma, forgetting, min_sensitivity, FD_EPS, 1.0 / FD_EPS],
         [B, N, track.n_cells, n_sub, scfg.max_iter, max(1, scfg.check_termination),
          int(scfg.early_exit), TIRES[cfg.tire], TIRES[sim_tire], int(cfg.kappa_speed_cap),
          racestep_workspace(N), n_sub_ekf, int(use_ekf), int(adapt_mu), int(use_table),

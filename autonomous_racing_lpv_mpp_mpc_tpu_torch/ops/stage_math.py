@@ -1,5 +1,6 @@
 """Batch-last stage math in plain PyTorch (the JAX package's
-``ops/stage_math.py``), used by the plain megastep.
+``ops/stage_math.py``), used by the plain megastep, racestep and fused
+solve, for the dynamic (nx=6) and the kinematic (nx=4) bicycle.
 
 The scenario batch is the LAST axis; any axes between the matrix axes and
 the batch are carried along (the plain megastep builds all N stages at
@@ -14,15 +15,44 @@ import math
 import torch
 
 NX, NU, NA, NC = 6, 2, 8, 6            # dynamic-bicycle dims
+KIN_NX, KIN_NA = 4, 6                  # kinematic bicycle (BASELINE config 1)
 VX_EPS = 0.05
 DENOM_EPS = 0.1
 PACEJKA_C = 1.3
 PARAM_ROWS = ("m", "Iz", "lf", "lr", "Cf", "Cr", "mu", "g", "cd0", "cd1")
 
 
+def model_dims(model: str):
+    """(nx, na) for a model; na = nx + NU (the (x, u_prev) augmentation)."""
+    if model == "dynamic":
+        return NX, NA
+    if model == "kinematic":
+        return KIN_NX, KIN_NA
+    raise ValueError(model)
+
+
+def model_s_ey(model: str):
+    """(s_idx, ey_idx) in the model's state vector."""
+    return (4, 5) if model == "dynamic" else (2, 3)
+
+
 def unpack_params(prm: torch.Tensor) -> dict:
     """(10, B) vehicle-parameter rows -> named (B,) values."""
     return dict(zip(PARAM_ROWS, prm))
+
+
+def stack_params(p_b, B: int, device) -> torch.Tensor:
+    """(10, B) float32 rows of a :class:`VehicleParams` whose leaves are
+    floats or (B,) tensors, on ``device``. Float leaves are filled on the
+    device (no host-to-device copy, which would wait for the device)."""
+    rows = []
+    for n in PARAM_ROWS:
+        v = getattr(p_b, n)
+        if isinstance(v, torch.Tensor):
+            rows.append(v.to(device=device, dtype=torch.float32).reshape(-1).expand(B))
+        else:
+            rows.append(torch.full((B,), float(v), dtype=torch.float32, device=device))
+    return torch.stack(rows).contiguous()
 
 
 def _mm(a, b):
@@ -105,6 +135,33 @@ def _ab_cont_dynamic(x, u, kap, pv, tire: str):
     return A6, B6
 
 
+def _ab_cont_kinematic(x, u, kap, pv):
+    """Continuous-time LPV (A, B) for the kinematic bicycle, batch-last:
+    x = (vx, e_psi, s, e_y) (KIN_NX, ...), u (NU, ...), kap (...)."""
+    m_, lf, lr = pv["m"], pv["lf"], pv["lr"]
+    vx, epsi, ey = x[0], x[1], x[3]
+    vxs = torch.clamp_min(vx, VX_EPS)
+    L = lf + lr
+    se, ce = torch.sin(epsi), torch.cos(epsi)
+    den = torch.clamp_min(1.0 - kap * ey, DENOM_EPS)
+    z = torch.zeros_like(vx)
+    one = torch.ones_like(vx)
+    a00 = -(pv["cd1"] + pv["cd0"] / vxs) / m_
+    A4 = torch.stack([
+        torch.stack([a00, z, z, z]),
+        torch.stack([-kap * ce / den, z, z, z]),
+        torch.stack([ce / den, z, z, z]),
+        torch.stack([z, vxs * _sinc(epsi), z, z]),
+    ])
+    B4 = torch.stack([
+        torch.stack([z, one]),
+        torch.stack([vxs / L, z]),
+        torch.stack([z, z]),
+        torch.stack([z, z]),
+    ])
+    return A4, B4
+
+
 def _vanloan_aug(A_c, B_c, *, dt: float, squarings: int, order: int):
     """Van Loan exp([[A, B], [0, 0]] dt) + (x, u_prev) augmentation,
     batch-last. Returns (Aa (NA, NA, ...), Ba (NA, NU, ...))."""
@@ -128,10 +185,15 @@ def _vanloan_aug(A_c, B_c, *, dt: float, squarings: int, order: int):
     return Aa, Ba
 
 
-def stage_aug_ab(x, u, kap, pv, *, dt: float, tire: str, squarings: int = 4, order: int = 6):
+def stage_aug_ab(x, u, kap, pv, *, dt: float, tire: str, squarings: int = 4, order: int = 6,
+                 model: str = "dynamic"):
     """One scheduled stage (or a stack of them): LPV linearization + Van
-    Loan discretization + augmentation, batch-last."""
-    A_c, B_c = _ab_cont_dynamic(x, u, kap, pv, tire)
+    Loan discretization + augmentation, batch-last. ``model`` selects the
+    dynamic (nx=6) or kinematic (nx=4) LPV; the kinematic one has no tires."""
+    if model == "kinematic":
+        A_c, B_c = _ab_cont_kinematic(x, u, kap, pv)
+    else:
+        A_c, B_c = _ab_cont_dynamic(x, u, kap, pv, tire)
     return _vanloan_aug(A_c, B_c, dt=dt, squarings=squarings, order=order)
 
 
@@ -167,6 +229,26 @@ def f_dynamic_bl(pv, x, u, kap, tire: str):
     depsi = wz - kap * sdot
     dey = vx * se + vy * ce
     return torch.stack([dvx, dvy, dwz, depsi, sdot, dey])
+
+
+def f_kinematic_bl(pv, x, u, kap):
+    """Batch-last kinematic-bicycle Frenet ODE; x (KIN_NX, B). tan(delta)
+    as sin/cos, the form the CUDA version computes."""
+    vx, epsi, ey = x[0], x[1], x[3]
+    delta, a = u[0], u[1]
+    L = pv["lf"] + pv["lr"]
+    dvx = a - (pv["cd0"] + pv["cd1"] * vx) / pv["m"]
+    psidot = vx * torch.sin(delta) / (torch.cos(delta) * L)
+    se, ce = torch.sin(epsi), torch.cos(epsi)
+    denom = torch.clamp_min(1.0 - kap * ey, DENOM_EPS)
+    sdot = vx * ce / denom
+    return torch.stack([dvx, psidot - kap * sdot, sdot, vx * se])
+
+
+def f_model_bl(model: str, pv, x, u, kap, tire: str):
+    if model == "kinematic":
+        return f_kinematic_bl(pv, x, u, kap)
+    return f_dynamic_bl(pv, x, u, kap, tire)
 
 
 def f_global_bl(pv, xg, u, tire: str):

@@ -8,7 +8,9 @@ import dataclasses
 import torch
 
 from ..core.config import MPCConfig, VehicleParams
+from ..core.device import resolve_device
 from ..models import model_nx
+from ..ops.stage_math import model_s_ey
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,9 +28,11 @@ class ScenarioBatch:
 def make_scenario_grid(base: VehicleParams, cfg: MPCConfig, n_ey: int = 8,
                        n_mu: int = 8, ey_span: float = 0.25, mu_range=(0.7, 1.0),
                        vx0: float = 1.0, device=None) -> ScenarioBatch:
-    """(initial e_y) x (friction mu) grid, e_y-major like the JAX package."""
+    """(initial e_y) x (friction mu) grid, e_y-major like the JAX package,
+    on ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
     nx = model_nx(cfg.model)
-    ey_i = 5 if cfg.model == "dynamic" else 3
+    _, ey_i = model_s_ey(cfg.model)
     eys = torch.linspace(-ey_span, ey_span, n_ey, dtype=torch.float32, device=device)
     mus = torch.linspace(mu_range[0], mu_range[1], n_mu, dtype=torch.float32, device=device)
     ey_g, mu_g = torch.meshgrid(eys, mus, indexing="ij")

@@ -15,6 +15,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Track:
@@ -56,7 +58,8 @@ def compile_track(
     """Compile ``(length, curvature)`` segments into a dense :class:`Track`.
 
     Exact arc geometry per segment; every segment holds an integer number of
-    cells, then the nodes are resampled onto a truly uniform grid.
+    cells, then the nodes are resampled onto a truly uniform grid. The
+    table lives on ``device`` (``None``: the CUDA card).
     """
     segments = [(float(L), float(k)) for (L, k) in segments]
     total = sum(L for L, _ in segments)
@@ -93,6 +96,7 @@ def compile_track(
     centers = (s_uni[:-1] + s_uni[1:]) / 2
     kap_u = seg_kappa[np.minimum(np.searchsorted(seg_ends, centers, side="right"), len(segments) - 1)]
 
+    device = resolve_device(device)
     f32 = lambda a: torch.tensor(np.asarray(a, dtype=np.float32), device=device)
     return Track(
         ds=f32(total / n), length=f32(total), width=f32(width),

@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ops/csrc`` with nvcc, holds
-each against its plain PyTorch version on the card, then drives two main
+each against its plain PyTorch version on the card, then drives four main
 paths:
 
 - the batched receding-horizon tracker of ``bench.py``: B=4096 scenarios of
@@ -23,7 +23,23 @@ paths:
   ``linspace(0.5, 1.2, B)``, controller seed mu0=0.85, vx0=1.5 with s spread
   over the lap, sensor noise sigma = (0.03, 0.01, 0.02, 0.01, 0.02, 0.01),
   EKF with 4 sub-steps, friction adaptation, 10 world-plant sub-steps — for
-  K=500 steps through ``make_racestep_scan``, one racestep launch per step.
+  K=500 steps through ``make_racestep_scan``, one racestep launch per step;
+- ``bench.py``'s fused protocol (``python bench.py 4096 fused``): the
+  tracker of the first path through ``mpc_step_batched(backend="fused")`` +
+  ``plant_step``, ``SolverConfig(max_iter=20, rho_interval=0,
+  early_exit=False, check_termination=2)``, one fused launch per step, K=500;
+- BASELINE config 1 batched: the kinematic bicycle, N=10, on the oval,
+  constant reference vx=1.5, a 64 x 64 grid of initial e_y and friction
+  from vx0=0.5 — K=500 steps through the fused path, then K=500 through
+  the kinematic megastep.
+
+The new paths build their tracks, grids and references without naming a
+device: the port's default device is the card. The ``kernels`` line has
+one record per kernel instantiation (the megastep and the fused kernel
+each for the dynamic and the kinematic model), each with its launches on
+its main path and its bound on the H100: the larger of the operations the
+algorithm needs over 67 TFLOP/s f32 and its bytes over 3.35 TB/s, counted
+at this run's shapes and executed iterations (see the counters below).
 
 Every phase either passes or ends the run with a non-zero exit. The last
 two lines of standard output are a JSON line with one record per kernel and
@@ -36,6 +52,9 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "autonomous_racing_lpv_mpp_mpc_tpu_torch"
@@ -44,7 +63,315 @@ N_MAIN = 20
 K_MAIN = 500
 K_ADMM_ROUTE = 5
 K_RACE_CMP = 5
+K_FUSED_WARM = 50
 SIGMA = (0.03, 0.01, 0.02, 0.01, 0.02, 0.01)
+H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, SXM, 700 W
+H100_BYTES_S = 3.35e12      # HBM3
+
+
+# ---- operations and bytes per lane that the algorithm needs, at this run's
+# shapes and iteration counts. A multiply-add counts 2; an add, multiply,
+# division, compare, square root or transcendental counts 1. A product with
+# a matrix whose zero pattern is fixed counts only its structural
+# multiply-adds: the constant +-1 selector rows D = [Dx Du]
+# (ops/fused_kernel.py::_make_consts) cost only the additions where two of
+# their entries meet in one output, and the LPV (A, B) and the discrete
+# (Ad, Bd) count the nonzeros that the plain stage build leaves. The Riccati
+# cost-to-go, the gains and the EKF covariances count dense. Bytes: each
+# input read once, each output written once. ----
+
+NU, NC = 2, 6
+
+# Scalar code, counted statement by statement in source order.
+SCALAR_OPS = {
+    # arl_common.cuh::kap_at: divide, floor, multiply, subtract, multiply, clamp 2
+    "kap_at": 7,
+    # arl_common.cuh::ab_cont_dynamic: vxs 1, sin/cos of delta and e_psi 4,
+    # den 3, A00 3, A01 4, A02 3, A11 3, A12 6, A21 6, A22 7, A30 2, A31 2,
+    # A40 1, A41 1, A53 (vxs sinc) 5, B00 2, B10 2, B20 3
+    "ab_cont_dynamic": sum((1, 4, 3, 3, 4, 3, 3, 6, 6, 7, 2, 2, 1, 1, 5, 2, 2, 3)),
+    # arl_common.cuh::secant_stiffness, Pacejka: fzf 5, fzr 4, af 4, ar 3,
+    # the two slip floors 2, Bf 3, Br 3, Cf 6, Cr 6
+    "secant_pacejka": sum((5, 4, 4, 3, 2, 3, 3, 6, 6)),
+    # arl_common.cuh::ab_cont_kinematic: vxs 1, L 1, sin/cos 2, den 3, A00 3,
+    # A10 2, A20 1, A31 5, B10 1
+    "ab_cont_kinematic": sum((1, 1, 2, 3, 3, 2, 1, 5, 1)),
+    # arl_common.cuh::f_dynamic: vxs 1, alpha_f 4, alpha_r 3, L 1, fzf 4,
+    # fzr 4, sin/cos 4, denom 3, sdot 4, dx0 9, dx1 5, dx2 5, dx3 2, dx5 3;
+    # the tyre forces (linear 2, Pacejka 16) are added by tyre_ops
+    "f_dynamic": sum((1, 4, 3, 1, 4, 4, 4, 3, 4, 9, 5, 5, 2, 3)),
+    # arl_common.cuh::f_kinematic: L 1, psidot 5, sin/cos 2, denom 3, sdot 2,
+    # dx0 4, dx1 2, dx3 1
+    "f_kinematic": sum((1, 5, 2, 3, 2, 4, 2, 1)),
+    # racestep_kernel.cu::f_global: vxs 1, alpha_f 4, alpha_r 3, L 1, fzf 4,
+    # fzr 4, sin/cos 4, dx0 9, dx1 5, dx2 5, dx3 3, dx4 3; tyres by tyre_ops
+    "f_global": sum((1, 4, 3, 1, 4, 4, 4, 9, 5, 5, 3, 3)),
+    # mpc_core.cuh::prepare, per stage: the friction-circle vx cap (multiply
+    # 2, max, divide, square root, clamp 2), the vx-reference clamp 1
+    "stage_cap": 8,
+    # arl_common.cuh::converged: max, multiply-add 2 x 2, multiply, compare 2
+    "converged": 8,
+    # mpc_core.cuh::mpc_core section 7: r_dual 1, eps_prim 3, eps_dual 2,
+    # conv 2, ratio 8, rho_new 3, rho_next 3
+    "core_tail": sum((1, 3, 2, 2, 8, 3, 3)),
+    # racestep_kernel.cu::measure outside the window loop: ds 1, hint cell
+    # (wrap 4, multiply 1), cos/sin 2, ddx/ddy 2, along 3, e_y 3, s_w 6,
+    # kap_at 7, dpsi 3, e_psi 3, lap 4, z[4] 2; then the noise 6
+    "measure": sum((1, 4, 1, 2, 2, 3, 3, 6, 7, 3, 3, 4, 2, 6)),
+    # racestep_kernel.cu::measure, per window cell: dx, dy 2, d2 3, compare 1
+    "measure_cell": 6,
+    # racestep_kernel.cu::friction_rls: midpoints 6, y1 5, y2 3, L 1, cos
+    # and floor 2, vxs 1, y_m 7, slips 7, loads 6; per axle (x2):
+    # pacejka_mu_sensitivity 18, excitation gate 2, gain 4, mu 5, P 4
+    "friction_rls": sum((6, 5, 3, 1, 2, 1, 7, 7, 6)) + 2 * sum((18, 2, 4, 5, 4)),
+    # racestep_kernel.cu::table_refs, per row: wrap 4, scale 1, t and
+    # 1 - t 2, three interpolations 9
+    "table_row": sum((4, 1, 2, 9)),
+}
+
+
+def tyre_ops(tire):
+    """Axle forces inside f_dynamic / f_global: linear 2; Pacejka Bf 3,
+    Br 3, fyf 5, fyr 5."""
+    return 16 if tire == "pacejka" else 2
+
+
+def pat(P, Q):
+    """Zero pattern of the product of two zero patterns."""
+    return (P.astype(np.int64) @ Q.astype(np.int64)) > 0
+
+
+def pmm(P, Q):
+    """Operations of the product of two zero patterns: 2 per structural
+    multiply-add."""
+    return 2 * int((P.astype(np.int64) @ Q.astype(np.int64)).sum())
+
+
+def sel(D):
+    """Operations of y = D v for a +-1 selector D: its additions."""
+    return int(D.sum() - D.any(axis=1).sum())
+
+
+def ones(r, c):
+    return np.ones((r, c), dtype=bool)
+
+
+class Structure(NamedTuple):
+    """Zero patterns of one model's stage: the continuous A (nx, nx) and
+    B (nx, NU), the augmented discrete Aa = [[Ad 0] [0 0]] (na, na) and
+    Ba = [[Bd] [I]] (na, NU); the selector rows D = [Dx Du] (NC, na + NU);
+    the number of soft rows."""
+    A: np.ndarray
+    B: np.ndarray
+    Aa: np.ndarray
+    Ba: np.ndarray
+    D: np.ndarray
+    soft: int
+
+
+def vanloan_ops(A, B):
+    """arl_common.cuh::vanloan on the top blocks [Ad Bd]: the scaling, 5
+    Horner steps and 4 squarings, each product at the patterns its operands
+    have at that step. Returns (ops, Ad pattern, Bd pattern)."""
+    nx = A.shape[0]
+    eye = np.eye(nx, dtype=bool)
+    Ad, Bd = A | eye, B.copy()
+    ops = 2 * int(A.sum()) + nx + 2 * int(B.sum())
+    for _ in range(5):
+        T, Tb = pat(A, Ad), pat(A, Bd)
+        ops += pmm(A, Ad) + pmm(A, Bd) + int(T.sum()) + nx + 2 * int((Tb | B).sum())
+        Ad, Bd = T | eye, Tb | B
+    for _ in range(4):
+        ops += pmm(Ad, Ad) + pmm(Ad, Bd) + int(Bd.sum())
+        Ad, Bd = pat(Ad, Ad), pat(Ad, Bd) | Bd
+    return ops, Ad, Bd
+
+
+def stage_build_ops(S, tire):
+    """One stage's LPV (A, B) and its Van Loan discretization."""
+    nx = S.A.shape[0]
+    lpv = (SCALAR_OPS["ab_cont_kinematic"] if nx == 4 else
+           SCALAR_OPS["ab_cont_dynamic"] + (SCALAR_OPS["secant_pacejka"] if tire == "pacejka" else 0))
+    return lpv + vanloan_ops(S.A, S.B)[0]
+
+
+def fold_ops(S):
+    """The rho-folded cost blocks Qc + rho DxDx, Qtc + rho DxDx, Rc + rho
+    DuDu, Mc + rho DxDu, once per solve."""
+    na = S.Aa.shape[0]
+    Dx, Du = S.D[:, :na], S.D[:, na:]
+    return 2 * (2 * int(pat(Dx.T, Dx).sum()) + int(pat(Du.T, Du).sum()) + int(pat(Dx.T, Du).sum()))
+
+
+def factor_ops(Aa, Ba, c=None):
+    """One stage of the backward Riccati factor (mpc_core.cuh::factor;
+    admm_kernel.cu::admm_factor, which adds V c)."""
+    na, nu = Ba.shape
+    V = ones(na, na)
+    VA = pat(V, Aa)
+    ops = (pmm(V, Ba) + pmm(Ba.T, ones(na, nu)) + nu * nu       # V Ba, Huu = Rf + Ba' V Ba
+           + pmm(V, Aa) + pmm(Ba.T, VA) + nu * na               # V Aa, Hux = Mf' + Ba' V Aa
+           + 8 + pmm(ones(nu, nu), ones(nu, na))                # inv2, K = -Huu^-1 Hux
+           + pmm(Aa.T, VA) + pmm(ones(na, nu), ones(nu, na))    # Aa' V Aa, Hux' K
+           + 2 * na * na + na * (na - 1))                       # V = Qf + ..., symmetrize
+    return ops + (0 if c is None else pmm(V, c[:, None]))
+
+
+def iteration_ops(S, N, c=None):
+    """One ADMM iteration over N stages and the terminal one
+    (mpc_core.cuh::admm_iteration + z_update; admm_kernel.cu::admm_iter
+    with its affine term c), with the termination test."""
+    Aa, Ba = S.Aa, S.Ba
+    na, nu = Ba.shape
+    D, Dx = S.D, S.D[:, :na]
+    ncol, ncol_x = int(D.any(axis=0).sum()), int(Dx.any(axis=0).sum())
+    col = ones(na, 1)
+    back = (2 * NC + sel(D.T) + 2 * (na + nu) + 2 * ncol                  # v, D'v, q, r
+            + pmm(Ba.T, col) + nu + pmm(ones(nu, nu), ones(nu, 1))       # hu, d
+            + pmm(Aa.T, col) + pmm(ones(na, nu), ones(nu, 1)) + 2 * na)  # v_k
+    back_n = 2 * NC + sel(Dx.T) + 2 * na + 2 * ncol_x
+    # z-update per row: w_rel 3, wl 2, clamp 2, lam 3, |G - s| max 2, |G|
+    # max 1, |s| max 1, ds 1; a soft row adds its prox 4; then the dual
+    # norms D'ds and D'lam with their maxima
+    z = sel(D) + 15 * NC + 4 * S.soft + 2 * sel(D.T) + 2 * ncol
+    z_n = sel(Dx) + 15 * NC + 4 * S.soft + 2 * sel(Dx.T) + 2 * ncol_x
+    fwd = pmm(ones(nu, na), col) + nu + pmm(Aa, col) + pmm(Ba, ones(nu, 1)) + z
+    aff = 0 if c is None else na + int(c.sum())                             # w = Vc + v; x += c
+    return N * (back + fwd + aff) + back_n + z_n + SCALAR_OPS["converged"]
+
+
+def core_ops(S, tire, N, iters):
+    """mpc_core.cuh::mpc_core: per stage the curvature, friction cap,
+    reference clamp, linear cost and warm-start clip; N stage builds; the
+    folded cost; N factor stages; `iters` iterations; residuals and rho.
+    The limp-home branch, which no converged lane takes, is not counted."""
+    nx = S.A.shape[0]
+    per_stage = SCALAR_OPS["kap_at"] + SCALAR_OPS["stage_cap"] + nx + 2 * NC
+    return (N * stage_build_ops(S, tire) + (N + 1) * per_stage + fold_ops(S)
+            + N * factor_ops(S.Aa, S.Ba) + iters * iteration_ops(S, N) + SCALAR_OPS["core_tail"])
+
+
+def fused_ops(S, tire, N, iters):
+    """fused_kernel.cu: N stage builds, the linear cost and warm-start clip,
+    the folded cost, N factor stages, `iters` iterations, r_dual."""
+    nx = S.A.shape[0]
+    return (N * stage_build_ops(S, tire) + (N + 1) * (nx + 2 * NC) + fold_ops(S)
+            + N * factor_ops(S.Aa, S.Ba) + iters * iteration_ops(S, N) + 1)
+
+
+def plant_ops(S, tire, n_sub):
+    """megastep_kernel.cu section 9: n_sub Euler sub-steps of the Frenet
+    plant, each with its curvature lookup."""
+    nx = S.A.shape[0]
+    f = SCALAR_OPS["f_kinematic"] if nx == 4 else SCALAR_OPS["f_dynamic"] + tyre_ops(tire)
+    return n_sub * (f + SCALAR_OPS["kap_at"] + 2 * nx)
+
+
+def ekf_ops(n_sub_ekf, tire, gate):
+    """racestep_kernel.cu::ekf: per sub-step the curvature, 7 model
+    evaluations, the perturbed states, G = I + h J, F = G F (the first
+    product is with I and needs nothing) and the Euler update; then
+    Pp = F P F' + diag(q), the innovation, the optional gate, S, its inverse
+    (n^3 multiply-adds), K = Pp S^-1, x += K nu, P = sym((I - K) Pp)."""
+    n = 6
+    f = SCALAR_OPS["f_dynamic"] + tyre_ops(tire)
+    sub = SCALAR_OPS["kap_at"] + (n + 1) * f + n + (3 * n * n + n) + 2 * n
+    update = (2 * _mm(n, n, n) + n + n + (6 * n if gate else 0) + n + 2 * n ** 3
+              + _mm(n, n, n) + _mm(n, n, 1) + n + _mm(n, n, n) + n * (n - 1))
+    return n_sub_ekf * sub + (n_sub_ekf - 1) * _mm(n, n, n) + update
+
+
+def race_ops(S, N, iters, n_sub_ekf, n_sub, window, gate):
+    """racestep_kernel.cu: measurement over `window` cells, EKF, friction
+    RLS, the reference rows, the core at Pacejka tyres, n_sub world-plant
+    Euler sub-steps."""
+    world = SCALAR_OPS["f_global"] + tyre_ops("pacejka") + 2 * 6
+    return (SCALAR_OPS["measure"] + window * SCALAR_OPS["measure_cell"]
+            + ekf_ops(n_sub_ekf, "pacejka", gate) + SCALAR_OPS["friction_rls"]
+            + (N + 1) * SCALAR_OPS["table_row"] + core_ops(S, "pacejka", N, iters) + n_sub * world)
+
+
+def _mm(r, k, l):
+    return 2 * r * k * l
+
+
+def fused_bytes(nx, N):
+    """Inputs xs, us, kap, xref, prm, lb, ub, x0a, s0, lam0, rho read once;
+    X, U, s, lam, stats written once."""
+    na = nx + 2
+    ins = N * nx + 2 * N + N + (N + 1) * nx + 10 + 4 * 6 * (N + 1) + na + 1
+    outs = (N + 1) * na + 2 * N + 2 * 6 * (N + 1) + 8
+    return 4 * (ins + outs)
+
+
+def mega_bytes(nx, N):
+    """Carry in and out (x, X_pred, U_pred, s, lam, u_prev), rho, xref, prm,
+    stats (the shared curvature table is added per call)."""
+    carry = nx + (N + 1) * nx + 2 * N + 2 * 6 * (N + 1) + 2
+    return 4 * (2 * carry + 1 + (N + 1) * nx + 10 + 8)
+
+
+def race_bytes(N):
+    """The race carry in and out (xg, ekx, ekP, fr, x_prev, X_pred, U_pred,
+    s, lam, u_prev), noise, xf, z, mu_true, rho, prm, stats (the shared
+    tables are added per call)."""
+    carry = 6 + 6 + 36 + 2 + 6 + (N + 1) * 6 + 2 * N + 2 * 6 * (N + 1) + 2
+    return 4 * (2 * carry + 6 + 6 + 1 + 1 + 10 + 8)
+
+
+def admm_bytes(N):
+    """A, B, c, Qf, q, Rf, r, Mf, lb, ub, x0, s0, lam0, rho in; X, U, s,
+    lam, stats out (na = 8)."""
+    ins = N * (64 + 16 + 8 + 4 + 2 + 16) + (N + 1) * (64 + 8) + 4 * 6 * (N + 1) + 8 + 1
+    outs = (N + 1) * 8 + 2 * N + 2 * 6 * (N + 1) + 8
+    return 4 * (ins + outs)
+
+
+def bound(ops, nbytes):
+    """(ms, what sets it): the least time the H100 could take for `ops`
+    f32 operations and `nbytes` bytes of device-memory traffic."""
+    t_ops, t_bytes = ops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def model_structure(p, cfg, scfg):
+    """The zero patterns of cfg's stage for the vehicle p, from the port's
+    plain stage build at 64 random scheduling points, and its selector rows
+    and soft rows."""
+    import torch
+
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import _make_consts
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.stage_math import (
+        _ab_cont_dynamic, _ab_cont_kinematic, model_dims, stack_params, stage_aug_ab,
+        unpack_params,
+    )
+
+    nx, _ = model_dims(cfg.model)
+    g = torch.Generator().manual_seed(0)
+    x = 0.5 + torch.rand((nx, 64), generator=g)
+    u = 0.2 * torch.rand((NU, 64), generator=g) - 0.1
+    kap = 0.5 * torch.rand((64,), generator=g) - 0.25
+    pv = unpack_params(stack_params(p, 64, "cpu"))
+    if cfg.model == "kinematic":
+        A, B = _ab_cont_kinematic(x, u, kap, pv)
+    else:
+        A, B = _ab_cont_dynamic(x, u, kap, pv, cfg.tire)
+    Aa, Ba = stage_aug_ab(x, u, kap, pv, dt=cfg.dt, tire=cfg.tire, model=cfg.model)
+    nz = lambda t: (t != 0).any(dim=-1).numpy()
+    k = _make_consts(cfg, scfg)
+    D = np.concatenate([k.Dx.numpy() != 0, k.Du.numpy() != 0], axis=1)
+    S = Structure(nz(A), nz(B), nz(Aa), nz(Ba), D, int(np.isfinite(k.soft.numpy()).sum()))
+    _, Ad, Bd = vanloan_ops(S.A, S.B)
+    check(np.array_equal(Ad, S.Aa[:nx, :nx]) and np.array_equal(Bd, S.Ba[:nx]),
+          f"{cfg.model}: the Van Loan pattern count disagrees with the plain stage build")
+    return S
+
+
+def executed_iters(done_at):
+    """Mean ADMM iterations a lane ran under the 128-lane early exit: its
+    group's largest done-at (max_iter where a lane never converged);
+    done_at (..., B) with B a multiple of 128."""
+    return done_at.reshape(done_at.shape[:-1] + (-1, 128)).amax(dim=-1).float().mean().item()
 
 
 def fail(msg):
@@ -86,10 +413,9 @@ def cuda_time_ms(fn, n):
 def main():
     quick = "--quick" in sys.argv[1:]
     try:
-        import numpy as np
         import torch
     except ImportError:
-        fail("PyTorch or numpy is not installed")
+        fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
     sys.path.insert(0, HERE)
@@ -100,23 +426,29 @@ def main():
     check(os.path.dirname(os.path.abspath(port.__file__)) == os.path.join(HERE, PKG),
           f"{PKG} was imported from {port.__file__}, not from this checkout")
 
-    from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPCConfig, SolverConfig, VehicleParams
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import (
+        MPCConfig, MPCWeights, SolverConfig, VehicleParams,
+    )
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
         DEFAULT_EKF_Q, MPCCarry, constant_refs, initial_table, make_racestep_scan, mpc_init,
-        mpc_prepare, mpc_step_batched, plant_step,
+        mpc_prepare, mpc_prepare_light, mpc_step_batched, plant_step,
     )
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.admm_kernel import (
         admm_kernel_solve, admm_solve_plain,
     )
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import (
+        fused_mpc_solve, fused_solve_plain,
+    )
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.megastep_kernel import (
         megastep, megastep_init, megastep_params, megastep_plain,
     )
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.racestep_kernel import (
-        racestep, racestep_init, racestep_plain,
+        _win_cells, racestep, racestep_init, racestep_plain,
     )
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.stage_math import model_s_ey
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.parallel import make_scenario_grid
-    from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import racetrack
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track, racetrack
 
     # ---- 1. environment ----
     card = gpu_name_power()
@@ -258,18 +590,102 @@ def main():
     race_ms_iso = cuda_time_ms(lambda: racestep(*race_args), 10)
     race_plain_ms = cuda_time_ms(lambda: racestep_plain(*race_args), 3)
     log(f"[race] first step: {race_ms_iso:.3f} ms kernel, {race_plain_ms:.3f} ms plain ({card})")
+
+    # ---- 5b. kernel 4 (fused) vs its plain version, on prepared inputs after
+    # K_FUSED_WARM steps of the fused path: the bench's dynamic racetrack N=20
+    # and BASELINE config 1's kinematic oval N=10. Fixed count: 2e-4 on lanes
+    # converged on both sides, 5e-3 on every lane (see the racestep's
+    # comment), done-at within one iteration; early exit: 5e-3 ----
+    kcfg = MPCConfig(N=10, model="kinematic", weights=MPCWeights.for_model("kinematic"))
+    oval = oval_track()                                   # the default device: the card
+    check(oval.kappa.is_cuda, f"oval_track() made tensors on {oval.kappa.device}, not the card")
+    fused_fixed = SolverConfig(max_iter=20, rho_interval=0, backend="fused", early_exit=False,
+                               check_termination=2, certify_infeasibility=False)
+    fused_err, fused_iso = {}, {}
+    for name, fcfg, ftrack, vref in (("dynamic", cfg, track, 1.8), ("kinematic", kcfg, oval, 1.5)):
+        fscen = make_scenario_grid(p, fcfg, n_ey=64, n_mu=B_MAIN // 64, vx0=1.5)
+        fref = constant_refs(fcfg, vref)
+        fcar, fx = mpc_init(fscen.params, fcfg, ftrack, fscen.x0), fscen.x0
+        for _ in range(K_FUSED_WARM):
+            u, fcar, _ = mpc_step_batched(fscen.params, fcfg, fused_fixed, ftrack, fx, fref, fcar)
+            fx = plant_step(fscen.params, fcfg, ftrack, fx, u, n_sub=4)
+        Xs, Us, kap, xr, lb, ub, x0a, warm = mpc_prepare_light(fscen.params, fcfg, ftrack, fx, fref, fcar)
+        fargs = (fscen.params, Xs, Us, kap, xr, lb, ub, x0a, warm[0], warm[1], fcar.rho)
+        for mode, fs in (("fixed", fused_fixed), ("early-exit", fused_fixed.replace(early_exit=True))):
+            sk = fused_mpc_solve(fcfg, fs, *fargs)
+            sp = fused_solve_plain(fcfg, fs, *fargs)
+            torch.cuda.synchronize()
+            lane = torch.maximum((sk.U - sp.U).abs().amax(dim=(1, 2)), (sk.X - sp.X).abs().amax(dim=(1, 2)))
+            both = sk.converged & sp.converged
+            e_conv = lane[both].max().item() if bool(both.any()) else 0.0
+            e_all = lane.max().item()
+            dda = int((sk.iters - sp.iters).abs().max().item())
+            log(f"[fused] {name} N={fcfg.N} {mode}: converged both {int(both.sum())}/{B_MAIN}: "
+                f"max|dU,dX| {e_conv:.3e}; all lanes {e_all:.3e}; |dr_prim| "
+                f"{(sk.r_prim - sp.r_prim).abs().max().item():.3e}; done-at kernel "
+                f"{sk.iters.float().mean().item():.3f} plain {sp.iters.float().mean().item():.3f} "
+                f"(max diff {dda})")
+            if mode == "fixed":
+                check(e_conv <= 2e-4, f"fused {name}: {e_conv:.3e} beyond 2e-4 of plain (converged lanes)")
+                check(dda <= 1, f"fused {name}: done-at differs by {dda}")
+            check(e_all <= 5e-3, f"fused {name} {mode}: {e_all:.3e} beyond 5e-3 of plain")
+            fused_err[(name, mode)] = e_all
+        fused_iso[name] = (cuda_time_ms(lambda: fused_mpc_solve(fcfg, fused_fixed, *fargs), 20),
+                           cuda_time_ms(lambda: fused_solve_plain(fcfg, fused_fixed, *fargs), 3))
+        log(f"[fused] {name} B={B_MAIN} N={fcfg.N}: {fused_iso[name][0]:.3f} ms/solve kernel, "
+            f"{fused_iso[name][1]:.3f} ms/solve plain ({card})")
+    check(fused_mpc_solve.launches > 0, "the fused kernel was not launched")
+
+    # ---- 5c. the kinematic megastep vs its plain version, 5 closed-loop steps ----
+    kscen = make_scenario_grid(p, kcfg, n_ey=64, n_mu=B_MAIN // 64, vx0=0.5)
+    kprm = megastep_params(kscen.params, B_MAIN)
+    kref = constant_refs(kcfg, 1.5)
+    for name, kscfg, tol_u, tol_x in (
+        ("fixed", SolverConfig(max_iter=20, rho_interval=0, early_exit=False, check_termination=2), 2e-4, 5e-4),
+        ("early-exit", SolverConfig(max_iter=20, rho_interval=0, early_exit=True, check_termination=2), 5e-3, 5e-3),
+    ):
+        ck = cp = megastep_init(kscen.params, kcfg, oval, kscen.x0)
+        du = dx = 0.0
+        for _ in range(5):
+            ck, uk, dk = megastep(kcfg, kscfg, oval, kprm, kref, ck, n_sub=4)
+            cp, up, dp = megastep_plain(kcfg, kscfg, oval, kprm, kref, cp, n_sub=4)
+            torch.cuda.synchronize()
+            du = max(du, (uk - up).abs().max().item())
+            dx = max(dx, (ck.x - cp.x).abs().max().item())
+        log(f"[mega-kin] {name}: max|du|={du:.3e} max|dx|={dx:.3e} done-at kernel "
+            f"{dk[4].mean().item():.3f} plain {dp[4].mean().item():.3f}")
+        check(du <= tol_u and dx <= tol_x, f"kinematic megastep {name}: beyond ({tol_u}, {tol_x}) of plain")
+        mega_err[f"kinematic {name}"] = max(du, dx)
+    kc0 = megastep_init(kscen.params, kcfg, oval, kscen.x0)
+    kin_plain_ms = cuda_time_ms(lambda: megastep_plain(kcfg, scfg, oval, kprm, kref, kc0, n_sub=4), 3)
+    log(f"[mega-kin] first step: {kin_plain_ms:.3f} ms plain ({card})")
     if quick:
         log("[quick] kernel checks passed; stopping before the main path")
         return
 
     # ---- 6. main path 1: the tracker step ----
-    admm_kernel_solve.launches = 0
-    megastep.launches = 0
-    racestep.launches = 0
+    wrappers = {"megastep": megastep, "admm": admm_kernel_solve, "racestep": racestep,
+                "fused": fused_mpc_solve}
+
+    def reset_launches():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_launches(label, expected):
+        """Each wrapper's count since the reset; fails unless the path's
+        kernels launched as `expected` and every other kernel not at all."""
+        got = {k: w.launches for k, w in wrappers.items()}
+        log(f"[{label}] launches {got}")
+        for k, n in got.items():
+            check(n == expected.get(k, 0), f"{label}: {k} launched {n} times, expected {expected.get(k, 0)}")
+        return got
+
+    reset_launches()
     car = megastep_init(scen.params, cfg, track, scen.x0)
     s_start = car.x[4].clone()
     conv = torch.empty(K_MAIN, device=dev)
     iters = torch.empty(K_MAIN, device=dev)
+    mega_done = torch.empty((K_MAIN, B), device=dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for k in range(K_MAIN):
         if k == 1:
@@ -277,6 +693,7 @@ def main():
         car, u0, diag = megastep(cfg, scfg, track, prm, x_ref, car, n_sub=4)
         conv[k] = diag[2].mean()
         iters[k] = diag[4].mean()
+        mega_done[k] = diag[4]
     end.record()
     torch.cuda.synchronize()
     mega_ms = start.elapsed_time(end) / (K_MAIN - 1)
@@ -293,8 +710,7 @@ def main():
         xs = plant_step(scen.params, cfg, track, xs, ub, n_sub=4)
         conv_admm.append(dg.converged.float().mean().item())
     torch.cuda.synchronize()
-    launches = {"megastep": megastep.launches, "admm": admm_kernel_solve.launches,
-                "racestep": racestep.launches}
+    launches = read_launches("main", {"megastep": K_MAIN, "admm": K_ADMM_ROUTE})
 
     finite = all(bool(torch.isfinite(t).all()) for t in car) and bool(torch.isfinite(xs).all())
     conv_last = conv[-100:].mean().item()
@@ -306,10 +722,7 @@ def main():
         f"{done_at:.3f}/20 (last 100: {iters[-100:].mean().item():.3f}), mean progress "
         f"{progress:.2f} m, finite={finite}")
     log(f"[main] admm route, {K_ADMM_ROUTE} steps: converged {[round(c, 4) for c in conv_admm]}")
-    log(f"[main] launches {launches}")
     check(finite, "non-finite state on the main path")
-    check(launches["megastep"] == K_MAIN, f"megastep launched {launches['megastep']} times, expected {K_MAIN}")
-    check(launches["admm"] == K_ADMM_ROUTE, f"admm kernel launched {launches['admm']} times")
     check(conv_last >= 0.99, f"converged fraction over the last 100 steps {conv_last:.4f} < 0.99")
     check(min(conv_admm) >= 0.99, "admm route did not converge")
     check(progress > 0.0, "the cars did not advance")
@@ -319,16 +732,13 @@ def main():
     car0 = racestep_init(p, rcfg, track, x0r, 0.85)
     racestep(rcfg, scfg, track, rprm, table, car0, noises[0], mu_b, ekq, ekr)    # warm-up
     torch.cuda.synchronize()
-    admm_kernel_solve.launches = 0
-    megastep.launches = 0
-    racestep.launches = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     rcar, (Xg, Xf, U, mu_hat, rconv, Z, riters, _) = run(car0, torch.Generator(device=dev).manual_seed(1))
     end.record()
     torch.cuda.synchronize()
-    race_launches = {"racestep": racestep.launches, "megastep": megastep.launches,
-                     "admm": admm_kernel_solve.launches}
+    race_launches = read_launches("race-main", {"racestep": K_MAIN})
     race_ms = start.elapsed_time(end) / K_MAIN
     rfinite = all(bool(torch.isfinite(t).all()) for t in rcar) and bool(torch.isfinite(Xf).all())
     rconv_last = rconv[-100:].mean().item()
@@ -348,7 +758,6 @@ def main():
         f"{riters.mean().item():.3f}/20, mu-hat/mu-true corr {mu_corr:.3f}, |e_y| p99 {ey_p99:.4f} "
         f"max {ey_max:.4f}, mean progress {rprogress:.2f} m, finite={rfinite}")
     log(f"[race-main] racestep_plain {race_plain_step_ms:.3f} ms/step over 3 steps ({card})")
-    log(f"[race-main] launches {race_launches}")
     # tools/racebench.py's own window: the runner called 5 more times from
     # the carry it left (fresh noise each), the numbers read on the last
     # 500 steps (steps 2501-3000), the time as the best of the 5 windows
@@ -369,26 +778,138 @@ def main():
     check(bool(torch.isfinite(wXf).all()) and w_conv.mean().item() >= 0.99,
           "the composed protocol's last window is not finite or not converged")
     check(rfinite, "non-finite state on the composed path")
-    check(race_launches["racestep"] == K_MAIN,
-          f"racestep launched {race_launches['racestep']} times, expected {K_MAIN}")
     check(rconv_last >= 0.99, f"composed converged fraction over the last 100 steps {rconv_last:.4f} < 0.99")
     check(rprogress > 0.0, "the composed cars did not advance")
 
+    # ---- 8. main path 3: bench.py's fused protocol ----
+    def fused_run(fcfg, ftrack, fscen, fref, label):
+        """K_MAIN steps of mpc_step_batched(backend="fused") + plant_step."""
+        reset_launches()
+        fcar, fx = mpc_init(fscen.params, fcfg, ftrack, fscen.x0), fscen.x0
+        s_i, ey_i = model_s_ey(fcfg.model)
+        fconv = torch.empty(K_MAIN, device=dev)
+        fiters = torch.empty(K_MAIN, device=dev)
+        ey_max = torch.zeros((), device=dev)
+        st, en = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for k in range(K_MAIN):
+            if k == 1:
+                st.record()
+            u, fcar, d = mpc_step_batched(fscen.params, fcfg, fused_fixed, ftrack, fx, fref, fcar)
+            fx = plant_step(fscen.params, fcfg, ftrack, fx, u, n_sub=4)
+            fconv[k] = d.converged.float().mean()
+            fiters[k] = d.iters.float().mean()
+            ey_max = torch.maximum(ey_max, fx[:, ey_i].abs().max())
+        en.record()
+        torch.cuda.synchronize()
+        out = dict(ms=st.elapsed_time(en) / (K_MAIN - 1), conv_last=fconv[-100:].mean().item(),
+                   done_at=fiters.mean().item(), ey_max=ey_max.item(),
+                   progress=(fx[:, s_i] - fscen.x0[:, s_i]).mean().item(),
+                   finite=bool(torch.isfinite(fx).all()),
+                   launches=read_launches(label, {"fused": K_MAIN}))
+        log(f"[{label}] K={K_MAIN} B={fscen.batch} N={fcfg.N} fused path: {out['ms']:.4f} ms/step "
+            f"({fscen.batch / out['ms'] * 1e3:.0f} solves/s) ({card}); converged (last 100) "
+            f"{out['conv_last']:.4f}, mean done-at {out['done_at']:.3f}/20, |e_y| max "
+            f"{out['ey_max']:.4f}, mean progress {out['progress']:.2f} m, finite={out['finite']}")
+        check(out["finite"], f"{label}: non-finite state on the fused path")
+        check(out["conv_last"] >= 0.99, f"{label}: converged (last 100) {out['conv_last']:.4f} < 0.99")
+        check(out["progress"] > 0.0, f"{label}: the cars did not advance")
+        return out
+
+    bscen = make_scenario_grid(p, cfg, n_ey=64, n_mu=B_MAIN // 64, vx0=1.5)
+    check(bscen.x0.is_cuda, "make_scenario_grid() did not default to the card")
+    fused_bench = fused_run(cfg, racetrack(), bscen, constant_refs(cfg, 1.8), "fused-main")
+
+    # ---- 9. main path 4: BASELINE config 1 batched, fused path then megastep ----
+    fused_cfg1 = fused_run(kcfg, oval, kscen, kref, "config1-fused")
+    check(fused_cfg1["ey_max"] < 0.4, f"config 1 fused: |e_y| max {fused_cfg1['ey_max']:.4f} >= 0.4")
+    reset_launches()
+    kcar = megastep_init(kscen.params, kcfg, oval, kscen.x0)
+    kconv = torch.empty(K_MAIN, device=dev)
+    kiters = torch.empty(K_MAIN, device=dev)
+    kin_done = torch.empty((K_MAIN, B_MAIN), device=dev)
+    k_ey = torch.zeros((), device=dev)
+    for k in range(K_MAIN):
+        if k == 1:
+            start.record()
+        kcar, _, kd = megastep(kcfg, scfg, oval, kprm, kref, kcar, n_sub=4)
+        kconv[k] = kd[2].mean()
+        kiters[k] = kd[4].mean()
+        kin_done[k] = kd[4]
+        k_ey = torch.maximum(k_ey, kcar.x[3].abs().max())
+    end.record()
+    torch.cuda.synchronize()
+    kin_launches = read_launches("config1-mega", {"megastep": K_MAIN})
+    kin_ms = start.elapsed_time(end) / (K_MAIN - 1)
+    kin_conv = kconv[-100:].mean().item()
+    kin_prog = (kcar.x[2] - kscen.x0[:, 2]).mean().item()
+    log(f"[config1-mega] K={K_MAIN} B={B_MAIN} N=10 kinematic megastep: {kin_ms:.4f} ms/step "
+        f"({B_MAIN / kin_ms * 1e3:.0f} solves/s) ({card}); converged (last 100) {kin_conv:.4f}, "
+        f"mean done-at {kiters.mean().item():.3f}/20, |e_y| max {k_ey.item():.4f}, mean progress "
+        f"{kin_prog:.2f} m")
+    check(bool(torch.isfinite(kcar.x).all()), "config 1 megastep: non-finite state")
+    check(kin_conv >= 0.99, f"config 1 megastep: converged (last 100) {kin_conv:.4f} < 0.99")
+    check(k_ey.item() < 0.4, f"config 1 megastep: |e_y| max {k_ey.item():.4f} >= 0.4")
+    check(kin_prog > 0.0, "config 1 megastep: the cars did not advance")
+
+    # ---- bounds: this run's shapes, data and iteration counts ----
+    # the admm kernel's stage matrices are its inputs: their patterns are
+    # read from this run's QPs (A = Aa, B = Ba there)
+    pat_of = lambda t: (t != 0).reshape((-1,) + tuple(t.shape[-2:])).any(dim=0).cpu().numpy()
+    qD = np.concatenate([qp.Dx.cpu().numpy() != 0, qp.Du.cpu().numpy() != 0], axis=1)
+    qA, qB = pat_of(qp.dyn.A), pat_of(qp.dyn.B)
+    qc = (qp.dyn.c != 0).reshape(-1, qp.dyn.c.shape[-1]).any(dim=0).cpu().numpy()
+    S_qp = Structure(qA, qB, qA, qB, qD, int(torch.isfinite(qp.soft).sum().item()))
+    S_dyn, S_kin, S_race = (model_structure(p, c, scfg) for c in (cfg, kcfg, rcfg))
+    win = min(2 * _win_cells(track, 3.0) + 1, track.n_cells)
+    it = {"admm_kernel": scfg1.max_iter, "megastep_kernel": executed_iters(mega_done),
+          "megastep_kernel_kinematic": executed_iters(kin_done),
+          "racestep_kernel": executed_iters(riters), "fused_kernel": fused_fixed.max_iter,
+          "fused_kernel_kinematic": fused_fixed.max_iter}
+    per_lane = {   # (operations, bytes) per lane; the shared tables per launch below
+        "admm_kernel": (N_MAIN * factor_ops(qA, qB, qc)
+                        + it["admm_kernel"] * iteration_ops(S_qp, N_MAIN, c=qc), admm_bytes(N_MAIN)),
+        "megastep_kernel": (core_ops(S_dyn, cfg.tire, N_MAIN, it["megastep_kernel"])
+                            + plant_ops(S_dyn, cfg.tire, 4), mega_bytes(6, N_MAIN)),
+        "megastep_kernel_kinematic": (core_ops(S_kin, kcfg.tire, kcfg.N, it["megastep_kernel_kinematic"])
+                                      + plant_ops(S_kin, kcfg.tire, 4), mega_bytes(4, kcfg.N)),
+        "racestep_kernel": (race_ops(S_race, N_MAIN, it["racestep_kernel"], 4, 10, win, gate=False),
+                            race_bytes(N_MAIN)),
+        "fused_kernel": (fused_ops(S_dyn, cfg.tire, N_MAIN, it["fused_kernel"]), fused_bytes(6, N_MAIN)),
+        "fused_kernel_kinematic": (fused_ops(S_kin, kcfg.tire, kcfg.N, it["fused_kernel_kinematic"]),
+                                   fused_bytes(4, kcfg.N)),
+    }
+    shared = {"megastep_kernel": 4 * track.n_cells, "megastep_kernel_kinematic": 4 * oval.n_cells,
+              "racestep_kernel": 4 * (4 * track.n_cells + 3 * table.vx.shape[0] + 16)}
+    bounds = {k: bound(B_MAIN * o, B_MAIN * b + shared.get(k, 0)) for k, (o, b) in per_lane.items()}
+    log("[bound] per launch on the H100 at B=4096 (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
+        f"{k} {bounds[k][0]:.4f} ms ({bounds[k][1]}: {per_lane[k][0]:,.0f} operations and "
+        f"{per_lane[k][1]:,} B per lane at {it[k]:.2f} executed iterations)" for k in per_lane))
+
     src = f"{PKG}/ops/csrc"
     ref_pkg = "autonomous_racing_lpv_mpp_mpc_tpu/ops"
+    core = f"{src}/mpc_core.cuh"
+    # (name, source, TPU kernel, launches on its main path, max |kernel - plain|,
+    # ms on the card, plain ms); one record per instantiation
+    records = [
+        ("admm_kernel", f"{src}/admm_kernel.cu", "admm_kernel.py:342", launches["admm"], max(dU, dX),
+         admm_ms, admm_plain_ms),
+        ("megastep_kernel", f"{src}/megastep_kernel.cu + {core}", "megastep_kernel.py:1081",
+         launches["megastep"], mega_err["fixed"], mega_ms, mega_plain_ms),
+        ("megastep_kernel_kinematic", f"{src}/megastep_kernel.cu + {core}", "megastep_kernel.py:1081",
+         kin_launches["megastep"], mega_err["kinematic fixed"], kin_ms, kin_plain_ms),
+        ("racestep_kernel", f"{src}/racestep_kernel.cu + {core}", "racestep_kernel.py:831",
+         race_launches["racestep"], race_err["fixed"], race_ms, race_plain_step_ms),
+        ("fused_kernel", f"{src}/fused_kernel.cu + {core}", "fused_kernel.py:429",
+         fused_bench["launches"]["fused"], fused_err["dynamic", "fixed"], *fused_iso["dynamic"]),
+        ("fused_kernel_kinematic", f"{src}/fused_kernel.cu + {core}", "fused_kernel.py:429",
+         fused_cfg1["launches"]["fused"], fused_err["kinematic", "fixed"], *fused_iso["kinematic"]),
+    ]
+    # no single PyTorch call computes a batched Riccati / ADMM solve: library_ms is null
     print(json.dumps({"kernels": [
-        {"name": "admm_kernel", "route": "cuda", "source": f"{src}/admm_kernel.cu",
-         "replaces": f"{ref_pkg}/admm_kernel.py:342", "launches": launches["admm"],
-         "max_abs_err": max(dU, dX), "ms": admm_ms, "plain_ms": admm_plain_ms},
-        {"name": "megastep_kernel", "route": "cuda",
-         "source": f"{src}/megastep_kernel.cu + {src}/mpc_core.cuh",
-         "replaces": f"{ref_pkg}/megastep_kernel.py:1081", "launches": launches["megastep"],
-         "max_abs_err": mega_err["fixed"], "ms": mega_ms, "plain_ms": mega_plain_ms},
-        {"name": "racestep_kernel", "route": "cuda",
-         "source": f"{src}/racestep_kernel.cu + {src}/mpc_core.cuh",
-         "replaces": f"{ref_pkg}/racestep_kernel.py:831", "launches": race_launches["racestep"],
-         "max_abs_err": race_err["fixed"], "ms": race_ms, "plain_ms": race_plain_step_ms},
-    ]}), flush=True)
+        {"name": name, "route": "cuda", "source": source, "replaces": f"{ref_pkg}/{tpu}", "launches": n,
+         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
+        for name, source, tpu, n, err, ms, plain in records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -72,7 +72,7 @@ def test_admm_solve_matches_jax(tight, rho_interval):
     qp_b = _random_batch(range(4), tight)
     cfg = JSolverConfig(max_iter=60, rho_interval=rho_interval)
     ref = jax.jit(jax.vmap(lambda q: jadmm_solve(q, cfg)))(qp_b)
-    sol = admm_solve(convert.boxqp(qp_b), convert.solver_config(cfg))
+    sol = admm_solve(convert.boxqp(qp_b, device="cpu"), convert.solver_config(cfg))
     _compare(sol, ref)
     np.testing.assert_array_equal(sol.converged.numpy(), np.asarray(ref.converged))
 
@@ -81,8 +81,8 @@ def test_admm_solve_warm_start_matches_jax():
     qp_b, warm, rho0 = _tracker_batch()
     cfg = JSolverConfig(max_iter=20, rho_interval=0)
     ref = jax.jit(jax.vmap(lambda q, w, r: jadmm_solve(q, cfg, warm=w, rho0=r)))(qp_b, warm, rho0)
-    sol = admm_solve(convert.boxqp(qp_b), convert.solver_config(cfg),
-                     warm=tuple(convert.tensor(w) for w in warm), rho0=convert.tensor(rho0))
+    sol = admm_solve(convert.boxqp(qp_b, device="cpu"), convert.solver_config(cfg),
+                     warm=tuple(convert.tensor(w, device="cpu") for w in warm), rho0=convert.tensor(rho0, device="cpu"))
     _compare(sol, ref)
 
 
@@ -103,9 +103,9 @@ def test_admm_kernel_plain_matches_pallas(case):
     ref = jax.jit(lambda q, w, r: pallas_admm_solve(q, cfg, warm=w, rho0=r, interpret=True))(
         qp_b, warm, rho0)
     sol = admm_kernel_solve(
-        convert.boxqp(qp_b), convert.solver_config(cfg),
-        warm=None if warm is None else tuple(convert.tensor(w) for w in warm),
-        rho0=None if rho0 is None else convert.tensor(rho0),
+        convert.boxqp(qp_b, device="cpu"), convert.solver_config(cfg),
+        warm=None if warm is None else tuple(convert.tensor(w, device="cpu") for w in warm),
+        rho0=None if rho0 is None else convert.tensor(rho0, device="cpu"),
     )
     _compare(sol, ref)
     assert admm_kernel_solve.launches == 0   # CPU tensors never launch the kernel

@@ -79,11 +79,11 @@ def _jax_composed_step(p_b, cfg, scfg, track, x_ref, x0):
 
 
 def _port_composed_step(p_b, cfg, scfg, track, x_ref, x0):
-    p, pcfg, ptrack = convert.vehicle_params(p_b), convert.mpc_config(cfg), convert.track(track)
+    p, pcfg, ptrack = convert.vehicle_params(p_b, device="cpu"), convert.mpc_config(cfg), convert.track(track, device="cpu")
     pscfg = convert.solver_config(scfg).replace(certify_infeasibility=False)
     x = torch.tensor(x0)
     carry = mpc_init(p, pcfg, ptrack, x)
-    u, _, _ = mpc_step_batched(p, pcfg, pscfg, ptrack, x, convert.tensor(x_ref), carry)
+    u, _, _ = mpc_step_batched(p, pcfg, pscfg, ptrack, x, convert.tensor(x_ref, device="cpu"), carry)
     return u.numpy(), plant_step(p, pcfg, ptrack, x, u, n_sub=4).numpy()
 
 
@@ -97,10 +97,10 @@ def test_composed_plain_step_matches_jax_xla():
 
     # the megastep's plain version against the same composed step
     p_b, cfg, track, x_ref, x0 = args
-    p, pcfg, ptrack = convert.vehicle_params(p_b), convert.mpc_config(cfg), convert.track(track)
+    p, pcfg, ptrack = convert.vehicle_params(p_b, device="cpu"), convert.mpc_config(cfg), convert.track(track, device="cpu")
     mc = megastep_init(p, pcfg, ptrack, torch.tensor(x0))
     mc, u0, _ = megastep_plain(pcfg, convert.solver_config(scfg), ptrack,
-                               megastep_params(p, B), convert.tensor(x_ref), mc)
+                               megastep_params(p, B, device="cpu"), convert.tensor(x_ref, device="cpu"), mc)
     np.testing.assert_allclose(u0.numpy().T, ju, atol=2e-3, rtol=0)
     np.testing.assert_allclose(mc.x.numpy().T, jx, atol=2e-3, rtol=0)
 
@@ -126,7 +126,7 @@ def test_closed_loop_matches_jax():
                                           T=3, n_sub=4))(jnp.asarray(x0))
     cfg = convert.mpc_config(jcfg)
     log = closed_loop(VehicleParams(), cfg, convert.solver_config(jscfg).replace(certify_infeasibility=False),
-                      convert.track(jt), torch.tensor(x0)[None], constant_refs(cfg, 1.6), T=3, n_sub=4)
+                      convert.track(jt, device="cpu"), torch.tensor(x0)[None], constant_refs(cfg, 1.6, device="cpu"), T=3, n_sub=4)
     np.testing.assert_allclose(log.U[:, 0].numpy(), np.asarray(jlog.U), atol=2e-4, rtol=0)
     np.testing.assert_allclose(log.X[:, 0].numpy(), np.asarray(jlog.X), atol=2e-4, rtol=0)
     np.testing.assert_array_equal(log.converged[:, 0].numpy(), np.asarray(jlog.converged))
@@ -144,9 +144,9 @@ def test_single_vehicle_mpc_step_matches_jax():
     ju, jcar2, jdiag = jax.jit(lambda x, c: jmpc_step(jp, jcfg, jscfg, jt, x, jconstant_refs(jcfg, 1.6), c))(
         x0, jcar)
     cfg = convert.mpc_config(jcfg)
-    car = MPCCarry(*(convert.tensor(getattr(jcar, n)) for n in MPCCarry._fields))
+    car = MPCCarry(*(convert.tensor(getattr(jcar, n), device="cpu") for n in MPCCarry._fields))
     u, car2, diag = mpc_step(VehicleParams(), cfg, convert.solver_config(jscfg).replace(certify_infeasibility=False),
-                             convert.track(jt), convert.tensor(x0), constant_refs(cfg, 1.6), car)
+                             convert.track(jt, device="cpu"), convert.tensor(x0, device="cpu"), constant_refs(cfg, 1.6, device="cpu"), car)
     np.testing.assert_allclose(u.numpy(), np.asarray(ju), atol=2e-4, rtol=0)
     np.testing.assert_allclose(car2.X_pred.numpy(), np.asarray(jcar2.X_pred), atol=5e-4, rtol=0)
     assert bool(diag.converged) == bool(jdiag.converged)
@@ -174,10 +174,10 @@ def _sinusoidal_table(track, ds=0.05):
 def test_oracle_rung_at_bench_solver_config(N, track_name):
     p, cfg = VehicleParams(), MPCConfig(N=N, model="dynamic")
     scfg = SolverConfig(max_iter=20, rho_interval=0, early_exit=True, check_termination=2)
-    track = {"oval": oval_track, "racetrack": racetrack}[track_name.split("-")[0]]()
-    x_ref = _sinusoidal_table(track) if track_name.endswith("table") else constant_refs(cfg, 1.5)
+    track = {"oval": oval_track, "racetrack": racetrack}[track_name.split("-")[0]](device="cpu")
+    x_ref = _sinusoidal_table(track) if track_name.endswith("table") else constant_refs(cfg, 1.5, device="cpu")
     car = megastep_init(p, cfg, track, torch.tensor([[1.0, 0.0, 0.0, 0.0, 0.0, 0.05]]))
-    prm = megastep_params(p, 1)
+    prm = megastep_params(p, 1, device="cpu")
     max_du, n_checked = 0.0, 0
     for t in range(35):
         if t % 5 == 0:

@@ -68,7 +68,7 @@ def _states(rng, n):
 @pytest.mark.parametrize("name", ["racetrack", "oval"])
 def test_track_tables_match(name):
     jt = {"racetrack": jrace, "oval": joval}[name]()
-    tt = {"racetrack": racetrack, "oval": oval_track}[name]()
+    tt = {"racetrack": racetrack, "oval": oval_track}[name](device="cpu")
     for field in ("ds", "length", "width", "kappa", "X", "Y", "psi"):
         np.testing.assert_allclose(_np(getattr(tt, field)), np.asarray(getattr(jt, field)),
                                    atol=1e-6, rtol=0, err_msg=field)
@@ -77,7 +77,7 @@ def test_track_tables_match(name):
 
 def test_wrap_and_curvature_lookup():
     rng = np.random.default_rng(0)
-    jt, tt = jrace(), racetrack()
+    jt, tt = jrace(), racetrack(device="cpu")
     s = rng.uniform(-40.0, 80.0, 4096).astype(np.float32)
     np.testing.assert_allclose(_np(ttrack.wrap_s(tt, T(s))), np.asarray(jtrack.wrap_s(jt, s)), **ELEM)
     np.testing.assert_array_equal(_np(ttrack.curvature_at(tt, T(s))),
@@ -90,12 +90,12 @@ def test_dynamics_match(tire):
     x, u, kap = _states(rng, 512)
     p = JVehicleParams()
     jf = jax.vmap(lambda xx, uu, kk: jdyn.f_dynamic(p, xx, uu, kk, tire))(x, u, kap)
-    tf = tdyn.f_dynamic(convert.vehicle_params(p), T(x), T(u), T(kap), tire)
+    tf = tdyn.f_dynamic(convert.vehicle_params(p, device="cpu"), T(x), T(u), T(kap), tire)
     np.testing.assert_allclose(_np(tf)[:, :3], np.asarray(jf)[:, :3], **SLIP)
     np.testing.assert_allclose(_np(tf)[:, 3:], np.asarray(jf)[:, 3:], **ELEM)
     xk = x[:, [0, 3, 4, 5]]
     jk = jax.vmap(lambda xx, uu, kk: jdyn.f_kinematic(p, xx, uu, kk))(xk, u, kap)
-    tk = tdyn.f_kinematic(convert.vehicle_params(p), T(xk), T(u), T(kap))
+    tk = tdyn.f_kinematic(convert.vehicle_params(p, device="cpu"), T(xk), T(u), T(kap))
     np.testing.assert_allclose(_np(tk), np.asarray(jk), **ELEM)
     np.testing.assert_allclose(_np(tdyn.frenet_denom(T(kap), T(x[:, 5]))),
                                np.asarray(jdyn.frenet_denom(kap, x[:, 5])), **ELEM)
@@ -110,7 +110,7 @@ def test_lpv_ab_match(model, tire):
         x = x[:, [0, 3, 4, 5]]
     p = JVehicleParams()
     jA, jB = jax.vmap(lambda xx, uu, kk: jlpv.lpv_ab(p, xx, uu, kk, model, tire))(x, u, kap)
-    tA, tB = tlpv.lpv_ab(convert.vehicle_params(p), T(x), T(u), T(kap), model, tire)
+    tA, tB = tlpv.lpv_ab(convert.vehicle_params(p, device="cpu"), T(x), T(u), T(kap), model, tire)
     # the Pacejka secant stiffness goes through atan2: its force rows get SLIP
     force = dict(SLIP if tire == "pacejka" else ELEM)
     np.testing.assert_allclose(_np(tA)[:, :3], np.asarray(jA)[:, :3], **force)
@@ -153,7 +153,7 @@ def _jax_batch_qps(N=12, n_ey=4, n_mu=4):
 
 def test_initial_schedule_and_bounds_match():
     (jp, jcfg, jt, scen, xr, carry, x), _, _ = _jax_batch_qps()
-    p, cfg, tt = convert.vehicle_params(scen.params), convert.mpc_config(jcfg), convert.track(jt)
+    p, cfg, tt = convert.vehicle_params(scen.params, device="cpu"), convert.mpc_config(jcfg), convert.track(jt, device="cpu")
     tcar = mpc_init(p, cfg, tt, T(scen.x0))
     np.testing.assert_allclose(_np(tcar.X_pred), np.asarray(carry.X_pred), **ELEM)
     np.testing.assert_allclose(_np(tcar.U_pred), np.asarray(carry.U_pred), **ELEM)
@@ -169,9 +169,9 @@ def test_initial_schedule_and_bounds_match():
 
 def test_build_boxqp_match():
     (jp, jcfg, jt, scen, xr, carry, x), jqp, jwarm = _jax_batch_qps()
-    p, cfg, tt = convert.vehicle_params(scen.params), convert.mpc_config(jcfg), convert.track(jt)
-    qp, warm, _ = mpc_prepare(p, cfg, tt, T(x), constant_refs(cfg, 1.8), convert.mpc_carry(carry))
-    ref = convert.boxqp(jqp)
+    p, cfg, tt = convert.vehicle_params(scen.params, device="cpu"), convert.mpc_config(jcfg), convert.track(jt, device="cpu")
+    qp, warm, _ = mpc_prepare(p, cfg, tt, T(x), constant_refs(cfg, 1.8, device="cpu"), convert.mpc_carry(carry, device="cpu"))
+    ref = convert.boxqp(jqp, device="cpu")
     for name in ("A", "B", "c"):
         np.testing.assert_allclose(_np(getattr(qp.dyn, name)), _np(getattr(ref.dyn, name)),
                                    **CHAIN, err_msg=name)
@@ -191,7 +191,7 @@ def test_riccati_factor_and_solve_match():
     jfac = jax.vmap(jric.riccati_factor_scan)(jqp.dyn, jcost)
     jX, jU = jax.vmap(jric.lqr_linear_solve)(jfac, jcost.q, jcost.r, jqp.x0)
 
-    qp = convert.boxqp(jqp)
+    qp = convert.boxqp(jqp, device="cpu")
     B = qp.x0.shape[0]
     cost = tadmm._folded_cost(qp, torch.full((B,), rho), 1e-6)
     fac = tric.riccati_factor_scan(qp.dyn, cost)

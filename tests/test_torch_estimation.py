@@ -72,7 +72,7 @@ def sinusoidal_table(track_length: float, ds: float = 0.05):
 
 def test_frenet_transforms_match_jax():
     jt = jrace()
-    pt = convert.track(jt)
+    pt = convert.track(jt, device="cpu")
     rng = np.random.default_rng(0)
     s, ey, ep, X, Y, psi = _queries(jt, rng)
     for got, want in zip(centerline_pose(pt, torch.tensor(s)),
@@ -107,10 +107,10 @@ def test_frenet_transforms_match_jax():
 
 def test_reference_tables_match_jax():
     jt = jrace()
-    pt = convert.track(jt)
+    pt = convert.track(jt, device="cpu")
     L = float(jt.length)
     jtab, leaves = sinusoidal_table(L)
-    ptab = convert.ref_table(jtab)
+    ptab = convert.ref_table(jtab, device="cpu")
     rng = np.random.default_rng(1)
     s = rng.uniform(-2.0, 2 * L, (5, 21)).astype(np.float32)
     for got, want in zip(ptab.lookup(torch.tensor(s)), jtab.lookup(jnp.asarray(s))):
@@ -157,7 +157,7 @@ def test_world_frame_plant_matches_jax(tire):
 
 def test_estimate_frenet_matches_jax():
     jt = jrace()
-    pt = convert.track(jt)
+    pt = convert.track(jt, device="cpu")
     rng = np.random.default_rng(3)
     s, ey, ep, X, Y, psi = _queries(jt, rng)
     xg, _ = _states(rng)
@@ -188,7 +188,7 @@ def test_ekf_step_matches_jax(gate_sigma):
     want = jax.vmap(lambda m, xx, pp, uu, zz: jekf_step(
         JVehicleParams(mu=m), cfg, jt, JEKFState(xx, pp), uu, zz, jnp.asarray(Q), jnp.asarray(R),
         gate_sigma=gate_sigma))(mu, x, P, u, z)
-    got = ekf_step(VehicleParams(mu=torch.tensor(mu)), convert.mpc_config(cfg), convert.track(jt),
+    got = ekf_step(VehicleParams(mu=torch.tensor(mu)), convert.mpc_config(cfg), convert.track(jt, device="cpu"),
                    EKFState(torch.tensor(x), torch.tensor(P)), torch.tensor(u), torch.tensor(z),
                    torch.tensor(Q), torch.tensor(R), gate_sigma=gate_sigma)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), atol=1e-5, rtol=0)

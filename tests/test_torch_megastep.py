@@ -63,11 +63,11 @@ def _jax_steps(p_b, cfg, scfg, track, x_ref, x0, n_steps):
 
 
 def _port_steps(p_b, cfg, scfg, track, x_ref, x0, n_steps):
-    p, pcfg, pscfg, ptrack = (convert.vehicle_params(p_b), convert.mpc_config(cfg),
-                              convert.solver_config(scfg), convert.track(track))
+    p, pcfg, pscfg, ptrack = (convert.vehicle_params(p_b, device="cpu"), convert.mpc_config(cfg),
+                              convert.solver_config(scfg), convert.track(track, device="cpu"))
     carry = megastep_init(p, pcfg, ptrack, torch.tensor(x0))
-    prm = megastep_params(p, B)
-    xr = convert.tensor(x_ref)
+    prm = megastep_params(p, B, device="cpu")
+    xr = convert.tensor(x_ref, device="cpu")
     us, xs, diags = [], [], []
     for _ in range(n_steps):
         carry, u0, diag = megastep(pcfg, pscfg, ptrack, prm, xr, carry, n_sub=4)
@@ -133,15 +133,15 @@ def test_megastep_groups_exit_per_128_lanes():
     """With early exit a 128-lane group iterates until all of its lanes
     are done, independently of the other groups: lanes of a 130-lane batch
     give the results of their own group run alone."""
-    p, cfg, track = VehicleParams(), MPCConfig(N=8), racetrack()
-    scen = make_scenario_grid(p, cfg, n_ey=13, n_mu=10, vx0=1.3)
+    p, cfg, track = VehicleParams(), MPCConfig(N=8), racetrack(device="cpu")
+    scen = make_scenario_grid(p, cfg, n_ey=13, n_mu=10, vx0=1.3, device="cpu")
     scfg = SolverConfig(max_iter=20, rho_interval=0, early_exit=True, check_termination=2)
-    x_ref = constant_refs(cfg, 1.8)
+    x_ref = constant_refs(cfg, 1.8, device="cpu")
 
     def run(sl):
         pp = p.replace(mu=scen.params.mu[sl])
         carry = megastep_init(pp, cfg, track, scen.x0[sl])
-        prm = megastep_params(pp, carry.x.shape[-1])
+        prm = megastep_params(pp, carry.x.shape[-1], device="cpu")
         for _ in range(3):
             carry, u0, diag = megastep_plain(cfg, scfg, track, prm, x_ref, carry)
         return u0, diag
@@ -176,13 +176,13 @@ def test_carry_resync_both_directions():
     scfg = JSolverConfig(max_iter=15, rho_interval=0)
     jprm = jmegastep_params(p_b, B)
     step = jax.jit(lambda c: jmegastep(cfg, scfg, track, jprm, x_ref, c, n_sub=4, interpret=True))
-    pcfg, pscfg, ptrack = convert.mpc_config(cfg), convert.solver_config(scfg), convert.track(track)
-    prm = megastep_params(convert.vehicle_params(p_b), B)
-    xr = convert.tensor(x_ref)
+    pcfg, pscfg, ptrack = convert.mpc_config(cfg), convert.solver_config(scfg), convert.track(track, device="cpu")
+    prm = megastep_params(convert.vehicle_params(p_b, device="cpu"), B, device="cpu")
+    xr = convert.tensor(x_ref, device="cpu")
 
     jc = jmegastep_init(p_b, cfg, track, jnp.asarray(x0))
     jc, _, _ = step(jc)
-    pc, pu, _ = megastep(pcfg, pscfg, ptrack, prm, xr, convert.mega_carry(jc))   # JAX -> port
+    pc, pu, _ = megastep(pcfg, pscfg, ptrack, prm, xr, convert.mega_carry(jc, device="cpu"))   # JAX -> port
     jc2, ju, _ = step(JMegaCarry(**{k: jnp.asarray(v) for k, v in convert.to_numpy(pc).items()}))
     jc1, ju1, _ = step(jc)
     np.testing.assert_allclose(pu.numpy(), np.asarray(ju1), atol=2e-4, rtol=0)

@@ -16,15 +16,21 @@ import numpy as np
 import pytest
 import torch
 
-from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPCConfig, SolverConfig, VehicleParams
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import (
+    MPCConfig, MPCWeights, SolverConfig, VehicleParams,
+)
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
-    DEFAULT_EKF_Q, constant_refs, initial_table, mpc_init, mpc_prepare,
+    DEFAULT_EKF_Q, constant_refs, initial_table, mpc_init, mpc_prepare, mpc_prepare_light,
+    mpc_step_batched, plant_step,
 )
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import racestep_kernel as rk
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.admm_kernel import admm_kernel_solve, admm_solve_plain
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import (
+    core_workspace, fused_mpc_solve, fused_solve_plain,
+)
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.megastep_kernel import (
-    MegaCarry, megastep, megastep_init, megastep_params, megastep_plain, megastep_workspace,
+    MegaCarry, megastep, megastep_init, megastep_params, megastep_plain,
 )
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.racestep_kernel import (
     RaceMegaCarry, racestep, racestep_init, racestep_plain,
@@ -68,7 +74,7 @@ def test_wrappers_route_by_device():
     scfg = SolverConfig(max_iter=10, rho_interval=0)
     admm_kernel_solve(qp, scfg, warm, carry.rho)
     mc = megastep_init(scen.params, cfg, track, scen.x0)
-    prm = megastep_params(scen.params, scen.batch)
+    prm = megastep_params(scen.params, scen.batch, device="cpu")
     megastep(cfg, scfg, track, prm, x_ref, mc)
     assert admm_kernel_solve.launches == 0 and megastep.launches == 0
 
@@ -80,7 +86,7 @@ def test_wrappers_route_by_device():
     with pytest.raises(NotImplementedError):
         megastep(cfg, scfg.replace(cache_build=True), track, prm, x_ref, mc)
     with pytest.raises(NotImplementedError):
-        megastep(cfg.replace(model="kinematic"), scfg, track, prm, x_ref, mc)
+        megastep(cfg, scfg, track, prm, x_ref, mc, eyb=torch.zeros((cfg.N + 1, 2, scen.batch)))
 
 
 def test_cuda_requests_raise_without_a_card():
@@ -90,6 +96,12 @@ def test_cuda_requests_raise_without_a_card():
         racetrack(device="cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         make_scenario_grid(VehicleParams(), MPCConfig(), device="cuda")
+    # the default device is the card: without one, the constructors raise
+    for make in (racetrack, lambda: make_scenario_grid(VehicleParams(), MPCConfig()),
+                 lambda: constant_refs(MPCConfig(), 1.5),
+                 lambda: megastep_params(VehicleParams(), 4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
     _cuda.library.cache_clear()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _cuda.library()
@@ -102,7 +114,7 @@ def test_kernel_sources_and_workspace_layout():
     source (mpc_core.cuh, shared with the racestep)."""
     names = {p.name for p in _cuda._sources()}
     assert {"arl_common.cuh", "mpc_core.cuh", "admm_kernel.cu", "megastep_kernel.cu",
-            "racestep_kernel.cu"} <= names
+            "racestep_kernel.cu", "fused_kernel.cu"} <= names
     assert len(_cuda.source_hash()) == 16
     src = (_cuda.CSRC / "mpc_core.cuh").read_text()
     terms = src.split("struct WsLayout")[1].split("total = o;")[0].count("o +=")
@@ -110,7 +122,10 @@ def test_kernel_sources_and_workspace_layout():
     # per stage: Xs 6, Us 2, kap 1, lb/ub 12, Ad 36, Bd 12, q0 6, K 16,
     # Hiv 4, Hux 16, d 2, Xsol 8, Usol 2; the N+1-row arrays add one more row
     for N in (1, 8, 12, 20):
-        assert megastep_workspace(N) == 123 * N + (6 + 1 + 12 + 6 + 8)
+        assert core_workspace(N) == 123 * N + (6 + 1 + 12 + 6 + 8)
+        # kinematic: Xs 4, Us 2, kap 1, lb/ub 12, Ad 16, Bd 8, q0 4, K 12, Hiv 4,
+        # Hux 12, d 2, Xsol 6, Usol 2 per stage
+        assert core_workspace(N, "kinematic") == 85 * N + (4 + 1 + 12 + 4 + 6)
 
 
 @pytest.fixture
@@ -155,34 +170,110 @@ def test_megastep_kernel_matches_plain_on_card(cuda_device, early_exit, tol_u, t
     assert megastep.launches == before + 5
 
 
+def _fused_case(device, model, N, n_ey, n_mu, warm_steps=10):
+    """Prepared inputs of the fused solve after a few fused-path steps."""
+    cfg = MPCConfig(N=N, model=model, weights=MPCWeights.for_model(model))
+    track = racetrack(device=device) if model == "dynamic" else oval_track(device=device)
+    scen = make_scenario_grid(VehicleParams(), cfg, n_ey=n_ey, n_mu=n_mu, vx0=1.5, device=device)
+    x_ref = constant_refs(cfg, 1.8 if model == "dynamic" else 1.5, device=device)
+    scfg = SolverConfig(max_iter=20, rho_interval=0, backend="fused", check_termination=2,
+                        certify_infeasibility=False)
+    carry, x = mpc_init(scen.params, cfg, track, scen.x0), scen.x0
+    for _ in range(warm_steps):
+        u, carry, _ = mpc_step_batched(scen.params, cfg, scfg, track, x, x_ref, carry)
+        x = plant_step(scen.params, cfg, track, x, u, n_sub=4)
+    Xs, Us, kap, xr, lb, ub, x0a, warm = mpc_prepare_light(scen.params, cfg, track, x, x_ref, carry)
+    return cfg, scfg, (scen.params, Xs, Us, kap, xr, lb, ub, x0a, warm[0], warm[1], carry.rho)
+
+
+def test_fused_wrapper_routes_by_device():
+    """CPU tensors take the plain version and count no launch; other
+    devices raise; the kernel route never falls back to the plain version."""
+    cfg, scfg, args = _fused_case("cpu", "kinematic", N=6, n_ey=2, n_mu=2, warm_steps=1)
+    sol = fused_mpc_solve(cfg, scfg, *args)
+    assert fused_mpc_solve.launches == 0 and sol.U.shape == (4, 6, 2)
+    meta = [torch.empty_like(a, device="meta") if isinstance(a, torch.Tensor) else a for a in args]
+    with pytest.raises(ValueError, match="expected cpu or cuda"):
+        fused_mpc_solve(cfg, scfg, *meta)
+    with pytest.raises(NotImplementedError):
+        fused_mpc_solve(cfg.replace(discretization="euler"), scfg, *args)
+    if not torch.cuda.is_available():
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import fused_kernel as fk
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fk._fused_cuda(cfg, scfg, *args)
+    assert fused_mpc_solve.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,N", [("dynamic", 20), ("kinematic", 10)])
+def test_fused_kernel_matches_plain_on_card(cuda_device, model, N):
+    """One fused solve at B=300 on inputs prepared after 10 fused-path
+    steps: 2e-4 on lanes converged on both sides, 5e-3 on every lane,
+    done-at within one iteration; early exit within 5e-3."""
+    cfg, scfg, args = _fused_case(cuda_device, model, N, n_ey=20, n_mu=15)
+    for early_exit in (False, True):
+        sc = scfg.replace(early_exit=early_exit)
+        before = fused_mpc_solve.launches
+        sk = fused_mpc_solve(cfg, sc, *args)
+        sp = fused_solve_plain(cfg, sc, *args)
+        torch.cuda.synchronize()
+        assert fused_mpc_solve.launches == before + 1
+        lane = torch.maximum((sk.U - sp.U).abs().amax(dim=(1, 2)), (sk.X - sp.X).abs().amax(dim=(1, 2)))
+        assert lane.max().item() <= 5e-3
+        if not early_exit:
+            both = sk.converged & sp.converged
+            assert int(both.sum()) >= 0.9 * lane.shape[0]
+            assert lane[both].max().item() <= 2e-4
+            assert (sk.iters - sp.iters).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit,tol_u,tol_x", [(False, 2e-4, 5e-4), (True, 5e-3, 5e-3)])
+def test_kinematic_megastep_matches_plain_on_card(cuda_device, early_exit, tol_u, tol_x):
+    cfg = MPCConfig(N=10, model="kinematic", weights=MPCWeights.for_model("kinematic"))
+    track = oval_track(device=cuda_device)
+    scen = make_scenario_grid(VehicleParams(), cfg, n_ey=20, n_mu=15, vx0=0.5, device=cuda_device)
+    x_ref = constant_refs(cfg, 1.5, device=cuda_device)
+    scfg = SolverConfig(max_iter=20, rho_interval=0, early_exit=early_exit, check_termination=2)
+    prm = megastep_params(scen.params, scen.batch, device=cuda_device)
+    ck = cp = megastep_init(scen.params, cfg, track, scen.x0)
+    for _ in range(5):
+        ck, uk, _ = megastep(cfg, scfg, track, prm, x_ref, ck)
+        cp, up, _ = megastep_plain(cfg, scfg, track, prm, x_ref, cp)
+        torch.cuda.synchronize()
+        assert (uk - up).abs().max().item() <= tol_u
+        assert (ck.x - cp.x).abs().max().item() <= tol_x
+
+
 def test_racestep_wrapper_routes_by_device():
     """CPU tensors take the plain version and count no launch; a carry on
     another device raises; CUDA tensors cannot be made without a card; the
     parts left out raise."""
-    track = oval_track()
+    track = oval_track(device="cpu")
     cfg = MPCConfig(N=8, model="dynamic", tire="pacejka")
     scfg = SolverConfig(max_iter=10)
     x0 = torch.zeros((2, 6))
     x0[:, 0] = 1.2
     car = racestep_init(VehicleParams(), cfg, track, x0, 0.8)
-    prm = megastep_params(VehicleParams(mu=0.8), 2)
+    prm = megastep_params(VehicleParams(mu=0.8), 2, device="cpu")
     args = (torch.zeros((6, 2)), torch.full((2,), 0.8), _EKF_Q, _SIGMA ** 2)
-    racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2), car, *args)
+    racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2, device="cpu"), car, *args)
     assert racestep.launches == 0
     meta = RaceMegaCarry(*(torch.empty_like(t, device="meta") for t in car))
     with pytest.raises(ValueError, match="expected cpu or cuda"):
-        racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2), meta, *args)
+        racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2, device="cpu"), meta, *args)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             racestep_init(VehicleParams(), cfg, track, x0.to("cuda"), 0.8)
         # the kernel route itself never falls back to the plain version
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            rk._racestep_cuda(cfg, scfg, track, prm, constant_refs(cfg, 1.2), car, *args, 10, 4, None,
+            rk._racestep_cuda(cfg, scfg, track, prm, constant_refs(cfg, 1.2, device="cpu"), car, *args, 10, 4, None,
                               True, True, 0.0, 0.995, 0.05, 3.0, None)
     with pytest.raises(NotImplementedError):
-        racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2), car, *args, eyb=torch.zeros(9, 2, 2))
+        racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2, device="cpu"), car, *args, eyb=torch.zeros(9, 2, 2))
     with pytest.raises(NotImplementedError):
-        racestep(cfg.replace(model="kinematic"), scfg, track, prm, constant_refs(cfg, 1.2), car, *args)
+        racestep(cfg.replace(model="kinematic"), scfg, track, prm, constant_refs(cfg, 1.2, device="cpu"), car, *args)
     per_lane = initial_table(track)
     per_lane = per_lane.replace(vx=per_lane.vx[None].expand(2, -1))
     with pytest.raises(NotImplementedError):

@@ -62,7 +62,7 @@ def jax_sweep():
 @pytest.mark.parametrize("sweep", ["mega_race_sweep", "batched_race_sweep"])
 def test_composed_sweep_matches_jax(jax_sweep, sweep):
     track, ref = jax_sweep
-    ptrack = convert.track(track)
+    ptrack = convert.track(track, device="cpu")
     fn = {"mega_race_sweep": mega_race_sweep, "batched_race_sweep": batched_race_sweep}[sweep]
     out = fn(VehicleParams(), convert.mpc_config(CFG), convert.solver_config(SCFG), ptrack,
              initial_table(ptrack, ds=0.05, vx0=1.2), torch.tensor(_x0()), T, torch.tensor(MU), mu0=0.8)
@@ -82,7 +82,7 @@ def test_racestep_scan_runner_and_noise():
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import racestep_init
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track
 
-    track = oval_track()
+    track = oval_track(device="cpu")
     cfg = MPCConfig(N=8, model="dynamic", tire="pacejka")
     scfg = SolverConfig(max_iter=20)
     table = initial_table(track, ds=0.05, vx0=1.2)
@@ -107,13 +107,13 @@ def test_convert_round_trips_race_objects():
     track = joval()
     x0 = jnp.asarray(_x0())
     jtab = jinitial_table(track, ds=0.05, vx0=1.2)
-    tab = convert.ref_table(jtab)
+    tab = convert.ref_table(jtab, device="cpu")
     assert isinstance(tab, RefTable)
     for k, v in convert.to_numpy(tab).items():
         np.testing.assert_array_equal(v, np.asarray(getattr(jtab, k)))
 
     jmc = jracestep_init(P, CFG, track, x0, 0.8)
-    mc = convert.race_mega_carry(jmc)
+    mc = convert.race_mega_carry(jmc, device="cpu")
     assert isinstance(mc, RaceMegaCarry)
     back = convert.to_numpy(mc)
     assert set(back) == set(RaceMegaCarry._fields)
@@ -121,17 +121,17 @@ def test_convert_round_trips_race_objects():
         np.testing.assert_array_equal(back[k], np.asarray(getattr(jmc, k)))
 
     jek = jax.vmap(jekf_init)(x0)
-    ek = convert.ekf_state(jek)
+    ek = convert.ekf_state(jek, device="cpu")
     assert isinstance(ek, EKFState) and ek.P.shape == (3, 6, 6)
     jfr = jax.vmap(lambda m: jfriction_init(m))(jnp.asarray(MU))
-    fr = convert.friction_state(jfr)
+    fr = convert.friction_state(jfr, device="cpu")
     assert isinstance(fr, FrictionState)
     np.testing.assert_array_equal(convert.to_numpy(fr)["mu"], MU)
 
     jrc = JRaceCarry(xg=jnp.zeros((3, 6)), mpc=jax.vmap(lambda x: jmpc_init(P, CFG, track, x))(x0),
                      ekf=jek, fric=jfr, x_prev_f=x0, u_prev=jnp.zeros((3, 2)),
                      key=jax.random.split(jax.random.PRNGKey(0), 3))
-    rc = convert.race_carry(jrc)
+    rc = convert.race_carry(jrc, device="cpu")
     assert isinstance(rc, RaceCarry) and rc.generator is None
     back = convert.to_numpy(rc)
     assert "generator" not in back

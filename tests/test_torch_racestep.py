@@ -63,10 +63,10 @@ def test_racestep_plain_matches_jax_kernel(refs):
     step = jax.jit(lambda c, n: jracestep(CFG, SCFG, track, jprm, jref, c, n, jnp.asarray(mu_b),
                                           EKF_Q, SIGMA ** 2, interpret=True))
     jc = jracestep_init(P, CFG, track, jnp.asarray(x0), 0.8)
-    cfg, scfg, ptrack = convert.mpc_config(CFG), convert.solver_config(SCFG), convert.track(track)
-    pref = initial_table(ptrack, ds=0.05, vx0=1.2) if refs == "table" else constant_refs(cfg, 1.2)
+    cfg, scfg, ptrack = convert.mpc_config(CFG), convert.solver_config(SCFG), convert.track(track, device="cpu")
+    pref = initial_table(ptrack, ds=0.05, vx0=1.2) if refs == "table" else constant_refs(cfg, 1.2, device="cpu")
     pc = racestep_init(VehicleParams(), cfg, ptrack, torch.tensor(x0), 0.8)
-    prm = megastep_params(VehicleParams(mu=0.8), B)
+    prm = megastep_params(VehicleParams(mu=0.8), B, device="cpu")
     for k in range(5):
         jc, ju, jd, jz = step(jc, jnp.asarray(noise[k]))
         pc, pu, pd, pz = racestep(cfg, scfg, ptrack, prm, pref, pc, torch.tensor(noise[k]),
@@ -97,12 +97,12 @@ def test_racestep_measurement_matches_windowed_transform():
     x0[:, 5] = [(-0.1 if i % 2 else 0.15) for i in range(nb)]
     x0[:, 3] = [(0.05 if i % 3 else -0.08) for i in range(nb)]
     cfg = MPCConfig(N=8, model="dynamic", tire="pacejka")
-    ptrack = convert.track(track)
+    ptrack = convert.track(track, device="cpu")
     carry = racestep_init(VehicleParams(), cfg, ptrack, torch.tensor(x0), 0.8)
     carry = carry._replace(ekx=carry.ekx.clone())
     carry.ekx[4] -= 0.25
     _, _, _, z = racestep_plain(cfg, SolverConfig(max_iter=4), ptrack,
-                                megastep_params(VehicleParams(), nb), constant_refs(cfg, 1.2), carry,
+                                megastep_params(VehicleParams(), nb, device="cpu"), constant_refs(cfg, 1.2, device="cpu"), carry,
                                 torch.zeros((6, nb)), torch.full((nb,), 0.8),
                                 np.full(6, 1e-4, np.float32), np.full(6, 1e-4, np.float32),
                                 use_ekf=False, adapt_mu=False)
@@ -118,12 +118,12 @@ def test_racestep_measurement_matches_windowed_transform():
 def test_racestep_ekf_innovation_gating():
     """A one-frame +0.3 m glitch on the e_y channel: the ungated filter
     jumps toward it, the gated one (gate_sigma=3) barely moves."""
-    track = oval_track()
+    track = oval_track(device="cpu")
     cfg = MPCConfig(N=8, model="dynamic", tire="pacejka")
     x0 = torch.zeros((1, 6))
     x0[:, 0] = 1.2
     x0[:, 4] = 2.0
-    prm = megastep_params(VehicleParams(mu=0.9), 1)
+    prm = megastep_params(VehicleParams(mu=0.9), 1, device="cpu")
     table = initial_table(track, ds=0.05, vx0=1.2)
     ekr = np.full(6, 1e-4, np.float32)
     clean = torch.zeros((6, 1))
