@@ -264,23 +264,27 @@ __device__ __forceinline__ void ab_cont_kinematic(const float (&x)[KIN_NX], cons
 // with 4 squarings, for an nx-state model. The bottom block rows of every
 // iterate are [0 I], so only the top blocks E = [Ad Bd] are carried: the
 // same products as the full (nx+2)^2 form without its exact-zero terms.
-template <int nx>
+// RECIP scales the Horner terms by the reciprocals 1/k instead of dividing
+// by k (the group core's stage build: a multiply where a division costs a
+// dozen instructions; the results move by an ulp).
+template <int nx, bool RECIP = false>
 __device__ __forceinline__ void vanloan(const float (&A)[nx][nx], const float (&B)[nx][NU],
                                         float dt, float (&Ad)[nx][nx], float (&Bd)[nx][NU]) {
   constexpr int ORDER = 6, SQUARINGS = 4;
   const float S = dt / 16.0f;   // dt / 2^SQUARINGS
+  auto over = [](float x, int k) { return RECIP ? x * (1.0f / (float)k) : x / (float)k; };
   float Ma[nx][nx], Mb[nx][NU], T[nx][nx], Tb[nx][NU];
 #pragma unroll
   for (int i = 0; i < nx; ++i) {
 #pragma unroll
     for (int j = 0; j < nx; ++j) {
       Ma[i][j] = A[i][j] * S;
-      Ad[i][j] = (i == j ? 1.0f : 0.0f) + Ma[i][j] / (float)ORDER;
+      Ad[i][j] = (i == j ? 1.0f : 0.0f) + over(Ma[i][j], ORDER);
     }
 #pragma unroll
     for (int j = 0; j < NU; ++j) {
       Mb[i][j] = B[i][j] * S;
-      Bd[i][j] = Mb[i][j] / (float)ORDER;
+      Bd[i][j] = over(Mb[i][j], ORDER);
     }
   }
 #pragma unroll
@@ -290,9 +294,9 @@ __device__ __forceinline__ void vanloan(const float (&A)[nx][nx], const float (&
 #pragma unroll
     for (int i = 0; i < nx; ++i) {
 #pragma unroll
-      for (int j = 0; j < nx; ++j) Ad[i][j] = (i == j ? 1.0f : 0.0f) + T[i][j] / (float)k;
+      for (int j = 0; j < nx; ++j) Ad[i][j] = (i == j ? 1.0f : 0.0f) + over(T[i][j], k);
 #pragma unroll
-      for (int j = 0; j < NU; ++j) Bd[i][j] = (Tb[i][j] + Mb[i][j]) / (float)k;
+      for (int j = 0; j < NU; ++j) Bd[i][j] = over(Tb[i][j] + Mb[i][j], k);
     }
   }
 #pragma unroll

@@ -9,35 +9,40 @@
 // mpc_prepare_light); the kernel looks nothing up: kappa, x_ref (vx already
 // clamped to the friction cap), lb/ub arrive per lane and stage.
 //
-// Design. One thread owns one lane; 128 threads form a block. Each thread
-// builds its N stage matrices into its workspace (the tracker core's
-// WsLayout: Ad, Bd, q0, lb, ub, the gains and the iterates; the schedule
-// slots stay unused), factors once with mpc_core.cuh's factor, and iterates
-// mpc_core.cuh's admm_iteration from s0 (clipped to [lb, ub]) and lam0 with
-// X, U at zero. Unlike the core's loop, the OSQP termination test runs
-// after EVERY iteration, so done-at is exact. With early exit the block
-// votes (__syncthreads_and) at each boundary of a chunk of `check`
-// iterations and leaves when every lane has a done-at; the remainder tail
-// runs only if some lane has not. Lanes past B vote "done" and touch no
-// memory (the Pallas kernel padded with copies of lane 0 instead). Stats
+// Design. A group of G threads owns one lane (group_core.cuh): thread g
+// builds the stages k = g mod G into the lane's shared-memory slice of
+// ADMM operands, writes their linear cost and clipped warm start, then the
+// group factors once (factor_g) and iterates admm_iteration_g from s0 and
+// lam0 with X, U at zero. The OSQP
+// termination test runs after EVERY iteration on the group's max-reduced
+// residuals, so done-at is exact. With early exit the 128 consecutive lanes
+// of a thread block cluster vote (vote_all) at each boundary of a chunk of
+// `check` iterations and leave when every lane has a done-at; the remainder
+// tail runs only if some lane has not. Groups past B vote "done" and touch
+// no memory (the Pallas kernel padded with copies of lane 0 instead). Stats
 // rows 0-4 are the last executed iteration's residuals, row 5 the done-at
-// (max_iter if never); rho is adapted on the host. Both models, one
-// instantiation each (Dynamic, Kinematic), selected by the last int.
+// (max_iter if never); rho is adapted on the host. Both models (Dynamic,
+// Kinematic), each with its operands in shared or in device memory, as the
+// wrapper chooses from N (ops/fused_kernel.py::launch_shape); the launch
+// shape is arl_sync.cuh's (G = 8, 16 lanes per block, clusters of 8).
 //
-// What bounds it on the H100: the per-lane serial chain of small dense
-// algebra: per iteration a backward sweep and a forward rollout of na x na
-// mat-vecs over N stages and the z-update, all per lane over a workspace
-// that lives in device memory (L2-resident at B=4096). Its own inputs and
-// outputs are ~5 KB per lane; the operations, ~0.5 MFLOP per lane at N=20
-// and 20 iterations, are the bound — and at B=4096 only 32 of 132 SMs hold
-// a block, so the card runs far below its f32 rate.
-#include "mpc_core.cuh"
+// What bounds it on the H100: the operations, ~0.2 MFLOP per lane at N=20
+// and 20 iterations (its ~5 KB of inputs and outputs per lane take far
+// less). What stands between it and that bound is latency: each ADMM stage
+// is a short dependent chain (mat-vec, shuffle broadcast, next stage), so
+// the design shortens the chain by G, keeps the operands that every
+// iteration re-reads at shared-memory latency, and spreads B=4096 over 256
+// blocks of 16 lanes in clusters of 8. At N=20 (dynamic) a block's 111 KB
+// of shared memory leaves room for two blocks per SM; the card then holds
+// 30 such clusters at once, and the last 2 of B=4096 run as a second wave.
+#include "group_core.cuh"
 
 namespace arl {
 
 template <class M>
 struct FusedParams {
   CoreParams<M> C;   // scalars, constants, rho in; s_out, lam_out, stats out
+  Sel<M> S;
   // inputs, batch-last: xs (N, nx), us (N, NU), kap (N), xref (N+1, nx),
   // prm (10), lb/ub/s0/lam0 (N+1, NC), x0a (na)
   const float *xs, *us, *kap, *xref, *prm, *lb, *ub, *x0a, *s0, *lam0;
@@ -46,19 +51,24 @@ struct FusedParams {
 };
 
 constexpr int FUSED_PTRS = 17;
-constexpr int FUSED_INTS = 8;
+constexpr int FUSED_INTS = 10;
 
-template <class M>
-__global__ void __launch_bounds__(BLOCK) fused_kernel(const __grid_constant__ FusedParams<M> P) {
-  constexpr int NX = M::NX, NA = M::NA;
+// At most 168 registers, so that three blocks of 128 threads fit on an SM
+// where the shared memory allows it (the kinematic model at N=10).
+template <class M, bool SM>
+__global__ void __launch_bounds__(GROUP_THREADS, 3) fused_kernel(const __grid_constant__ FusedParams<M> P) {
+  constexpr int NX = M::NX, NA = M::NA, G = LANE_THREADS;
   const CoreParams<M>& C = P.C;
-  const int b = blockIdx.x * BLOCK + threadIdx.x;
+  const Grp<G> gr;
+  const int g = gr.g, lane = threadIdx.x / G;
+  const int b = blockIdx.x * BLOCK_LANES + lane;
   const bool active = b < C.B;
-  const int S = C.B, N = C.N;
+  const int S = C.B, N = C.N, bb = active ? b : 0;
   const WsLayout<M> W(N);
-  const Lane ws = lane_of(P.ws, active ? b : 0, S);
-  const Lane s_l = lane_of(C.s_out, active ? b : 0, S);
-  const Lane lam_l = lane_of(C.lam_out, active ? b : 0, S);
+  const Lane ws = lane_of(P.ws, bb, S);
+  const Ops<SM> op = ops_of<M, SM>(N, lane, P.ws, bb, S);
+  const IterLanes L{sub(ws, W.q0), lane_of(P.lb, bb, S), lane_of(P.ub, bb, S),
+                    lane_of(C.s_out, bb, S), lane_of(C.lam_out, bb, S)};
   float rho = 1.0f, rinv = 1.0f, da = -1.0f;
   float x0a[NA] = {};
   Resid acc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -68,44 +78,38 @@ __global__ void __launch_bounds__(BLOCK) fused_kernel(const __grid_constant__ Fu
     rinv = 1.0f / rho;
     const VehParams pv = load_params(P.prm, b, S);
     const Lane xs = lane_of(P.xs, b, S), us = lane_of(P.us, b, S), kap = lane_of(P.kap, b, S);
-    // 1. stage matrices at the scheduled (x, u, kappa)
-    for (int k = 0; k < N; ++k) {
-      float xk[NX], uk[NU], Ac[NX][NX], Bc[NX][NU], Ad[NX][NX], Bd[NX][NU];
-      loadv(xk, xs, k * NX);
-      loadv(uk, us, k * NU);
-      M::ab_cont(xk, uk, kap[k], pv, C.tire, Ac, Bc);
-      vanloan(Ac, Bc, C.dt, Ad, Bd);
-      store(Ad, ws, W.Ad + k * NX * NX);
-      store(Bd, ws, W.Bd + k * NX * NU);
-    }
-    // linear cost from the reference as given, bounds, clipped warm start
-    const Lane xref = lane_of(P.xref, b, S), lb = lane_of(P.lb, b, S), ub = lane_of(P.ub, b, S);
-    const Lane s0 = lane_of(P.s0, b, S), lam0 = lane_of(P.lam0, b, S);
-    for (int k = 0; k <= N; ++k) {
+    const Lane xref = lane_of(P.xref, b, S), s0 = lane_of(P.s0, b, S), lam0 = lane_of(P.lam0, b, S);
+    for (int k = g; k <= N; k += G) {
+      // 1. stage matrices at the scheduled (x, u, kappa)
+      if (k < N) {
+        float xk[NX], uk[NU];
+        loadv(xk, xs, k * NX);
+        loadv(uk, us, k * NU);
+        build_stage<M>(op, k, xk, uk, kap[k], pv, C.tire, C.dt);
+      }
+      // linear cost from the reference as given, clipped warm start
 #pragma unroll
-      for (int i = 0; i < NX; ++i) ws[W.q0 + k * NX + i] = -(C.qw[i] * xref[k * NX + i]);
+      for (int i = 0; i < NX; ++i) L.q0[k * NX + i] = -(C.qw[i] * xref[k * NX + i]);
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float l = lb[k * NC + c], u = ub[k * NC + c];
-        ws[W.lb + k * NC + c] = l;
-        ws[W.ub + k * NC + c] = u;
-        s_l[k * NC + c] = clampf(s0[k * NC + c], l, u);
-        lam_l[k * NC + c] = lam0[k * NC + c];
+        L.s[k * NC + c] = clampf(s0[k * NC + c], L.lb[k * NC + c], L.ub[k * NC + c]);
+        L.lam[k * NC + c] = lam0[k * NC + c];
       }
     }
-    // 2. rho-folded cost + Riccati factor
-    factor(C, W, ws, rho);
+    gr.sync();
+    // 2. rho-folded cost + Riccati factor; X, U at zero
+    factor_g(C, op, rho, gr);
+    admm_start_g(C, P.S, op, L, rho, rinv, gr);
     const Lane xa = lane_of(P.x0a, b, S);
+#pragma unroll
     for (int i = 0; i < NA; ++i) x0a[i] = xa[i];
-    for (int i = 0; i < (N + 1) * NA; ++i) ws[W.Xsol + i] = 0.0f;
-    for (int i = 0; i < N * NU; ++i) ws[W.Usol + i] = 0.0f;
   }
 
   // 3. ADMM, the termination test after every iteration (exact done-at)
   const int n_chunks = C.max_iter / C.check;
   const int rem = C.max_iter - n_chunks * C.check;
   auto iterate = [&](int it1) {
-    acc = admm_iteration(C, W, ws, s_l, lam_l, x0a, rho, rinv);
+    acc = group_max(gr, admm_iteration_g(C, P.S, op, L, x0a, rho, rinv, gr));
     if (da < 0.0f && converged(acc, rho, C.eps_abs, C.eps_rel)) da = (float)it1;
   };
   if (C.early_exit) {
@@ -113,7 +117,7 @@ __global__ void __launch_bounds__(BLOCK) fused_kernel(const __grid_constant__ Fu
     for (int c = 0; c < n_chunks && !all_done; ++c) {
       if (active)
         for (int i = 0; i < C.check; ++i) iterate(c * C.check + i + 1);
-      all_done = __syncthreads_and(!active || da >= 0.0f);
+      all_done = vote_all(!active || da >= 0.0f);
     }
     if (rem && !all_done && active)
       for (int i = 0; i < rem; ++i) iterate(n_chunks * C.check + i + 1);
@@ -122,7 +126,16 @@ __global__ void __launch_bounds__(BLOCK) fused_kernel(const __grid_constant__ Fu
   }
   if (!active) return;
 
-  // 4. residual rows of the last executed iteration, the solution
+  // 4. the solution, the residual rows of the last executed iteration
+  const Lane X_out = lane_of(P.X_out, b, S), U_out = lane_of(P.U_out, b, S);
+  for (int k = g; k <= N; k += G) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) X_out[k * NA + i] = op[op.X + k * NA + i];
+    if (k < N)
+#pragma unroll
+      for (int i = 0; i < NU; ++i) U_out[k * NU + i] = op[op.U + k * NU + i];
+  }
+  if (g != 0) return;
   const Lane st = lane_of(C.stats, b, S);
   st[0] = acc.r_p;
   st[1] = rho * acc.dual_ds;
@@ -132,9 +145,6 @@ __global__ void __launch_bounds__(BLOCK) fused_kernel(const __grid_constant__ Fu
   st[5] = da > 0.0f ? da : (float)C.max_iter;
   st[6] = 0.0f;
   st[7] = 0.0f;
-  const Lane X_out = lane_of(P.X_out, b, S), U_out = lane_of(P.U_out, b, S);
-  for (int i = 0; i < (N + 1) * NA; ++i) X_out[i] = ws[W.Xsol + i];
-  for (int i = 0; i < N * NU; ++i) U_out[i] = ws[W.Usol + i];
 }
 
 template <class M>
@@ -148,24 +158,29 @@ int launch_fused(void** ptrs, const float* fv, int n_f, const int* iv, int devic
   int p = 0;
   for (auto q : in) *q = static_cast<const float*>(ptrs[p++]);
   for (auto q : out) *q = static_cast<float*>(ptrs[p++]);
-  int* ints[] = {&C.B, &C.N, &C.max_iter, &C.check, &C.early_exit, &C.tire, &P.ws_rows};
+  int ops_smem = 0, smem = 0;
+  int* ints[] = {&C.B, &C.N, &C.max_iter, &C.check, &C.early_exit, &C.tire, &P.ws_rows,
+                 &ops_smem, &smem};
   for (int i = 0; i < FUSED_INTS - 1; ++i) *ints[i] = iv[i];
   read_core_floats(C, fv);
+  if (!make_sel(C, P.S)) return -1;
   if (P.ws_rows != WsLayout<M>(C.N).total) return -2;
+  if (smem != (ops_smem ? BLOCK_LANES * OpsLayout<M>(C.N).total * 4 : 0)) return -2;
   if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1) return -3;
   cudaSetDevice(device);
-  const int grid = (C.B + BLOCK - 1) / BLOCK;
-  fused_kernel<M><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(P);
-  return static_cast<int>(cudaGetLastError());
+  const int grid = (C.B + BLOCK - 1) / BLOCK * CLUSTER;
+  return ops_smem ? launch_clustered(fused_kernel<M, true>, P, grid, smem, stream)
+                  : launch_clustered(fused_kernel<M, false>, P, grid, smem, stream);
 }
 
 }  // namespace arl
 
 // C entry: device pointers, float and int parameters in the order of
-// ops/fused_kernel.py::_fused_cuda; the last int selects the model (0
-// dynamic, 1 kinematic). Returns -1 on an operand-count mismatch, -2 on a
-// workspace-size mismatch, -3 on a bad size or model, else
-// cudaGetLastError().
+// ops/fused_kernel.py::_fused_cuda (the last three ints: operands in shared
+// memory, its bytes per block, the model: 0 dynamic, 1 kinematic). Returns
+// -1 on an operand-count mismatch, -2 on a workspace- or shared-memory-size
+// mismatch, -3 on a bad size or model, -4 if the card cannot hold one
+// cluster of the shape, else the CUDA error of the launch.
 extern "C" int arl_fused_solve(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
                                int n_i, int device, void* stream) {
   using namespace arl;

@@ -1,5 +1,5 @@
-// The tracker core shared by the megastep and racestep kernels: sections
-// 1-8 of one receding-horizon step per lane (schedule shift, curvature +
+// The tracker core of the megastep kernel, one thread per lane: sections
+// 1-8 of one receding-horizon step (schedule shift, curvature +
 // friction-cap bounds, LPV + Van Loan + linear cost, warm-start shift,
 // Riccati factor, ADMM in chunks of `check` iterations with the 128-lane
 // early-exit vote, residuals / rho, accept or limp-home).
@@ -9,7 +9,9 @@
 // ops/megastep_kernel.py::mpc_core_plain. Every piece is a template on the
 // model traits M of arl_common.cuh (Dynamic, Kinematic): the state width,
 // the augmented width, the indices of s and e_y, the stage build. The
-// fused solve (fused_kernel.cu) reuses factor, admm_iteration and z_update.
+// racestep and the fused solve run the group core of group_core.cuh (G
+// threads per lane), which shares this file's parameters, constants,
+// workspace layout and residual test.
 #pragma once
 
 #include "arl_common.cuh"

@@ -5,38 +5,43 @@
 // Pallas TPU kernel. Plain PyTorch version:
 // ops/racestep_kernel.py::racestep_plain.
 //
-// Design. One thread owns one lane (a car); 128 threads form a block, as
-// in the megastep. Each thread runs, in order:
+// Design. A group of G threads owns one lane (a car); a block holds 16
+// lanes and a thread block cluster of 8 blocks the 128 lanes that leave
+// ADMM together (arl_sync.cuh). Each group runs, in order:
 //   1. measurement: the nearest centerline node to the world-frame truth
-//      among the cells within +-win_cells of the EKF's s (plain indexed
-//      loads, cell ids wrapped mod n_cells, ties to the smallest id), the
-//      tangent projection, e_psi by atan2f, the lap unwrap
+//      among the cells within +-win_cells of the EKF's s, searched in G
+//      strided slices and reduced over the group (plain indexed loads, cell
+//      ids wrapped mod n_cells, ties to the smallest id), the tangent
+//      projection, e_psi by atan2f, the lap unwrap
 //      floor((s_hint - s_w) / L + 0.5), plus the pre-scaled noise -> z;
 //   2. EKF at mu-hat: n_sub_ekf Euler sub-steps of the Frenet model, the
-//      forward-difference Jacobian (reusing the centre evaluation),
-//      F = prod(I + h J), Pp = F P F' + diag(q), optional per-channel
-//      gating, S = Pp + diag(R) inverted by unpivoted Gauss-Jordan,
-//      K = Pp S^-1, xf = x + K nu, P = sym((I - K) Pp);
+//      centre and the 6 perturbed model evaluations one per thread, the
+//      forward-difference Jacobian, F = prod(I + h J) split by columns,
+//      Pp = F P F' + diag(q), optional per-channel gating, S = Pp + diag(R)
+//      inverted by unpivoted Gauss-Jordan, K = Pp S^-1, xf = x + K nu,
+//      P = sym((I - K) Pp) on every thread of the group;
 //   3. friction RLS: axle forces at the midpoint of x_prev_f and xf, two
 //      excitation-gated scalar updates with the analytic dFy/dmu (the
-//      result is the next step's mu-hat);
+//      result is the next step's mu-hat), on every thread of the group;
 //   4. references: a shared RefTable sampled into the lane's workspace
 //      rows along the shifted schedule (linear interpolation of vx, e_y and
-//      the precomputed e_psi node channel), or the caller's tensor rows;
-//   5. the tracker core of mpc_core.cuh at mu-hat (the megastep's code,
-//      with its 128-lane early-exit vote);
-//   6. n_sub Euler sub-steps of the world-frame plant at the lane's true mu.
+//      the precomputed e_psi node channel), row k on thread k mod G, or the
+//      caller's tensor rows;
+//   5. the group tracker core of group_core.cuh at mu-hat (stage operands
+//      in shared memory, the 128-lane early-exit vote across the cluster);
+//   6. n_sub Euler sub-steps of the world-frame plant at the lane's true mu,
+//      on the group's first thread.
 //
-// What bounds it on the H100: the tracker core, as in the megastep — a
-// long serial chain of small dense algebra per lane over a per-lane
-// workspace in device memory (L2-resident at B=4096) — plus the EKF's
-// 6x6 products (7 model evaluations per sub-step, a Gauss-Jordan inverse),
-// which live in registers and spill to local memory. The measurement reads
-// 2 (2 win_cells + 1) table floats per lane from the L1/L2-cached pose
-// tables. The design keeps every stage of the composed step in one launch,
-// so nothing but the carry crosses device memory between stages; shared-
-// memory staging of the EKF and finer-grained lanes are later work.
-#include "mpc_core.cuh"
+// What bounds it on the H100: the operations of the tracker core (~0.18
+// MFLOP per lane at N=20 and ~14 executed iterations); a clock64 split of
+// the one-thread kernel put 93% of its time in the core (its ADMM loop 65%,
+// the stage builds 26%), 3% in the EKF. What stands between it and that
+// bound is latency, as in the fused kernel: the group shortens each chain
+// by G and keeps the per-iteration operands in shared memory. The
+// measurement reads 2 (2 win_cells + 1) table floats per lane from the
+// L1/L2-cached pose tables; nothing but the carry crosses device memory
+// between stages.
+#include "group_core.cuh"
 
 namespace arl {
 
@@ -50,11 +55,12 @@ struct RaceParams {
   // outputs, batch-last
   float *xg_out, *ekx_out, *ekP_out, *fr_out, *xf_out, *z_out, *ws;
   int n_sub, sim_tire, ws_rows, n_sub_ekf, use_ekf, adapt_mu, use_table, n_ref, win_cells;
+  Sel<Dynamic> Sl;
   float gate_sigma, forgetting, min_sensitivity, fd_eps, inv_fd_eps;
 };
 
 constexpr int RACE_PTRS = 39;
-constexpr int RACE_INTS = 17;
+constexpr int RACE_INTS = 19;
 constexpr int RACE_FLOATS = core_floats<Dynamic>() + 5;
 constexpr float MU_MIN = 0.1f;
 constexpr float MU_MAX = 1.5f;
@@ -135,9 +141,13 @@ __device__ __forceinline__ void inv6(float (&M)[NX][NX], float (&Inv)[NX][NX]) {
   }
 }
 
-// 1. The Frenet measurement of the world-frame pose, hint-windowed.
+// 1. The Frenet measurement of the world-frame pose, hint-windowed: the
+// window's cells in G strided slices, each slice's nearest node, then the
+// group's lexicographic minimum of (squared distance, cell id) — the
+// serial search's rule, nearest node with ties to the smallest cell id.
+template <int G>
 __device__ __forceinline__ void measure(const RaceParams& P, const float (&xg)[NX], float s_hint,
-                                        float (&z)[NX]) {
+                                        const Grp<G>& gr, float (&z)[NX]) {
   const int n = P.C.n_cells, W = P.win_cells;
   const float length = P.C.taux[0], inv_ds = P.C.taux[1];
   const float ds = 1.0f / inv_ds;
@@ -147,7 +157,7 @@ __device__ __forceinline__ void measure(const RaceParams& P, const float (&xg)[N
   int i_star = n;
   const bool all = 2 * W + 1 >= n;
   const int lo = all ? 0 : -W, hi = all ? n - 1 : W;
-  for (int d = lo; d <= hi; ++d) {
+  for (int d = lo + gr.g; d <= hi; d += G) {
     int c = all ? d : i_hint + d;
     if (c < 0) c += n;
     if (c >= n) c -= n;
@@ -156,6 +166,15 @@ __device__ __forceinline__ void measure(const RaceParams& P, const float (&xg)[N
     if (d2 < best || (d2 == best && c < i_star)) {
       best = d2;
       i_star = c;
+    }
+  }
+#pragma unroll
+  for (int m = G / 2; m > 0; m >>= 1) {
+    const float ob = gr.xchg(best, m);
+    const int oi = gr.xchg(i_star, m);
+    if (ob < best || (ob == best && oi < i_star)) {
+      best = ob;
+      i_star = oi;
     }
   }
   const float Pi = __ldg(P.Pt + i_star);
@@ -175,39 +194,73 @@ __device__ __forceinline__ void measure(const RaceParams& P, const float (&xg)[N
   z[5] = e_y;
 }
 
-// 2. EKF predict + update at pv (mu = mu-hat): xf, and P in place.
+// 2. EKF predict + update at pv (mu = mu-hat): xf, and P in place. Per
+// Euler sub-step, the centre evaluation and the NX perturbed ones go one
+// per thread (evaluation e on thread e mod G), and F = (I + h J) F is split
+// by the columns of F; the update runs on every thread of the group.
+template <int G>
 __device__ __forceinline__ void ekf(const RaceParams& P, const VehParams& pv,
                                     const float (&u_prev)[NU], const float (&z)[NX],
-                                    float (&x)[NX], float (&Pm)[NX][NX]) {
+                                    const Grp<G>& gr, float (&x)[NX], float (&Pm)[NX][NX]) {
+  constexpr int NE = NX + 1, RE = (NE + G - 1) / G, RF = (NX + G - 1) / G;
   const float length = P.C.taux[0], inv_ds = P.C.taux[1];
   const float h = P.C.dt / (float)P.n_sub_ekf;
+  float Fc[RF][NX];   // columns c = g + G t of F
+#pragma unroll
+  for (int t = 0; t < RF; ++t)
+#pragma unroll
+    for (int i = 0; i < NX; ++i) Fc[t][i] = i == gr.g + G * t ? 1.0f : 0.0f;
+  for (int it = 0; it < P.n_sub_ekf; ++it) {
+    const float kap = kap_at(P.C.kappa, P.C.n_cells, length, inv_ds, x[4]);
+    // evaluation e: the centre (e = 0) or x + fd_eps in state e - 1
+    float fe[RE][NX];
+#pragma unroll
+    for (int t = 0; t < RE; ++t) {
+      const int e = min(gr.g + G * t, NE - 1);
+      float xp[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xp[i] = i == e - 1 ? x[i] + P.fd_eps : x[i];
+      f_dynamic(pv, xp, u_prev, kap, P.C.tire, fe[t]);
+    }
+    float fx[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) fx[i] = gr.bcast(fe[0][i], 0);
+    // column e - 1 of I + h J on the thread of evaluation e, then all of it
+    float Gm[NX][NX];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float own[RE];
+#pragma unroll
+      for (int t = 0; t < RE; ++t) own[t] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+#pragma unroll
+        for (int t = 0; t < RE; ++t)
+          own[t] = (i == j ? 1.0f : 0.0f) + h * ((fe[t][i] - fx[i]) * P.inv_fd_eps);
+        Gm[i][j] = gr.bcast(own[(j + 1) / G], (j + 1) % G);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < RF; ++t) {
+      float Fn[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        float acc = Gm[i][0] * Fc[t][0];
+#pragma unroll
+        for (int m = 1; m < NX; ++m) acc += Gm[i][m] * Fc[t][m];
+        Fn[i] = acc;
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) Fc[t][i] = Fn[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = x[i] + h * fx[i];
+  }
   float F[NX][NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i)
 #pragma unroll
-    for (int j = 0; j < NX; ++j) F[i][j] = i == j ? 1.0f : 0.0f;
-  for (int it = 0; it < P.n_sub_ekf; ++it) {
-    const float kap = kap_at(P.C.kappa, P.C.n_cells, length, inv_ds, x[4]);
-    float fx[NX], G[NX][NX];
-    f_dynamic(pv, x, u_prev, kap, P.C.tire, fx);
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      float xp[NX], fp[NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) xp[i] = i == j ? x[i] + P.fd_eps : x[i];
-      f_dynamic(pv, xp, u_prev, kap, P.C.tire, fp);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) G[i][j] = (i == j ? 1.0f : 0.0f) + h * ((fp[i] - fx[i]) * P.inv_fd_eps);
-    }
-    float Fn[NX][NX];
-    mm(G, F, Fn);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-#pragma unroll
-      for (int j = 0; j < NX; ++j) F[i][j] = Fn[i][j];
-      x[i] = x[i] + h * fx[i];
-    }
-  }
+    for (int c = 0; c < NX; ++c) F[i][c] = gr.bcast(Fc[c / G][i], c % G);
   // Pp = F (P F') + diag(q)
   float T[NX][NX], Pp[NX][NX];
 #pragma unroll
@@ -296,11 +349,14 @@ __device__ __forceinline__ void friction_rls(const RaceParams& P, const VehParam
 
 // 4. The lane's (N+1, NX) reference rows from the shared table, sampled at
 // the shifted schedule's s: row 0 at xf, row k at X_pred[min(k+1, N)].
-__device__ __forceinline__ void table_refs(const RaceParams& P, int b, float s0, const Lane& rows) {
+// Row k on thread k mod G.
+template <int G>
+__device__ __forceinline__ void table_refs(const RaceParams& P, int b, float s0, const Grp<G>& gr,
+                                           const Lane& rows) {
   const int N = P.C.N, S = P.C.B, n = P.n_ref;
   const Lane Xp = lane_of(P.C.Xp, b, S);
   const float Lt = P.rtaux[0], inv_dst = P.rtaux[1];
-  for (int k = 0; k <= N; ++k) {
+  for (int k = gr.g; k <= N; k += G) {
     const float s = k == 0 ? s0 : Xp[min(k + 1, N) * NX + 4];
     const float ff = __fmul_rn(wrap_s(s, Lt), inv_dst);
     const int i0 = min(max(__float2int_rz(ff), 0), n - 1);
@@ -318,12 +374,16 @@ __device__ __forceinline__ void table_refs(const RaceParams& P, int b, float s0,
   }
 }
 
-__global__ void __launch_bounds__(BLOCK) racestep_kernel(const __grid_constant__ RaceParams P) {
-  const int b = blockIdx.x * BLOCK + threadIdx.x;
+template <bool SM>
+__global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_constant__ RaceParams P) {
+  const Grp<LANE_THREADS> gr;
+  const int lane = threadIdx.x / LANE_THREADS;
+  const int b = blockIdx.x * BLOCK_LANES + lane;
   const int S = P.C.B;
   const bool active = b < S;
   const WsLayout<Dynamic> W(P.C.N);
   const Lane ws = lane_of(P.ws, active ? b : 0, S);
+  const Ops<SM> op = ops_of<Dynamic, SM>(P.C.N, lane, P.ws, active ? b : 0, S);
   VehParams pv{}, pv_hat{};
   float xf[NX] = {}, xg[NX] = {}, z[NX] = {}, Pm[NX][NX], u_prev[NU] = {};
   float mu = 0.0f, Pr = 0.0f;
@@ -342,18 +402,18 @@ __global__ void __launch_bounds__(BLOCK) racestep_kernel(const __grid_constant__
     load(Pm, ekP, 0);
 
     // 1. measurement
-    measure(P, xg, ekx[4], z);
+    measure(P, xg, ekx[4], gr, z);
     for (int i = 0; i < NX; ++i) z[i] += noise[i];
 
     // 2. EKF at mu-hat
     if (P.use_ekf) {
       for (int i = 0; i < NX; ++i) xf[i] = ekx[i];
-      ekf(P, pv_hat, u_prev, z, xf, Pm);
+      ekf(P, pv_hat, u_prev, z, gr, xf, Pm);
     } else {
       for (int i = 0; i < NX; ++i) xf[i] = z[i];
     }
 
-    // 3. friction RLS: the next step's mu-hat
+    // 3. friction RLS: the next step's mu-hat (every thread of the group)
     if (P.adapt_mu) {
       float xp[NX];
       const Lane xpl = lane_of(P.xprev, b, S);
@@ -364,27 +424,30 @@ __global__ void __launch_bounds__(BLOCK) racestep_kernel(const __grid_constant__
     // 4. references
     if (P.use_table) {
       xref = Lane{ws.p + (size_t)W.total * S, S};
-      table_refs(P, b, xf[4], xref);
+      table_refs(P, b, xf[4], gr, xref);
     } else {
       xref = lane_of(P.xref, b, S);
     }
 
-    const Lane ekx_out = lane_of(P.ekx_out, b, S), xf_out = lane_of(P.xf_out, b, S);
-    const Lane z_out = lane_of(P.z_out, b, S), fr_out = lane_of(P.fr_out, b, S);
-    for (int i = 0; i < NX; ++i) {
-      ekx_out[i] = xf[i];
-      xf_out[i] = xf[i];
-      z_out[i] = z[i];
+    if (gr.g == 0) {
+      const Lane ekx_out = lane_of(P.ekx_out, b, S), xf_out = lane_of(P.xf_out, b, S);
+      const Lane z_out = lane_of(P.z_out, b, S), fr_out = lane_of(P.fr_out, b, S);
+      for (int i = 0; i < NX; ++i) {
+        ekx_out[i] = xf[i];
+        xf_out[i] = xf[i];
+        z_out[i] = z[i];
+      }
+      store(Pm, lane_of(P.ekP_out, b, S), 0);
+      fr_out[0] = mu;
+      fr_out[1] = Pr;
     }
-    store(Pm, lane_of(P.ekP_out, b, S), 0);
-    fr_out[0] = mu;
-    fr_out[1] = Pr;
+    gr.sync();
   }
 
   // 5. tracker at mu-hat
   float u0[NU];
-  mpc_core(P.C, b, active, xf, pv_hat, xref, ws, u0);
-  if (!active) return;
+  mpc_core_g(P.C, P.Sl, b, active, xf, pv_hat, xref, ws, op, gr, u0);
+  if (!active || gr.g != 0) return;
   const Lane st = lane_of(P.C.stats, b, S);
   st[5] = mu;
   st[6] = 0.0f;
@@ -407,9 +470,11 @@ __global__ void __launch_bounds__(BLOCK) racestep_kernel(const __grid_constant__
 }  // namespace arl
 
 // C entry: device pointers, float and int parameters in the order of
-// ops/racestep_kernel.py::_racestep_cuda. Returns -1 on an operand-count
-// mismatch, -2 on a workspace-size mismatch, -3 on a bad size, else
-// cudaGetLastError().
+// ops/racestep_kernel.py::_racestep_cuda (the last two ints: operands in
+// shared memory, its bytes per block). Returns -1 on an operand-count
+// mismatch, -2 on a workspace- or shared-memory-size mismatch, -3 on a bad
+// size, -4 if the card cannot hold one cluster of the shape, else the CUDA
+// error of the launch.
 extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
                             int n_i, int device, void* stream) {
   using namespace arl;
@@ -425,19 +490,23 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
   int p = 0;
   for (auto q : in) *q = static_cast<const float*>(ptrs[p++]);
   for (auto q : out) *q = static_cast<float*>(ptrs[p++]);
+  int ops_smem = 0, smem = 0;
   int* ints[] = {&C.B, &C.N, &C.n_cells, &P.n_sub, &C.max_iter, &C.check, &C.early_exit,
                  &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows, &P.n_sub_ekf,
-                 &P.use_ekf, &P.adapt_mu, &P.use_table, &P.n_ref, &P.win_cells};
+                 &P.use_ekf, &P.adapt_mu, &P.use_table, &P.n_ref, &P.win_cells,
+                 &ops_smem, &smem};
   for (int i = 0; i < RACE_INTS; ++i) *ints[i] = iv[i];
   read_core_floats(C, fv);
+  if (!make_sel(C, P.Sl)) return -1;
   float* extra[] = {&P.gate_sigma, &P.forgetting, &P.min_sensitivity, &P.fd_eps, &P.inv_fd_eps};
   for (int i = 0; i < 5; ++i) *extra[i] = fv[core_floats<Dynamic>() + i];
   if (P.ws_rows != WsLayout<Dynamic>(C.N).total + (C.N + 1) * NX) return -2;
+  if (smem != (ops_smem ? BLOCK_LANES * OpsLayout<Dynamic>(C.N).total * 4 : 0)) return -2;
   if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1 || P.n_sub < 1 || P.n_sub_ekf < 1 ||
       C.n_cells < 1 || (P.use_table && P.n_ref < 1))
     return -3;
   cudaSetDevice(device);
-  const int grid = (C.B + BLOCK - 1) / BLOCK;
-  racestep_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(P);
-  return static_cast<int>(cudaGetLastError());
+  const int grid = (C.B + BLOCK - 1) / BLOCK * CLUSTER;
+  return ops_smem ? launch_clustered(racestep_kernel<true>, P, grid, smem, stream)
+                  : launch_clustered(racestep_kernel<false>, P, grid, smem, stream);
 }

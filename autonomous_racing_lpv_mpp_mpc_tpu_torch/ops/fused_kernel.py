@@ -20,6 +20,10 @@ the first boundary of a chunk of ``check_termination`` iterations where
 every lane of the group has a done-at; the remainder tail runs only if
 some lane has not. Both the dynamic (nx=6) and the kinematic (nx=4) model.
 
+On the card a lane is a group of ``THREADS_PER_LANE`` threads and the
+128-lane group a cluster of thread blocks; :func:`launch_shape` gives the
+shape and where the stage operands live (the racestep uses it too).
+
 This module also holds what the three tracker kernels share in plain
 PyTorch: the constant operands (``_make_consts``), the batch-last
 small-matrix helpers, the Riccati factor and the ADMM loop that
@@ -49,7 +53,11 @@ from .stage_math import (
     unpack_params,
 )
 
-GROUP = 128   # lanes that exit the ADMM loop together (the CUDA block)
+GROUP = 128   # lanes that exit the ADMM loop together (one CUDA thread block cluster)
+THREADS_PER_LANE = 8          # csrc/arl_sync.cuh LANE_THREADS
+LANES_PER_BLOCK = 16          # csrc/arl_sync.cuh BLOCK_LANES
+BLOCK_SMEM = 232_448          # bytes of shared memory one block may use on the H100
+STATIC_SMEM = 1_024           # room left for the kernels' static shared memory
 MODELS = {"dynamic": 0, "kinematic": 1}
 TIRES = {"linear": 0, "pacejka": 1}
 
@@ -122,6 +130,42 @@ def core_workspace(N: int, model: str = "dynamic") -> int:
     return ((N + 1) * nx + N * NU + (N + 1) + 2 * (N + 1) * NC + N * nx * nx
             + N * nx * NU + (N + 1) * nx + N * NU * na + N * NU * NU + N * NU * na
             + N * NU + (N + 1) * na + N * NU)
+
+
+class LaunchShape(NamedTuple):
+    """Launch shape of the group-cooperative kernels (fused, racestep):
+    THREADS_PER_LANE adjacent threads own a lane, a block holds
+    LANES_PER_BLOCK lanes, a cluster of ``cluster`` blocks the GROUP lanes
+    of one early-exit vote (fixed in ``csrc/arl_sync.cuh``); the
+    per-iteration ADMM operands live in ``smem_bytes`` of dynamic shared
+    memory per block, or in the device-memory workspace when
+    ``ops_in_smem`` is False."""
+
+    cluster: int
+    smem_bytes: int
+    ops_in_smem: bool
+
+    def ints(self) -> list:
+        """The shape's ints of the kernels' C entries."""
+        return [int(self.ops_in_smem), self.smem_bytes]
+
+
+def ops_floats(N: int, model: str = "dynamic") -> int:
+    """Per-lane float32 ADMM operands of ``group_core.cuh``'s ``OpsLayout``:
+    Ad, Bd, the first nx columns of Hux, Hiv and d of every stage, the
+    backward sweep's linear terms (N+1, na) and (N, NU), the iterate X
+    (N+1, na) and U (N, NU)."""
+    nx, na = model_dims(model)
+    return N * (nx * nx + 2 * nx * NU + NU * NU + 3 * NU) + 2 * (N + 1) * na
+
+
+def launch_shape(N: int, model: str = "dynamic") -> LaunchShape:
+    """The launch shape for horizon N: the ADMM operands in shared memory
+    where a block's lanes fit in what a block may hold, else in device
+    memory (chosen from N and the model alone)."""
+    smem = LANES_PER_BLOCK * ops_floats(N, model) * 4
+    fits = smem <= BLOCK_SMEM - STATIC_SMEM
+    return LaunchShape(GROUP // LANES_PER_BLOCK, smem if fits else 0, fits)
 
 
 # ---- batch-last small-matrix helpers (matrix dims lead, batch last) ----
@@ -367,9 +411,9 @@ def _fused_cuda(cfg, scfg, p_b, X_sched, U_sched, kappas, x_ref_b, lb, ub, x0a, 
             "kappas": (kappas, (B, N)), "x_ref_b": (x_ref_b, (B, N + 1, nx)),
             "lb": (lb, (B, N + 1, NC)), "ub": (ub, (B, N + 1, NC)), "x0a": (x0a, (B, na)),
             "s0": (s0, (B, N + 1, NC)), "lam0": (lam0, (B, N + 1, NC))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_mpc_solve: {name} has shape {tuple(t.shape)}, expected {shape}")
+    for name, (t, dims) in want.items():
+        if tuple(t.shape) != dims:
+            raise ValueError(f"fused_mpc_solve: {name} has shape {tuple(t.shape)}, expected {dims}")
     kw = dict(dtype=torch.float32, device=dev)
     bl = lambda t: t.to(torch.float32).movedim(0, -1).contiguous()
     rho = torch.as_tensor(rho0, **kw).expand(B).contiguous()
@@ -385,7 +429,8 @@ def _fused_cuda(cfg, scfg, p_b, X_sched, U_sched, kappas, x_ref_b, lb, ub, x0a, 
     _cuda.launch(
         "arl_fused_solve", ins + [X, U, s, lam, stats, ws], core_floats(cfg, scfg),
         [B, N, scfg.max_iter, max(1, scfg.check_termination), int(scfg.early_exit),
-         TIRES[cfg.tire], ws_rows, MODELS[cfg.model]],
+         TIRES[cfg.tire], ws_rows, *launch_shape(N, cfg.model).ints(),
+         MODELS[cfg.model]],
     )
     fused_mpc_solve.launches += 1
     return _solution(scfg, rho, X, U, s, lam, stats)

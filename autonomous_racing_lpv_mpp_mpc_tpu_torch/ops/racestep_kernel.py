@@ -49,7 +49,7 @@ from ..core.config import MPCConfig, SolverConfig, VehicleParams
 from ..planner.reftable import RefTable
 from ..track.track import Track, frenet_to_global
 from . import _cuda
-from .fused_kernel import TIRES, core_floats, core_workspace
+from .fused_kernel import TIRES, core_floats, core_workspace, launch_shape
 from .megastep_kernel import (
     _check_supported,
     _kap_lookup,
@@ -416,7 +416,8 @@ def _racestep_cuda(cfg, scfg, track, prm, x_ref, carry, noise, mu_true, ekf_q, e
         [B, N, track.n_cells, n_sub, scfg.max_iter, max(1, scfg.check_termination),
          int(scfg.early_exit), TIRES[cfg.tire], TIRES[sim_tire], int(cfg.kappa_speed_cap),
          racestep_workspace(N), n_sub_ekf, int(use_ekf), int(adapt_mu), int(use_table),
-         rvx.shape[0] if use_table else 0, _win_cells(track, window_m)],
+         rvx.shape[0] if use_table else 0, _win_cells(track, window_m),
+         *launch_shape(N).ints()],
     )
     racestep.launches += 1
     return new._replace(rho=stats[3]), new.u_prev, stats[:6], z

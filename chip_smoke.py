@@ -40,13 +40,26 @@ each for the dynamic and the kinematic model), each with its launches on
 its main path and its bound on the H100: the larger of the operations the
 algorithm needs over 67 TFLOP/s f32 and its bytes over 3.35 TB/s, counted
 at this run's shapes and executed iterations (see the counters below).
+Every record's ``ms`` is CUDA-event time around the wrapper: the main
+path's ms per step for the step kernels (megastep, racestep), one isolated
+call for the solves (admm, fused). ``device_ms`` is the kernel's own
+duration on one isolated call (the first step for the step kernels), from
+torch.profiler.
 
 Every phase either passes or ends the run with a non-zero exit. The last
 two lines of standard output are a JSON line with one record per kernel and
 the JSON result line. ``--quick`` stops after the kernel comparisons (a
 first check of freshly edited kernels) and prints no result.
+
+``--ab`` measures an older checkout of the port the same way: copy this
+script to that checkout's root and run it there with ``--ab``. It skips
+the ``[shape]`` lines (the group kernels' launch shape, which older
+checkouts lack) and runs every other phase. A one-call A/B of a change
+runs the parent's copy and the change's script in turn (parent, change,
+change, parent) and compares their lines.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -410,8 +423,62 @@ def cuda_time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def kernel_ms(fn, n, kernel, sessions=3):
+    """Mean device time of one launch of the CUDA kernel whose name holds
+    `kernel` over n calls of fn (torch.profiler: the kernel's own duration,
+    without the wrapper's host work around it).
+
+    The profiler has been seen to report fewer kernel records than launches
+    that ran (1 of 10 on one H100 run; not reproduced in 160 sessions since).
+    Each session is therefore padded with 0.1 s of idle host time on both
+    sides of the calls, a session that reports fewer than n records is
+    repeated, up to `sessions` in all, and the mean is taken over the
+    records of the session that reported the most. A shortfall is logged;
+    more records than calls (the name matches another kernel) or none at all
+    fail."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = []
+    for s in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.1)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.1)
+        dts = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA and kernel in e.name]
+        check(len(dts) <= n, f"the profiler saw {len(dts)} launches of {kernel} in {n} calls")
+        if len(dts) > len(best):
+            best = dts
+        if len(dts) == n:
+            break
+        log(f"[profiler] session {s + 1} of {sessions} reported {len(dts)} of {n} launches of {kernel}")
+    check(best, f"the profiler reported no launch of {kernel} in {sessions} sessions of {n} calls")
+    return sum(best) / len(best) / 1e3
+
+
+def ptxas_usage(build_log, *parts):
+    """(registers, spill store bytes) that ptxas reported for the kernel
+    entry whose mangled name holds every one of `parts`."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and all(q in line for q in parts):
+            regs = spills = None
+            for nxt in lines[i + 1:i + 5]:
+                if "spill stores" in nxt:
+                    spills = int(nxt.split("bytes spill stores")[0].split(",")[-1])
+                if "Used" in nxt and "registers" in nxt:
+                    regs = int(nxt.split("Used")[1].split("registers")[0])
+            return regs, spills
+    fail(f"no ptxas entry for {parts}")
+
+
 def main():
     quick = "--quick" in sys.argv[1:]
+    ab = "--ab" in sys.argv[1:]
     try:
         import torch
     except ImportError:
@@ -464,9 +531,25 @@ def main():
     lib_path = _cuda.build()
     _cuda.library()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
+    build_log = lib_path.with_suffix(".log").read_text()
+    for line in build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    # the launch shape of the group-cooperative kernels at the main paths' N
+    if not ab:
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import (
+            LANES_PER_BLOCK, THREADS_PER_LANE, launch_shape,
+        )
+        for name, model, n_h, entry in (("fused_kernel", "dynamic", N_MAIN, ("fused_kernel", "Dynamic")),
+                                        ("fused_kernel_kinematic", "kinematic", 10, ("fused_kernel", "Kinematic")),
+                                        ("racestep_kernel", "dynamic", N_MAIN, ("racestep_kernel",))):
+            sh = launch_shape(n_h, model)
+            regs, spills = ptxas_usage(build_log, *entry, f"Lb{int(sh.ops_in_smem)}E")
+            log(f"[shape] {name} N={n_h}: {THREADS_PER_LANE} threads per lane, {LANES_PER_BLOCK} lanes "
+                f"per block ({THREADS_PER_LANE * LANES_PER_BLOCK} threads), clusters of {sh.cluster} "
+                f"blocks, {-(-B_MAIN // 128) * sh.cluster} blocks at B={B_MAIN}, "
+                f"{sh.smem_bytes} B dynamic shared memory per block (operands in "
+                f"{'shared' if sh.ops_in_smem else 'device'} memory), {regs} registers, {spills} B spill stores")
 
     # ---- shared setup: the bench protocol's scenarios ----
     p = VehicleParams()
@@ -497,8 +580,10 @@ def main():
     check(da_max <= 1, "admm kernel: done-at differs by more than 1")
     check(admm_kernel_solve.launches > 0, "admm kernel was not launched")
     admm_ms = cuda_time_ms(lambda: admm_kernel_solve(qp, scfg1, warm, carry.rho), 10)
+    admm_dev_ms = kernel_ms(lambda: admm_kernel_solve(qp, scfg1, warm, carry.rho), 10, "admm_kernel")
     admm_plain_ms = cuda_time_ms(lambda: admm_solve_plain(qp, scfg1, warm, carry.rho), 3)
-    log(f"[admm] {admm_ms:.3f} ms/solve kernel, {admm_plain_ms:.3f} ms/solve plain ({card})")
+    log(f"[admm] {admm_ms:.3f} ms/solve kernel (wrapper), {admm_dev_ms:.4f} ms kernel (device), "
+        f"{admm_plain_ms:.3f} ms/solve plain ({card})")
 
     # ---- 4. kernel 2 (megastep) vs its plain version, 5 closed-loop steps ----
     mega_err = {}
@@ -524,8 +609,10 @@ def main():
     c0 = megastep_init(scen.params, cfg, track, scen.x0)
     megastep(cfg, scfg, track, prm, x_ref, c0, n_sub=4)            # warm-up
     mega_ms_iso = cuda_time_ms(lambda: megastep(cfg, scfg, track, prm, x_ref, c0, n_sub=4), 10)
+    mega_dev_ms = kernel_ms(lambda: megastep(cfg, scfg, track, prm, x_ref, c0, n_sub=4), 10, "megastep_kernel")
     mega_plain_ms = cuda_time_ms(lambda: megastep_plain(cfg, scfg, track, prm, x_ref, c0, n_sub=4), 3)
-    log(f"[mega] first step: {mega_ms_iso:.3f} ms kernel, {mega_plain_ms:.3f} ms plain ({card})")
+    log(f"[mega] first step: {mega_ms_iso:.3f} ms kernel, {mega_dev_ms:.4f} ms kernel (device), "
+        f"{mega_plain_ms:.3f} ms plain ({card})")
 
     # ---- 5. kernel 3 (racestep) vs its plain version: the composed protocol ----
     rcfg = MPCConfig(N=N_MAIN, model="dynamic", tire="pacejka")
@@ -588,8 +675,10 @@ def main():
     race_args = (rcfg, scfg, track, rprm, table, c0r, noises[0], mu_b, ekq, ekr)
     racestep(*race_args)                                              # warm-up
     race_ms_iso = cuda_time_ms(lambda: racestep(*race_args), 10)
+    race_dev_ms = kernel_ms(lambda: racestep(*race_args), 10, "racestep_kernel")
     race_plain_ms = cuda_time_ms(lambda: racestep_plain(*race_args), 3)
-    log(f"[race] first step: {race_ms_iso:.3f} ms kernel, {race_plain_ms:.3f} ms plain ({card})")
+    log(f"[race] first step: {race_ms_iso:.3f} ms kernel (wrapper), {race_dev_ms:.4f} ms kernel (device), "
+        f"{race_plain_ms:.3f} ms plain ({card})")
 
     # ---- 5b. kernel 4 (fused) vs its plain version, on prepared inputs after
     # K_FUSED_WARM steps of the fused path: the bench's dynamic racetrack N=20
@@ -601,7 +690,7 @@ def main():
     check(oval.kappa.is_cuda, f"oval_track() made tensors on {oval.kappa.device}, not the card")
     fused_fixed = SolverConfig(max_iter=20, rho_interval=0, backend="fused", early_exit=False,
                                check_termination=2, certify_infeasibility=False)
-    fused_err, fused_iso = {}, {}
+    fused_err, fused_iso, fused_args = {}, {}, {}
     for name, fcfg, ftrack, vref in (("dynamic", cfg, track, 1.8), ("kinematic", kcfg, oval, 1.5)):
         fscen = make_scenario_grid(p, fcfg, n_ey=64, n_mu=B_MAIN // 64, vx0=1.5)
         fref = constant_refs(fcfg, vref)
@@ -630,10 +719,14 @@ def main():
                 check(dda <= 1, f"fused {name}: done-at differs by {dda}")
             check(e_all <= 5e-3, f"fused {name} {mode}: {e_all:.3e} beyond 5e-3 of plain")
             fused_err[(name, mode)] = e_all
+        # (wrapper ms, device ms, plain ms)
         fused_iso[name] = (cuda_time_ms(lambda: fused_mpc_solve(fcfg, fused_fixed, *fargs), 20),
+                           kernel_ms(lambda: fused_mpc_solve(fcfg, fused_fixed, *fargs), 20, "fused_kernel"),
                            cuda_time_ms(lambda: fused_solve_plain(fcfg, fused_fixed, *fargs), 3))
-        log(f"[fused] {name} B={B_MAIN} N={fcfg.N}: {fused_iso[name][0]:.3f} ms/solve kernel, "
-            f"{fused_iso[name][1]:.3f} ms/solve plain ({card})")
+        log(f"[fused] {name} B={B_MAIN} N={fcfg.N}: {fused_iso[name][0]:.3f} ms/solve kernel (wrapper), "
+            f"{fused_iso[name][1]:.4f} ms/solve kernel (device), {fused_iso[name][2]:.3f} ms/solve plain "
+            f"({card})")
+        fused_args[name] = (fcfg, fused_fixed, *fargs)
     check(fused_mpc_solve.launches > 0, "the fused kernel was not launched")
 
     # ---- 5c. the kinematic megastep vs its plain version, 5 closed-loop steps ----
@@ -657,8 +750,26 @@ def main():
         check(du <= tol_u and dx <= tol_x, f"kinematic megastep {name}: beyond ({tol_u}, {tol_x}) of plain")
         mega_err[f"kinematic {name}"] = max(du, dx)
     kc0 = megastep_init(kscen.params, kcfg, oval, kscen.x0)
+    megastep(kcfg, scfg, oval, kprm, kref, kc0, n_sub=4)            # warm-up
+    kin_dev_ms = kernel_ms(lambda: megastep(kcfg, scfg, oval, kprm, kref, kc0, n_sub=4), 10, "megastep_kernel")
     kin_plain_ms = cuda_time_ms(lambda: megastep_plain(kcfg, scfg, oval, kprm, kref, kc0, n_sub=4), 3)
-    log(f"[mega-kin] first step: {kin_plain_ms:.3f} ms plain ({card})")
+    log(f"[mega-kin] first step: {kin_dev_ms:.4f} ms kernel (device), {kin_plain_ms:.3f} ms plain ({card})")
+    # ---- 5d. the chosen shape on the first nb lanes: a launch holding more
+    # clusters than the card runs at once takes a second wave ----
+    def first_lanes(args, nb):
+        cut = lambda v: v[:nb] if torch.is_tensor(v) and v.dim() >= 1 else v
+        pb = args[2]
+        pcut = type(pb)(**{f.name: cut(getattr(pb, f.name)) for f in dataclasses.fields(pb)})
+        return (*args[:2], pcut, *(cut(t) for t in args[3:]))
+
+    for name, args in fused_args.items():
+        wave_ms = {}
+        for nb in (2048, 3840, B_MAIN):
+            cut_args = first_lanes(args, nb)
+            wave_ms[nb] = kernel_ms(lambda: fused_mpc_solve(*cut_args), 5, "fused_kernel")
+        log(f"[waves] fused {name}, device ms on the first B lanes: " + ", ".join(
+            f"B={nb} ({-(-nb // 128)} clusters) {ms:.4f}" for nb, ms in wave_ms.items()) + f" ({card})")
+
     if quick:
         log("[quick] kernel checks passed; stopping before the main path")
         return
@@ -887,29 +998,30 @@ def main():
 
     src = f"{PKG}/ops/csrc"
     ref_pkg = "autonomous_racing_lpv_mpp_mpc_tpu/ops"
-    core = f"{src}/mpc_core.cuh"
+    core, gcore = f"{src}/mpc_core.cuh", f"{src}/group_core.cuh"
     # (name, source, TPU kernel, launches on its main path, max |kernel - plain|,
-    # ms on the card, plain ms); one record per instantiation
+    # ms on the card (CUDA events), device ms (profiler), plain ms); one record
+    # per instantiation
     records = [
         ("admm_kernel", f"{src}/admm_kernel.cu", "admm_kernel.py:342", launches["admm"], max(dU, dX),
-         admm_ms, admm_plain_ms),
+         admm_ms, admm_dev_ms, admm_plain_ms),
         ("megastep_kernel", f"{src}/megastep_kernel.cu + {core}", "megastep_kernel.py:1081",
-         launches["megastep"], mega_err["fixed"], mega_ms, mega_plain_ms),
+         launches["megastep"], mega_err["fixed"], mega_ms, mega_dev_ms, mega_plain_ms),
         ("megastep_kernel_kinematic", f"{src}/megastep_kernel.cu + {core}", "megastep_kernel.py:1081",
-         kin_launches["megastep"], mega_err["kinematic fixed"], kin_ms, kin_plain_ms),
-        ("racestep_kernel", f"{src}/racestep_kernel.cu + {core}", "racestep_kernel.py:831",
-         race_launches["racestep"], race_err["fixed"], race_ms, race_plain_step_ms),
-        ("fused_kernel", f"{src}/fused_kernel.cu + {core}", "fused_kernel.py:429",
+         kin_launches["megastep"], mega_err["kinematic fixed"], kin_ms, kin_dev_ms, kin_plain_ms),
+        ("racestep_kernel", f"{src}/racestep_kernel.cu + {gcore}", "racestep_kernel.py:831",
+         race_launches["racestep"], race_err["fixed"], race_ms, race_dev_ms, race_plain_step_ms),
+        ("fused_kernel", f"{src}/fused_kernel.cu + {gcore}", "fused_kernel.py:429",
          fused_bench["launches"]["fused"], fused_err["dynamic", "fixed"], *fused_iso["dynamic"]),
-        ("fused_kernel_kinematic", f"{src}/fused_kernel.cu + {core}", "fused_kernel.py:429",
+        ("fused_kernel_kinematic", f"{src}/fused_kernel.cu + {gcore}", "fused_kernel.py:429",
          fused_cfg1["launches"]["fused"], fused_err["kinematic", "fixed"], *fused_iso["kinematic"]),
     ]
     # no single PyTorch call computes a batched Riccati / ADMM solve: library_ms is null
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": f"{ref_pkg}/{tpu}", "launches": n,
-         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
-        for name, source, tpu, n, err, ms, plain in records]}), flush=True)
+         "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
+        for name, source, tpu, n, err, ms, dev_ms, plain in records]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -271,3 +271,35 @@ def test_fused_backend_converts_and_rejects_unported_options():
                                     x_ref, carry)
     assert isinstance(new, MPCCarry) and u.shape == (B, 2) and bool(torch.isfinite(u).all())
     assert diag.iters.dtype == torch.int32
+
+
+@pytest.mark.parametrize("model", ["dynamic", "kinematic"])
+def test_launch_shape_fits_a_block(model):
+    """The group kernels' launch shape (fused, racestep): the ADMM operands
+    of a block's lanes stay in shared memory within what one H100 block may
+    hold for every horizon the main paths and the tests use (N up to 40),
+    in the count of group_core.cuh's OpsLayout; a long horizon (N=60, or 80
+    for the smaller kinematic stage) takes the device-memory layout. A vote
+    group of 128 lanes is one cluster."""
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import fused_kernel as fk
+
+    src = (_cuda.CSRC / "group_core.cuh").read_text()
+    assert src.split("struct OpsLayout")[1].split("total = o;")[0].count("o +=") == 9
+    # per stage: Ad, Bd, Hux (nx columns), Hiv, d, qt, rt, X, U; qt and X have one more row
+    per_stage, extra = {"dynamic": (36 + 12 + 12 + 4 + 2 + 8 + 2 + 8 + 2, 16),
+                        "kinematic": (16 + 8 + 8 + 4 + 2 + 6 + 2 + 6 + 2, 12)}[model]
+    # the shape the kernels are built for (csrc/arl_sync.cuh)
+    sync = (_cuda.CSRC / "arl_sync.cuh").read_text()
+    assert f"LANE_THREADS = {fk.THREADS_PER_LANE};" in sync
+    assert f"BLOCK_LANES = {fk.LANES_PER_BLOCK};" in sync
+    assert fk.THREADS_PER_LANE * fk.LANES_PER_BLOCK <= 128
+    for n in range(1, 41):
+        sh = fk.launch_shape(n, model)
+        assert fk.ops_floats(n, model) == per_stage * n + extra
+        assert sh.ops_in_smem and sh.smem_bytes == fk.LANES_PER_BLOCK * 4 * fk.ops_floats(n, model)
+        assert 0 < sh.smem_bytes <= 232_448 - fk.STATIC_SMEM
+        assert sh.cluster * fk.LANES_PER_BLOCK == fk.GROUP and sh.cluster <= 8
+        assert sh.ints() == [1, sh.smem_bytes]
+    long = fk.launch_shape({"dynamic": 60, "kinematic": 80}[model], model)
+    assert not long.ops_in_smem and long.smem_bytes == 0 and long.ints() == [0, 0]
