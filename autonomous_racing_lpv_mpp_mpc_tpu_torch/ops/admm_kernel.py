@@ -9,22 +9,72 @@ out. :func:`admm_solve_plain` is that plain version; the wrapper
 :func:`admm_kernel_solve` takes it for CPU tensors and launches the kernel
 for CUDA tensors.
 
-The kernel takes the 8-state augmented tracker QP (na=8, nu=2, nc=6),
-batch-last; the wrapper moves the batch axis and back.
+The kernel takes the augmented tracker QPs of both models (na = 8
+dynamic, 6 kinematic; nu = 2, nc = 6), batch-last; the wrapper moves the
+batch axis and back. On the card a QP is a group of ``THREADS_PER_LANE``
+threads; :func:`admm_launch_shape` gives the QPs per block and where the
+per-iteration operands live.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from ..core.config import SolverConfig
 from ..solver.admm import ADMMSolution, ADMMState, BoxQP, _folded_cost, _new_rho, admm_solve
 from . import _cuda
+from .fused_kernel import BLOCK_SMEM, LANES_PER_BLOCK, STATIC_SMEM
 
-KERNEL_DIMS = (8, 2, 6)   # (na, nu, nc) the CUDA kernel is compiled for
-WS_PER_STAGE = 16 + 4 + 16 + 8 + 2   # K, Huu_inv, Hux, Vc, d floats per lane
+KERNEL_NA = (8, 6)   # state widths the CUDA kernel is instantiated for
+KERNEL_NU, KERNEL_NC = 2, 6
+
+
+def check_widths(na: int, nu: int, nc: int) -> None:
+    """Raise unless the kernel takes QPs of these widths: (na, nu, nc) =
+    (8, 2, 6), the dynamic tracker QP, or (6, 2, 6), the kinematic one."""
+    if na not in KERNEL_NA or (nu, nc) != (KERNEL_NU, KERNEL_NC):
+        raise ValueError(f"admm_kernel_solve: the kernel takes (na, nu, nc) in "
+                         f"{[(n, KERNEL_NU, KERNEL_NC) for n in KERNEL_NA]}, got {(na, nu, nc)}")
+
+
+def admm_ops_floats(N: int, na: int) -> int:
+    """Per-QP float32 operands of ``csrc/admm_kernel.cu``'s ``AdmmLayout``:
+    A, B, c, r, Hux, Hiv, Vc, d, rt, U of every stage and q, qt, X of every
+    stage and the terminal one."""
+    nu = KERNEL_NU
+    return N * (na * na + 2 * na * nu + 2 * na + nu * nu + 4 * nu) + 3 * (N + 1) * na
+
+
+class AdmmShape(NamedTuple):
+    """Launch shape of the solver-only kernel: ``lanes`` QPs per block of
+    ``lanes * THREADS_PER_LANE`` threads, no cluster; the per-iteration
+    operands in ``smem_bytes`` of dynamic shared memory per block, or in the
+    device-memory workspace when ``ops_in_smem`` is False."""
+
+    lanes: int
+    smem_bytes: int
+    ops_in_smem: bool
+
+    def ints(self) -> list:
+        """The shape's ints of the kernel's C entry."""
+        return [self.lanes, int(self.ops_in_smem), self.smem_bytes]
+
+
+def admm_launch_shape(N: int, na: int) -> AdmmShape:
+    """The most QPs per block, up to ``LANES_PER_BLOCK``, whose operand
+    slices fit in the shared memory a block may hold; if not even one fits,
+    ``LANES_PER_BLOCK`` QPs per block with the operands in device memory
+    (chosen from N and na alone)."""
+    per_qp = admm_ops_floats(N, na) * 4
+    lanes = LANES_PER_BLOCK
+    while lanes >= 1:
+        if lanes * per_qp <= BLOCK_SMEM - STATIC_SMEM:
+            return AdmmShape(lanes, lanes * per_qp, True)
+        lanes //= 2
+    return AdmmShape(LANES_PER_BLOCK, 0, False)
 
 
 def _warm_start(qp: BoxQP, cfg: SolverConfig, warm, rho0):
@@ -67,10 +117,10 @@ def _admm_cuda(qp: BoxQP, cfg: SolverConfig, warm, rho0) -> ADMMSolution:
     """Launch the kernel on the QPs' device (batch-last operands)."""
     if qp.x0.dim() != 2:
         raise ValueError("admm_kernel_solve: qp must have exactly one leading batch dim")
+    if qp.Dx.dim() != 2 or qp.Du.dim() != 2 or qp.soft.dim() != 1:
+        raise ValueError("admm_kernel_solve: Dx, Du and soft must be shared by the batch")
     na, nu, nc = qp.Dx.shape[1], qp.Du.shape[1], qp.Dx.shape[0]
-    if (na, nu, nc) != KERNEL_DIMS:
-        raise ValueError(f"admm_kernel_solve: kernel built for (na, nu, nc)={KERNEL_DIMS}, "
-                         f"got {(na, nu, nc)}")
+    check_widths(na, nu, nc)
     if cfg.max_iter < 1:
         raise ValueError("admm_kernel_solve: max_iter must be >= 1")
     dev = qp.x0.device
@@ -81,18 +131,21 @@ def _admm_cuda(qp: BoxQP, cfg: SolverConfig, warm, rho0) -> ADMMSolution:
     ins = [bl(t) for t in (qp.dyn.A, qp.dyn.B, qp.dyn.c, cost_f.Q, qp.cost.q, cost_f.R,
                            qp.cost.r, cost_f.M, qp.lb, qp.ub, qp.x0, s0, lam0)]
     ins.append(rho.reshape(1, B).contiguous())
+    # the selector rows stay on the device: the kernel reads them itself
+    ins += [t.to(torch.float32).contiguous() for t in (qp.Dx, qp.Du, qp.soft)]
     kw = dict(dtype=torch.float32, device=dev)
     X = torch.empty((N + 1, na, B), **kw)
     U = torch.empty((N, nu, B), **kw)
     s = torch.empty((N + 1, nc, B), **kw)
     lam = torch.empty((N + 1, nc, B), **kw)
     stats = torch.empty((8, B), **kw)
-    ws = torch.empty((N * WS_PER_STAGE, B), **kw)
-    consts = torch.cat([qp.Dx.reshape(-1), qp.Du.reshape(-1), qp.soft.reshape(-1)]).tolist()
+    shape = admm_launch_shape(N, na)
+    ws_rows = 0 if shape.ops_in_smem else admm_ops_floats(N, na)
+    ws = torch.empty((max(ws_rows, 1), B), **kw)
     _cuda.launch(
         "arl_admm_solve", ins + [X, U, s, lam, stats, ws],
-        [cfg.sigma, cfg.alpha, cfg.eps_abs, cfg.eps_rel] + consts,
-        [B, N, cfg.max_iter, N * WS_PER_STAGE],
+        [cfg.sigma, cfg.alpha, cfg.eps_abs, cfg.eps_rel],
+        [B, N, cfg.max_iter, ws_rows, *shape.ints(), na],
     )
     admm_kernel_solve.launches += 1
 

@@ -5,15 +5,15 @@
 // (Dynamic, Kinematic) that the tracker core is templated on.
 //
 // Counterparts in the JAX package: the small-matrix helpers of
-// ops/admm_kernel.py (_mm, _mtm, _mv, _mtv, _inv2, _stack_g, _dual_norm),
+// ops/admm_kernel.py (_mm, _inv2),
 // the stage math of ops/stage_math.py (secant_stiffness, _ab_cont_dynamic,
 // _ab_cont_kinematic, _vanloan_aug, f_dynamic_bl, f_kinematic_bl) and the
 // curvature lookup of
 // ops/megastep_kernel.py (_make_kap_at).
 //
-// Layout: one thread owns one scenario (lane). Every per-scenario array is
-// batch-last, element i of lane b at base[i * stride + b], so the 32 lanes
-// of a warp touch 32 consecutive floats on every access.
+// Layout: every per-scenario (lane) array is batch-last, element i of lane
+// b at base[i * stride + b]; a group of threads owns one lane
+// (arl_sync.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,7 +27,7 @@ constexpr int NA = 8;   // dynamic state augmented with u_prev
 constexpr int KIN_NX = 4;   // kinematic-bicycle state (vx, e_psi, s, e_y)
 constexpr int KIN_NA = 6;
 constexpr int NC = 6;   // constraint rows per stage
-constexpr int BLOCK = 128;  // lanes per block = lanes that exit ADMM together
+constexpr int BLOCK = 128;  // lanes that exit ADMM together (one vote group)
 
 constexpr float VX_EPS = 0.05f;
 constexpr float DENOM_EPS = 0.1f;
@@ -70,36 +70,6 @@ __device__ __forceinline__ void loadv(float (&v)[R], const Lane& a, int off) {
   for (int i = 0; i < R; ++i) v[i] = a[off + i];
 }
 
-template <int R>
-__device__ __forceinline__ void storev(const float (&v)[R], const Lane& a, int off) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) a[off + i] = v[i];
-}
-
-// y = A x
-template <int R, int C>
-__device__ __forceinline__ void mv(const float (&A)[R][C], const float (&x)[C], float (&y)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    float acc = A[i][0] * x[0];
-#pragma unroll
-    for (int j = 1; j < C; ++j) acc += A[i][j] * x[j];
-    y[i] = acc;
-  }
-}
-
-// y = A' x for A (R x C)
-template <int R, int C>
-__device__ __forceinline__ void mtv(const float (&A)[R][C], const float (&x)[R], float (&y)[C]) {
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    float acc = A[0][i] * x[0];
-#pragma unroll
-    for (int j = 1; j < R; ++j) acc += A[j][i] * x[j];
-    y[i] = acc;
-  }
-}
-
 // C = A B for A (R x K), B (K x L)
 template <int R, int K, int L>
 __device__ __forceinline__ void mm(const float (&A)[R][K], const float (&B)[K][L], float (&C)[R][L]) {
@@ -110,20 +80,6 @@ __device__ __forceinline__ void mm(const float (&A)[R][K], const float (&B)[K][L
       float acc = A[i][0] * B[0][l];
 #pragma unroll
       for (int j = 1; j < K; ++j) acc += A[i][j] * B[j][l];
-      C[i][l] = acc;
-    }
-}
-
-// C = A' B for A (K x R), B (K x L)
-template <int K, int R, int L>
-__device__ __forceinline__ void mtm(const float (&A)[K][R], const float (&B)[K][L], float (&C)[R][L]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      float acc = A[0][i] * B[0][l];
-#pragma unroll
-      for (int j = 1; j < K; ++j) acc += A[j][i] * B[j][l];
       C[i][l] = acc;
     }
 }
@@ -264,15 +220,15 @@ __device__ __forceinline__ void ab_cont_kinematic(const float (&x)[KIN_NX], cons
 // with 4 squarings, for an nx-state model. The bottom block rows of every
 // iterate are [0 I], so only the top blocks E = [Ad Bd] are carried: the
 // same products as the full (nx+2)^2 form without its exact-zero terms.
-// RECIP scales the Horner terms by the reciprocals 1/k instead of dividing
-// by k (the group core's stage build: a multiply where a division costs a
-// dozen instructions; the results move by an ulp).
-template <int nx, bool RECIP = false>
+// The Horner terms are scaled by the reciprocals 1/k instead of divided by
+// k (a multiply where a division costs a dozen instructions; the results
+// move by an ulp against the plain version).
+template <int nx>
 __device__ __forceinline__ void vanloan(const float (&A)[nx][nx], const float (&B)[nx][NU],
                                         float dt, float (&Ad)[nx][nx], float (&Bd)[nx][NU]) {
   constexpr int ORDER = 6, SQUARINGS = 4;
   const float S = dt / 16.0f;   // dt / 2^SQUARINGS
-  auto over = [](float x, int k) { return RECIP ? x * (1.0f / (float)k) : x / (float)k; };
+  auto over = [](float x, int k) { return x * (1.0f / (float)k); };
   float Ma[nx][nx], Mb[nx][NU], T[nx][nx], Tb[nx][NU];
 #pragma unroll
   for (int i = 0; i < nx; ++i) {
@@ -365,7 +321,7 @@ __device__ __forceinline__ void f_kinematic(const VehParams& pv, const float (&x
   dx[3] = vx * se;
 }
 
-// Model traits of the tracker core (mpc_core.cuh): state width nx, the
+// Model traits of the tracker core (group_core.cuh): state width nx, the
 // augmented width na = nx + NU, the indices of s and e_y in the state, the
 // LPV stage build and the plant ODE. The plain version selects the same by
 // MPCConfig.model (ops/stage_math.py::model_dims, model_s_ey).

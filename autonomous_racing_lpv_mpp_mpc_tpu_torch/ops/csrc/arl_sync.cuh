@@ -1,7 +1,7 @@
-// Cooperation primitives of the group-cooperative kernels (fused_kernel.cu,
-// racestep_kernel.cu): the G threads that own one lane, the lane's slice of
-// dynamic shared memory, the 128-lane early-exit vote held across a thread
-// block cluster, and the clustered launch.
+// Cooperation primitives of the group-cooperative kernels (megastep,
+// racestep, fused and solver-only kernels): the G threads that own one lane,
+// the lane's slice of dynamic shared memory, the 128-lane early-exit vote
+// held across a thread block cluster, and the (clustered) launch.
 //
 // Launch shape: a lane is LANE_THREADS adjacent threads of one warp; a
 // block holds BLOCK_LANES lanes; a cluster of CLUSTER blocks holds the 128
@@ -72,16 +72,18 @@ __device__ __forceinline__ bool vote_all(bool mine) {
   return all != 0;
 }
 
-// Launch `kern` on `grid` blocks of GROUP_THREADS threads in clusters of
-// CLUSTER blocks with `smem` bytes of dynamic shared memory. Returns 0, -4
-// if the card cannot hold one such cluster, or the CUDA error.
+// Launch `kern` on `grid` blocks of `threads` threads in clusters of
+// `cluster` blocks (1: no cluster) with `smem` bytes of dynamic shared
+// memory. Returns 0, -4 if the card cannot hold one such cluster, or the
+// CUDA error.
 //
 // The kernel's dynamic shared-memory limit is raised before any launch that
 // needs more than the limit set on this device so far (never lowered, so
 // any sequence of horizons launches), and a cluster's fit is checked for
 // every amount above the largest that fitted.
 template <class P>
-int launch_clustered(void (*kern)(P), const P& p, int grid, int smem, void* stream) {
+int launch_grouped(void (*kern)(P), const P& p, int grid, int threads, int cluster, int smem,
+                   void* stream) {
   struct Seen {
     void (*kern)(P);
     int device, allowed, fitted;
@@ -110,17 +112,17 @@ int launch_clustered(void (*kern)(P), const P& p, int grid, int smem, void* stre
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(GROUP_THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (smem > s->fitted) {
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  if (cluster > 1 && smem > s->fitted) {
     int fit = 0;
     e = cudaOccupancyMaxActiveClusters(&fit, kern, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -130,6 +132,13 @@ int launch_clustered(void (*kern)(P), const P& p, int grid, int smem, void* stre
   e = cudaLaunchKernelEx(&cfg, kern, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The group core's launch: blocks of GROUP_THREADS threads in clusters of
+// CLUSTER blocks (one 128-lane vote group per cluster).
+template <class P>
+int launch_clustered(void (*kern)(P), const P& p, int grid, int smem, void* stream) {
+  return launch_grouped(kern, p, grid, GROUP_THREADS, CLUSTER, smem, stream);
 }
 
 }  // namespace arl

@@ -1,7 +1,10 @@
-// The tracker core for a group of G threads per lane: the fused kernel and
-// the racestep run it; the megastep still runs the one-thread core of
-// mpc_core.cuh, whose sections, constants and workspace layout this file
-// shares.
+// The tracker core for a group of G threads per lane, the only tracker
+// core of the port: the megastep (both models), the racestep and the fused
+// kernel run it (sections 1-8 of one receding-horizon step: schedule shift,
+// curvature + friction-cap bounds, LPV + Van Loan + linear cost, warm-start
+// shift, Riccati factor, ADMM in chunks of `check` iterations with the
+// 128-lane early-exit vote, residuals / rho, accept or limp-home). Its
+// parameters, constants and workspace layout are in mpc_core.cuh.
 //
 // Work split (thread g of the lane's group, Grp<G> of arl_sync.cuh):
 // - stage builds, bounds, linear cost, warm start: the stages k = g mod G;
@@ -41,11 +44,12 @@ struct Sel {
   float col_coef[NZ][2];
 };
 
-// Sel of P's Dx, Du; false if a row or column has more than two entries.
-template <class M>
-inline bool make_sel(const CoreParams<M>& P, Sel<M>& S) {
-  constexpr int NA = M::NA, NZ = Sel<M>::NZ;
-  auto D = [&](int c, int j) { return j < NA ? P.Dx[c][j] : P.Du[c][j - NA]; };
+// Sel of the selector rows D(c, j) = [Dx Du]; false if a row or column has
+// more than two entries.
+#pragma nv_exec_check_disable
+template <class M, class F>
+__host__ __device__ inline bool sel_from(F D, Sel<M>& S) {
+  constexpr int NZ = Sel<M>::NZ;
   for (int c = 0; c < NC; ++c) {
     int n = 0;
     for (int t = 0; t < 2; ++t) S.row_idx[c][t] = 0, S.row_coef[c][t] = 0.0f;
@@ -67,6 +71,12 @@ inline bool make_sel(const CoreParams<M>& P, Sel<M>& S) {
       }
   }
   return true;
+}
+
+// Sel of P's Dx, Du (on the host).
+template <class M>
+inline bool make_sel(const CoreParams<M>& P, Sel<M>& S) {
+  return sel_from<M>([&](int c, int j) { return j < M::NA ? P.Dx[c][j] : P.Du[c][j - M::NA]; }, S);
 }
 
 // One lane's slice of the ADMM operands in shared memory (floats): Ad, Bd,
@@ -162,7 +172,7 @@ __device__ __forceinline__ void build_stage(const O& op, int k, const float (&xk
   constexpr int NX = M::NX;
   float Ac[NX][NX], Bc[NX][NU], Ad[NX][NX], Bd[NX][NU];
   M::ab_cont(xk, uk, kap, pv, tire, Ac, Bc);
-  vanloan<NX, true>(Ac, Bc, dt, Ad, Bd);
+  vanloan<NX>(Ac, Bc, dt, Ad, Bd);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
 #pragma unroll
@@ -172,8 +182,8 @@ __device__ __forceinline__ void build_stage(const O& op, int k, const float (&xk
   }
 }
 
-// Backward Riccati factorization of the rho-folded cost (mpc_core.cuh::
-// factor, split by rows): writes Hux and Hiv of every stage (the forward
+// Section 5, the backward Riccati factorization of the rho-folded cost,
+// split by rows: writes Hux and Hiv of every stage (the forward
 // rollout forms u = -Hiv (Hux x) + d, the gain K = -Hiv Hux applied). Thread g owns
 // rows r = g + G j of V; since V is symmetric, Ba'V = VB' and Ba'V Aa = VB'Aa,
 // so Huu, Hux and the symmetric Aa'V Aa come from the broadcast VB and VA.
@@ -300,11 +310,57 @@ __device__ void factor_g(const CoreParams<M>& P, const O& op, float rho, const G
   }
 }
 
+// The z-update of stage k from its z = [x_k; u_k] (u absent at the
+// terminal stage): G = D z by the row gathers, relaxed projection, prox for
+// the soft rows, dual step into s and lam (and their lanes s_l, lam_l), the
+// dual norms D'ds and D'lam by the column gathers; the maxima into acc.
+template <class M>
+__device__ __forceinline__ void z_update_stage(const Sel<M>& S, const float (&soft)[NC],
+                                               float alpha, float rho, float rinv,
+                                               const float (&zz)[M::NA + NU], bool has_u,
+                                               const float (&lb)[NC], const float (&ub)[NC],
+                                               float (&s)[NC], float (&lam)[NC], const Lane& s_l,
+                                               const Lane& lam_l, int k, Resid& acc) {
+  constexpr int NA = M::NA, NZ = NA + NU;
+  float ds[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const float Gc = S.row_coef[c][0] * pick(zz, S.row_idx[c][0]) +
+                     S.row_coef[c][1] * pick(zz, S.row_idx[c][1]);
+    const float w_rel = alpha * Gc + (1.0f - alpha) * s[c];
+    const float wl = w_rel + lam[c] * rinv;
+    const float clipped = clampf(wl, lb[c], ub[c]);
+    const float beta = soft[c];
+    const float s_new =
+        is_inf(beta) ? clipped : (beta * clipped + rho * wl) * (1.0f / (beta + rho));
+    const float lam_new = lam[c] + rho * (w_rel - s_new);
+    acc.r_p = fmaxf(acc.r_p, fabsf(Gc - s_new));
+    acc.g_max = fmaxf(acc.g_max, fabsf(Gc));
+    acc.s_max = fmaxf(acc.s_max, fabsf(s_new));
+    ds[c] = s_new - s[c];
+    s[c] = s_new;
+    lam[c] = lam_new;
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    s_l[k * NC + c] = s[c];
+    lam_l[k * NC + c] = lam[c];
+  }
+#pragma unroll
+  for (int j = 0; j < NZ; ++j) {
+    if (j >= NA && !has_u) continue;
+    const float a = S.col_coef[j][0] * pick(ds, S.col_row[j][0]) +
+                    S.col_coef[j][1] * pick(ds, S.col_row[j][1]);
+    const float l = S.col_coef[j][0] * pick(lam, S.col_row[j][0]) +
+                    S.col_coef[j][1] * pick(lam, S.col_row[j][1]);
+    acc.dual_ds = fmaxf(acc.dual_ds, fabsf(a));
+    acc.dual_lam = fmaxf(acc.dual_lam, fabsf(l));
+  }
+}
+
 // The stage pass of an ADMM iteration, stage k on thread k mod G (no
 // stage depends on another): with `z`, the z-update of stage k from the
-// rollout's x_k, u_k (mpc_core.cuh::z_update: G = D z by the row gathers,
-// relaxed projection, prox for the soft row, dual step, the dual norms
-// D'ds and D'lam by the column gathers) into this thread's maxima; then the
+// rollout's x_k, u_k (z_update_stage) into this thread's maxima; then the
 // next backward sweep's linear terms qt_k = q0_k - rho Dx'v - sigma x_k,
 // rt_k = -rho Du'v - sigma u_k with v = s - lam / rho. A stage's
 // device-memory operands are loaded together, the next stage's while this
@@ -340,42 +396,9 @@ __device__ void stage_pass_g(const CoreParams<M>& P, const Sel<M>& S, const O& o
     for (int i = 0; i < NA; ++i) zz[i] = op[op.X + k * NA + i];
 #pragma unroll
     for (int a = 0; a < NU; ++a) zz[NA + a] = has_u ? op[op.U + k * NU + a] : 0.0f;
-    if (z) {
-      float ds[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float Gc = S.row_coef[c][0] * pick(zz, S.row_idx[c][0]) +
-                         S.row_coef[c][1] * pick(zz, S.row_idx[c][1]);
-        const float w_rel = P.alpha * Gc + (1.0f - P.alpha) * cur.s[c];
-        const float wl = w_rel + cur.lam[c] * rinv;
-        const float clipped = clampf(wl, cur.lb[c], cur.ub[c]);
-        const float soft = P.soft[c];
-        const float s_new =
-            is_inf(soft) ? clipped : (soft * clipped + rho * wl) * (1.0f / (soft + rho));
-        const float lam_new = cur.lam[c] + rho * (w_rel - s_new);
-        acc.r_p = fmaxf(acc.r_p, fabsf(Gc - s_new));
-        acc.g_max = fmaxf(acc.g_max, fabsf(Gc));
-        acc.s_max = fmaxf(acc.s_max, fabsf(s_new));
-        ds[c] = s_new - cur.s[c];
-        cur.s[c] = s_new;
-        cur.lam[c] = lam_new;
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        L.s[k * NC + c] = cur.s[c];
-        L.lam[k * NC + c] = cur.lam[c];
-      }
-#pragma unroll
-      for (int j = 0; j < NZ; ++j) {
-        if (j >= NA && !has_u) continue;
-        const float a = S.col_coef[j][0] * pick(ds, S.col_row[j][0]) +
-                        S.col_coef[j][1] * pick(ds, S.col_row[j][1]);
-        const float l = S.col_coef[j][0] * pick(cur.lam, S.col_row[j][0]) +
-                        S.col_coef[j][1] * pick(cur.lam, S.col_row[j][1]);
-        acc.dual_ds = fmaxf(acc.dual_ds, fabsf(a));
-        acc.dual_lam = fmaxf(acc.dual_lam, fabsf(l));
-      }
-    }
+    if (z)
+      z_update_stage(S, P.soft, P.alpha, rho, rinv, zz, has_u, cur.lb, cur.ub, cur.s, cur.lam, L.s,
+                     L.lam, k, acc);
     float v[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) v[c] = cur.s[c] - cur.lam[c] * rinv;
@@ -394,7 +417,7 @@ __device__ void stage_pass_g(const CoreParams<M>& P, const Sel<M>& S, const O& o
   gr.sync();
 }
 
-// One ADMM iteration (mpc_core.cuh::admm_iteration): the affine backward
+// One ADMM iteration (section 6): the affine backward
 // sweep and the forward rollout split by rows, the vector broadcast by
 // shuffle at every stage, then the stage pass. Each sweep loads the next
 // stage's operands before its broadcast, so the shared-memory reads overlap
@@ -563,7 +586,7 @@ __device__ __forceinline__ void admm_start_g(const CoreParams<M>& P, const Sel<M
   stage_pass_g(P, S, op, L, false, rho, rinv, gr, none);
 }
 
-// Sections 1-4 (mpc_core.cuh::prepare), stage k on thread k mod G: the
+// Sections 1-4, stage k on thread k mod G: the
 // shifted schedule, curvature and bounds, stage matrices, linear cost, warm
 // start. The group barrier at the end publishes the workspace rows.
 template <class M, int G, class O>
@@ -626,7 +649,7 @@ __device__ void prepare_g(const CoreParams<M>& P, int b, const WsLayout<M>& W, c
   gr.sync();
 }
 
-// Sections 1-8 (mpc_core.cuh::mpc_core) for lane b on its group: writes the
+// Sections 1-8 of the tracker core for lane b on its group: writes the
 // new warm start, u0 and stats rows 0-4 and returns u0 on every thread of
 // the group. It holds the 128-lane early-exit vote (vote_all), so every
 // thread of the cluster calls it; groups past B (active false) vote "done"

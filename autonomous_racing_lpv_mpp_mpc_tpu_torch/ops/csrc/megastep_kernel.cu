@@ -7,58 +7,67 @@
 // the dynamic bicycle (nx=6) and the kinematic one (nx=4, BASELINE
 // config 1), selected by the last int parameter.
 //
-// Design. One thread owns one scenario; 128 threads form a block. Each
-// thread runs the tracker core of mpc_core.cuh (sections 1-8: schedule
-// shift, curvature + friction-cap bounds, LPV + Van Loan + linear cost,
-// warm-start shift, Riccati factor, ADMM in chunks of `check` iterations,
-// residuals / rho, accept or limp-home), then section 9, n_sub Euler
-// sub-steps of the Frenet plant. With early exit, the block votes after
-// each chunk (__syncthreads_and) and stops when all its lanes have a
-// done-at: the 128-lane grouping of the TPU kernel, so results match lane
-// for lane. Lanes past B vote "done" and touch no memory.
+// Design. A group of G threads owns one scenario (lane), 16 lanes a block
+// and a thread block cluster of 8 blocks the 128 lanes that leave ADMM
+// together (arl_sync.cuh). Each group runs the tracker core of
+// group_core.cuh (mpc_core_g, sections 1-8: schedule shift, curvature +
+// friction-cap bounds, LPV + Van Loan + linear cost, warm-start shift,
+// Riccati factor, ADMM in chunks of `check` iterations, residuals / rho,
+// accept or limp-home), then section 9, n_sub Euler sub-steps of the
+// Frenet plant, on the group's first thread. With early exit the cluster
+// votes after each chunk (vote_all) and stops when all its 128 lanes have a
+// done-at: the 128-lane grouping of the TPU kernel. Lanes past B vote
+// "done" and touch no memory. The stage operands, iterate and linear terms
+// live in the block's shared memory, or in the device-memory workspace
+// where N is too long (ops/fused_kernel.py::launch_shape).
 //
-// What bounds it on the H100: each lane is one long serial chain of small
-// dense algebra (per ADMM iteration 20 stages of 8x8 mat-vecs backward and
-// forward) with little parallelism inside a lane, and a per-lane workspace
-// (2,493 floats at N=20, computed from WsLayout) for the stage matrices,
-// gains and iterates — far beyond registers or shared memory, so
-// it lives in device memory, batch-last so every warp access is one
-// coalesced 128-byte line, and mostly inside the 50 MB L2. The augmented
-// dynamics [[Ad 0][0 0]], [[Bd][I]] are stored as Ad (6x6) and Bd (6x2)
-// only, which cuts the iteration's loads to ~60%. Only 32 blocks exist at
-// B=4096, so most SMs idle: finer-grained work per lane is later work.
-#include "mpc_core.cuh"
+// What bounds it on the H100: the operations of the core (~0.12 MFLOP per
+// lane at N=20 and ~8 executed iterations, dynamic). What stands between it
+// and that bound is latency: each ADMM stage is a short dependent chain
+// (mat-vec, shuffle broadcast, next stage); the group shortens it by G and
+// keeps the operands that every iteration re-reads at shared-memory
+// latency, as in the fused kernel and the racestep.
+#include "group_core.cuh"
 
 namespace arl {
 
 template <class M>
 struct MegaParams {
   CoreParams<M> C;
+  Sel<M> S;
   const float *x, *xref, *prm;   // (nx, B), (N+1, nx, B), (10, B)
   float *x_out, *ws;             // (nx, B), (ws_rows, B) per-lane workspace
   int n_sub, sim_tire, ws_rows;
 };
 
 constexpr int MEGA_PTRS = 19;
-constexpr int MEGA_INTS = 12;
+constexpr int MEGA_INTS = 14;
 
-template <class M>
-__global__ void __launch_bounds__(BLOCK) megastep_kernel(const __grid_constant__ MegaParams<M> P) {
+// At most 168 registers, so that three blocks of 128 threads fit on an SM
+// where the shared memory allows it (the kinematic model at N=10); the
+// dynamic model fits in them without spills.
+template <class M, bool SM>
+__global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid_constant__ MegaParams<M> P) {
   constexpr int NX = M::NX;
-  const int b = blockIdx.x * BLOCK + threadIdx.x;
-  const bool active = b < P.C.B;
+  const Grp<LANE_THREADS> gr;
+  const int lane = threadIdx.x / LANE_THREADS;
+  const int b = blockIdx.x * BLOCK_LANES + lane;
   const int S = P.C.B;
-  const Lane ws = lane_of(P.ws, active ? b : 0, S);
+  const bool active = b < S;
+  const int bb = active ? b : 0;
+  const Lane ws = lane_of(P.ws, bb, S);
+  const Ops<SM> op = ops_of<M, SM>(P.C.N, lane, P.ws, bb, S);
   VehParams pv{};
   float x[NX] = {};
   if (active) {
     pv = load_params(P.prm, b, S);
     const Lane xl = lane_of(P.x, b, S);
+#pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = xl[i];
   }
   float u0[NU];
-  mpc_core(P.C, b, active, x, pv, lane_of(P.xref, active ? b : 0, S), ws, u0);
-  if (!active) return;
+  mpc_core_g(P.C, P.S, b, active, x, pv, lane_of(P.xref, bb, S), ws, op, gr, u0);
+  if (!active || gr.g != 0) return;
   const Lane st = lane_of(P.C.stats, b, S);
   st[5] = 0.0f;
   st[6] = 0.0f;
@@ -74,6 +83,7 @@ __global__ void __launch_bounds__(BLOCK) megastep_kernel(const __grid_constant__
     for (int j = 0; j < NX; ++j) x[j] = x[j] + h * dx[j];
   }
   const Lane x_out = lane_of(P.x_out, b, S);
+#pragma unroll
   for (int i = 0; i < NX; ++i) x_out[i] = x[i];
 }
 
@@ -81,7 +91,7 @@ template <class M>
 int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int device,
                     void* stream) {
   if (n_f != core_floats<M>()) return -1;
-  MegaParams<M> P;
+  MegaParams<M> P{};
   CoreParams<M>& C = P.C;
   const float** in[] = {&P.x, &C.Xp, &C.Up, &C.sw, &C.lamw, &C.uprev, &C.rho, &P.xref,
                         &P.prm, &C.kappa, &C.taux};
@@ -90,25 +100,30 @@ int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int de
   int p = 0;
   for (auto q : in) *q = static_cast<const float*>(ptrs[p++]);
   for (auto q : out) *q = static_cast<float*>(ptrs[p++]);
+  int ops_smem = 0, smem = 0;
   int* ints[] = {&C.B, &C.N, &C.n_cells, &P.n_sub, &C.max_iter, &C.check, &C.early_exit,
-                 &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows};
+                 &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows, &ops_smem, &smem};
   for (int i = 0; i < MEGA_INTS - 1; ++i) *ints[i] = iv[i];
   read_core_floats(C, fv);
+  if (!make_sel(C, P.S)) return -1;
   if (P.ws_rows != WsLayout<M>(C.N).total) return -2;
-  if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1 || P.n_sub < 1) return -3;
+  if (smem != (ops_smem ? BLOCK_LANES * OpsLayout<M>(C.N).total * 4 : 0)) return -2;
+  if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1 || P.n_sub < 1 || C.n_cells < 1)
+    return -3;
   cudaSetDevice(device);
-  const int grid = (C.B + BLOCK - 1) / BLOCK;
-  megastep_kernel<M><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(P);
-  return static_cast<int>(cudaGetLastError());
+  const int grid = (C.B + BLOCK - 1) / BLOCK * CLUSTER;
+  return ops_smem ? launch_clustered(megastep_kernel<M, true>, P, grid, smem, stream)
+                  : launch_clustered(megastep_kernel<M, false>, P, grid, smem, stream);
 }
 
 }  // namespace arl
 
 // C entry: device pointers, float and int parameters in the order of
-// ops/megastep_kernel.py::_megastep_cuda; the last int selects the model
-// (0 dynamic, 1 kinematic). Returns -1 on an operand-count mismatch, -2 on
-// a workspace-size mismatch, -3 on a bad size or model, else
-// cudaGetLastError().
+// ops/megastep_kernel.py::_megastep_cuda (the last three ints: operands in
+// shared memory, its bytes per block, the model: 0 dynamic, 1 kinematic).
+// Returns -1 on an operand-count mismatch, -2 on a workspace- or
+// shared-memory-size mismatch, -3 on a bad size or model, -4 if the card
+// cannot hold one cluster of the shape, else the CUDA error of the launch.
 extern "C" int arl_megastep(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
                             int n_i, int device, void* stream) {
   using namespace arl;

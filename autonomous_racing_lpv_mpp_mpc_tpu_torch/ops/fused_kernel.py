@@ -133,7 +133,7 @@ def core_workspace(N: int, model: str = "dynamic") -> int:
 
 
 class LaunchShape(NamedTuple):
-    """Launch shape of the group-cooperative kernels (fused, racestep):
+    """Launch shape of the group core's kernels (megastep, racestep, fused):
     THREADS_PER_LANE adjacent threads own a lane, a block holds
     LANES_PER_BLOCK lanes, a cluster of ``cluster`` blocks the GROUP lanes
     of one early-exit vote (fixed in ``csrc/arl_sync.cuh``); the

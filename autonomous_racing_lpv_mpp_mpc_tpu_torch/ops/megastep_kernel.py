@@ -21,7 +21,9 @@ at a cell boundary.
 
 Both the dynamic (nx=6) and the kinematic (nx=4, BASELINE config 1)
 bicycle; ``cfg.model`` selects the LPV stages, the plant and the carry's
-state width.
+state width. On the card the kernel runs the group-cooperative tracker core
+of the fused kernel and the racestep, in their launch shape
+(``fused_kernel.launch_shape``).
 
 :func:`megastep_plain` is the plain PyTorch version (batch-last); the
 wrapper :func:`megastep` takes it for CPU tensors and launches the kernel
@@ -30,6 +32,7 @@ for CUDA tensors. The carry stays batch-last across steps.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -48,6 +51,7 @@ from .fused_kernel import (
     admm_plain,
     core_floats,
     core_workspace,
+    launch_shape,
     residual_rows,
     riccati_factor_plain,
 )
@@ -254,6 +258,21 @@ def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
     return new, u0, diag
 
 
+_TRACK_INPUTS = weakref.WeakKeyDictionary()   # Track -> {device: (kappa, [length, 1/ds])}
+
+
+def _track_inputs(track: Track, device):
+    """The kernel's curvature table and [length, 1/ds], prepared once per
+    track and device (a track is immutable), so a step spends no host work
+    on them."""
+    per_dev = _TRACK_INPUTS.setdefault(track, {})
+    key = torch.device(device)
+    if key not in per_dev:
+        per_dev[key] = (track.kappa.to(dtype=torch.float32, device=device).contiguous(),
+                        torch.stack([track.length, 1.0 / track.ds]).to(dtype=torch.float32, device=device))
+    return per_dev[key]
+
+
 def _check_cuda_operands(carry: MegaCarry, prm, N: int, nx: int):
     B = carry.x.shape[-1]
     want = {"x": (nx, B), "X_pred": (N + 1, nx, B), "U_pred": (N, NU, B), "s": (N + 1, NC, B),
@@ -295,8 +314,7 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
         raise ValueError(f"megastep: unknown tire {cfg.tire!r} / {sim_tire!r}")
     kw = dict(dtype=torch.float32, device=dev)
     xref = megastep_refs(cfg, x_ref, carry)
-    taux = torch.stack([track.length, 1.0 / track.ds]).to(**kw)
-    kappa = track.kappa.to(**kw).contiguous()
+    kappa, taux = _track_inputs(track, dev)
     ins = [carry.x, carry.X_pred, carry.U_pred, carry.s, carry.lam, carry.u_prev,
            carry.rho, xref, prm, kappa, taux]
     out = MegaCarry(
@@ -315,7 +333,7 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
         core_floats(cfg, scfg),
         [B, N, track.n_cells, n_sub, scfg.max_iter, max(1, scfg.check_termination),
          int(scfg.early_exit), TIRES[cfg.tire], TIRES[sim_tire], int(cfg.kappa_speed_cap),
-         ws_rows, MODELS[cfg.model]],
+         ws_rows, *launch_shape(N, cfg.model).ints(), MODELS[cfg.model]],
     )
     megastep.launches += 1
     new = out._replace(rho=stats[3])

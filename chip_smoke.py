@@ -31,12 +31,13 @@ paths:
 - BASELINE config 1 batched: the kinematic bicycle, N=10, on the oval,
   constant reference vx=1.5, a 64 x 64 grid of initial e_y and friction
   from vx0=0.5 — K=500 steps through the fused path, then K=500 through
-  the kinematic megastep.
+  the kinematic megastep, then a few steps through the solver-only kernel.
 
 The new paths build their tracks, grids and references without naming a
 device: the port's default device is the card. The ``kernels`` line has
-one record per kernel instantiation (the megastep and the fused kernel
-each for the dynamic and the kinematic model), each with its launches on
+one record per kernel instantiation (the megastep, the fused kernel and the
+solver-only kernel each for the dynamic and the kinematic model, and the
+racestep), each with its launches on
 its main path and its bound on the H100: the larger of the operations the
 algorithm needs over 67 TFLOP/s f32 and its bytes over 3.35 TB/s, counted
 at this run's shapes and executed iterations (see the counters below).
@@ -44,7 +45,9 @@ Every record's ``ms`` is CUDA-event time around the wrapper: the main
 path's ms per step for the step kernels (megastep, racestep), one isolated
 call for the solves (admm, fused). ``device_ms`` is the kernel's own
 duration on one isolated call (the first step for the step kernels), from
-torch.profiler.
+torch.profiler. The ``[main]`` line also gives the device time per step of
+the megastep path (the kernel's and every device operation's), so that the
+host's share of the step shows.
 
 Every phase either passes or ends the run with a non-zero exit. The last
 two lines of standard output are a JSON line with one record per kernel and
@@ -54,7 +57,8 @@ first check of freshly edited kernels) and prints no result.
 ``--ab`` measures an older checkout of the port the same way: copy this
 script to that checkout's root and run it there with ``--ab``. It skips
 the ``[shape]`` lines (the group kernels' launch shape, which older
-checkouts lack) and runs every other phase. A one-call A/B of a change
+checkouts lack) and the solver-only kernel at na=6 (which they do not
+take), and runs every other phase. A one-call A/B of a change
 runs the parent's copy and the change's script in turn (parent, change,
 change, parent) and compares their lines.
 """
@@ -119,12 +123,12 @@ SCALAR_OPS = {
     # racestep_kernel.cu::f_global: vxs 1, alpha_f 4, alpha_r 3, L 1, fzf 4,
     # fzr 4, sin/cos 4, dx0 9, dx1 5, dx2 5, dx3 3, dx4 3; tyres by tyre_ops
     "f_global": sum((1, 4, 3, 1, 4, 4, 4, 9, 5, 5, 3, 3)),
-    # mpc_core.cuh::prepare, per stage: the friction-circle vx cap (multiply
+    # group_core.cuh::prepare_g, per stage: the friction-circle vx cap (multiply
     # 2, max, divide, square root, clamp 2), the vx-reference clamp 1
     "stage_cap": 8,
     # arl_common.cuh::converged: max, multiply-add 2 x 2, multiply, compare 2
     "converged": 8,
-    # mpc_core.cuh::mpc_core section 7: r_dual 1, eps_prim 3, eps_dual 2,
+    # group_core.cuh::mpc_core_g section 7: r_dual 1, eps_prim 3, eps_dual 2,
     # conv 2, ratio 8, rho_new 3, rho_next 3
     "core_tail": sum((1, 3, 2, 2, 8, 3, 3)),
     # racestep_kernel.cu::measure outside the window loop: ds 1, hint cell
@@ -217,8 +221,8 @@ def fold_ops(S):
 
 
 def factor_ops(Aa, Ba, c=None):
-    """One stage of the backward Riccati factor (mpc_core.cuh::factor;
-    admm_kernel.cu::admm_factor, which adds V c)."""
+    """One stage of the backward Riccati factor (group_core.cuh::factor_g;
+    admm_kernel.cu::factor_dense_g, which adds V c)."""
     na, nu = Ba.shape
     V = ones(na, na)
     VA = pat(V, Aa)
@@ -232,8 +236,9 @@ def factor_ops(Aa, Ba, c=None):
 
 def iteration_ops(S, N, c=None):
     """One ADMM iteration over N stages and the terminal one
-    (mpc_core.cuh::admm_iteration + z_update; admm_kernel.cu::admm_iter
-    with its affine term c), with the termination test."""
+    (group_core.cuh::admm_iteration_g with its z-update;
+    admm_kernel.cu::admm_iteration_dense_g with its affine term c), with the
+    termination test."""
     Aa, Ba = S.Aa, S.Ba
     na, nu = Ba.shape
     D, Dx = S.D, S.D[:, :na]
@@ -254,7 +259,7 @@ def iteration_ops(S, N, c=None):
 
 
 def core_ops(S, tire, N, iters):
-    """mpc_core.cuh::mpc_core: per stage the curvature, friction cap,
+    """group_core.cuh::mpc_core_g: per stage the curvature, friction cap,
     reference clamp, linear cost and warm-start clip; N stage builds; the
     folded cost; N factor stages; `iters` iterations; residuals and rho.
     The limp-home branch, which no converged lane takes, is not counted."""
@@ -332,11 +337,11 @@ def race_bytes(N):
     return 4 * (2 * carry + 6 + 6 + 1 + 1 + 10 + 8)
 
 
-def admm_bytes(N):
+def admm_bytes(N, na):
     """A, B, c, Qf, q, Rf, r, Mf, lb, ub, x0, s0, lam0, rho in; X, U, s,
-    lam, stats out (na = 8)."""
-    ins = N * (64 + 16 + 8 + 4 + 2 + 16) + (N + 1) * (64 + 8) + 4 * 6 * (N + 1) + 8 + 1
-    outs = (N + 1) * 8 + 2 * N + 2 * 6 * (N + 1) + 8
+    lam, stats out (the shared selector rows are added per call)."""
+    ins = N * (na * na + 3 * na + 4 + 2 + 2 * na) + (N + 1) * (na * na + na) + 4 * 6 * (N + 1) + na + 1
+    outs = (N + 1) * na + 2 * N + 2 * 6 * (N + 1) + 8
     return 4 * (ins + outs)
 
 
@@ -423,6 +428,23 @@ def cuda_time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def device_events(fn, n):
+    """(name, microseconds) of every device operation in n calls of fn, from
+    one torch.profiler session padded with 0.1 s of idle host time on both
+    sides of the calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def kernel_ms(fn, n, kernel, sessions=3):
     """Mean device time of one launch of the CUDA kernel whose name holds
     `kernel` over n calls of fn (torch.profiler: the kernel's own duration,
@@ -436,20 +458,9 @@ def kernel_ms(fn, n, kernel, sessions=3):
     records of the session that reported the most. A shortfall is logged;
     more records than calls (the name matches another kernel) or none at all
     fail."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     best = []
     for s in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.1)
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.1)
-        dts = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA and kernel in e.name]
+        dts = [us for name, us in device_events(fn, n) if kernel in name]
         check(len(dts) <= n, f"the profiler saw {len(dts)} launches of {kernel} in {n} calls")
         if len(dts) > len(best):
             best = dts
@@ -458,6 +469,15 @@ def kernel_ms(fn, n, kernel, sessions=3):
         log(f"[profiler] session {s + 1} of {sessions} reported {len(dts)} of {n} launches of {kernel}")
     check(best, f"the profiler reported no launch of {kernel} in {sessions} sessions of {n} calls")
     return sum(best) / len(best) / 1e3
+
+
+def step_device_ms(fn, n, kernel):
+    """(device ms of one launch of the kernel whose name holds `kernel`,
+    device ms of every device operation per call) over n calls of fn."""
+    ev = device_events(fn, n)
+    ks = [us for name, us in ev if kernel in name]
+    check(ks, f"the profiler reported no launch of {kernel} in {n} calls")
+    return sum(ks) / len(ks) / 1e3, sum(us for _, us in ev) / n / 1e3
 
 
 def ptxas_usage(build_log, *parts):
@@ -537,10 +557,13 @@ def main():
             log(f"[build] {line.strip()}")
     # the launch shape of the group-cooperative kernels at the main paths' N
     if not ab:
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.admm_kernel import admm_launch_shape
         from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import (
             LANES_PER_BLOCK, THREADS_PER_LANE, launch_shape,
         )
-        for name, model, n_h, entry in (("fused_kernel", "dynamic", N_MAIN, ("fused_kernel", "Dynamic")),
+        for name, model, n_h, entry in (("megastep_kernel", "dynamic", N_MAIN, ("megastep_kernel", "Dynamic")),
+                                        ("megastep_kernel_kinematic", "kinematic", 10, ("megastep_kernel", "Kinematic")),
+                                        ("fused_kernel", "dynamic", N_MAIN, ("fused_kernel", "Dynamic")),
                                         ("fused_kernel_kinematic", "kinematic", 10, ("fused_kernel", "Kinematic")),
                                         ("racestep_kernel", "dynamic", N_MAIN, ("racestep_kernel",))):
             sh = launch_shape(n_h, model)
@@ -549,6 +572,13 @@ def main():
                 f"per block ({THREADS_PER_LANE * LANES_PER_BLOCK} threads), clusters of {sh.cluster} "
                 f"blocks, {-(-B_MAIN // 128) * sh.cluster} blocks at B={B_MAIN}, "
                 f"{sh.smem_bytes} B dynamic shared memory per block (operands in "
+                f"{'shared' if sh.ops_in_smem else 'device'} memory), {regs} registers, {spills} B spill stores")
+        for name, na, n_h in (("admm_kernel", 8, N_MAIN), ("admm_kernel_kinematic", 6, 10)):
+            sh = admm_launch_shape(n_h, na)
+            regs, spills = ptxas_usage(build_log, "admm_kernel", f"ILi{na}ELb{int(sh.ops_in_smem)}E")
+            log(f"[shape] {name} na={na} N={n_h}: {THREADS_PER_LANE} threads per QP, {sh.lanes} QPs per "
+                f"block ({THREADS_PER_LANE * sh.lanes} threads), no cluster, {-(-B_MAIN // sh.lanes)} blocks "
+                f"at B={B_MAIN}, {sh.smem_bytes} B dynamic shared memory per block (operands in "
                 f"{'shared' if sh.ops_in_smem else 'device'} memory), {regs} registers, {spills} B spill stores")
 
     # ---- shared setup: the bench protocol's scenarios ----
@@ -560,30 +590,46 @@ def main():
     B = scen.batch
     check(B == B_MAIN, f"scenario grid has {B} lanes")
     prm = megastep_params(scen.params, B, device=dev)
+    # BASELINE config 1: the kinematic bicycle, N=10, on the oval
+    kcfg = MPCConfig(N=10, model="kinematic", weights=MPCWeights.for_model("kinematic"))
+    oval = oval_track()                                   # the default device: the card
+    check(oval.kappa.is_cuda, f"oval_track() made tensors on {oval.kappa.device}, not the card")
+    kscen = make_scenario_grid(p, kcfg, n_ey=64, n_mu=B_MAIN // 64, vx0=0.5)
+    kprm = megastep_params(kscen.params, B_MAIN)
+    kref = constant_refs(kcfg, 1.5)
 
-    # ---- 3. kernel 1 (solver-only) vs its plain version ----
+    # ---- 3. kernel 1 (solver-only) vs its plain version, on the first step's
+    # tracker QPs of both models (na=8 dynamic N=20, na=6 kinematic N=10) ----
     scfg1 = SolverConfig(max_iter=20, rho_interval=0)
-    carry = mpc_init(scen.params, cfg, track, scen.x0)
-    qp, warm, _ = mpc_prepare(scen.params, cfg, track, scen.x0, x_ref, carry)
-    ref = admm_solve_plain(qp, scfg1, warm, carry.rho)
-    sol = admm_kernel_solve(qp, scfg1, warm, carry.rho)
-    torch.cuda.synchronize()
-    dU = (sol.U - ref.U).abs().max().item()
-    dX = (sol.X - ref.X).abs().max().item()
-    dr = (sol.r_prim - ref.r_prim).abs().max().item()
-    n_da = int((sol.iters - ref.iters).ne(0).sum().item())
-    da_max = int((sol.iters - ref.iters).abs().max().item())
-    log(f"[admm] B={B} N={N_MAIN} max|dU|={dU:.3e} max|dX|={dX:.3e} max|dr_prim|={dr:.3e} "
-        f"done-at differs in {n_da} lanes (max {da_max})")
-    check(dU <= 2e-4 and dX <= 2e-4, "admm kernel: U/X beyond 2e-4 of the plain version")
-    check(dr <= 1e-4, "admm kernel: r_prim beyond 1e-4 of the plain version")
-    check(da_max <= 1, "admm kernel: done-at differs by more than 1")
-    check(admm_kernel_solve.launches > 0, "admm kernel was not launched")
-    admm_ms = cuda_time_ms(lambda: admm_kernel_solve(qp, scfg1, warm, carry.rho), 10)
-    admm_dev_ms = kernel_ms(lambda: admm_kernel_solve(qp, scfg1, warm, carry.rho), 10, "admm_kernel")
-    admm_plain_ms = cuda_time_ms(lambda: admm_solve_plain(qp, scfg1, warm, carry.rho), 3)
-    log(f"[admm] {admm_ms:.3f} ms/solve kernel (wrapper), {admm_dev_ms:.4f} ms kernel (device), "
-        f"{admm_plain_ms:.3f} ms/solve plain ({card})")
+    admm = {}   # name -> (qp, warm, rho, max |dU, dX|, events ms, device ms, plain ms)
+    for name, acfg, atrack, ascen, aref in (("admm_kernel", cfg, track, scen, x_ref),
+                                            ("admm_kernel_kinematic", kcfg, oval, kscen, kref)):
+        if ab and acfg.model == "kinematic":
+            continue
+        acar = mpc_init(ascen.params, acfg, atrack, ascen.x0)
+        qp, warm, _ = mpc_prepare(ascen.params, acfg, atrack, ascen.x0, aref, acar)
+        ref = admm_solve_plain(qp, scfg1, warm, acar.rho)
+        before = admm_kernel_solve.launches
+        sol = admm_kernel_solve(qp, scfg1, warm, acar.rho)
+        torch.cuda.synchronize()
+        check(admm_kernel_solve.launches == before + 1, f"{name} was not launched")
+        dU = (sol.U - ref.U).abs().max().item()
+        dX = (sol.X - ref.X).abs().max().item()
+        dr = (sol.r_prim - ref.r_prim).abs().max().item()
+        n_da = int((sol.iters - ref.iters).ne(0).sum().item())
+        da_max = int((sol.iters - ref.iters).abs().max().item())
+        na = qp.Dx.shape[1]
+        log(f"[admm] na={na} B={B} N={acfg.N} max|dU|={dU:.3e} max|dX|={dX:.3e} max|dr_prim|={dr:.3e} "
+            f"done-at differs in {n_da} lanes (max {da_max}); converged {sol.converged.float().mean().item():.4f}")
+        check(dU <= 2e-4 and dX <= 2e-4, f"admm kernel na={na}: U/X beyond 2e-4 of the plain version")
+        check(dr <= 1e-4, f"admm kernel na={na}: r_prim beyond 1e-4 of the plain version")
+        check(da_max <= 1, f"admm kernel na={na}: done-at differs by more than 1")
+        solve = lambda: admm_kernel_solve(qp, scfg1, warm, acar.rho)
+        admm[name] = (qp, warm, acar.rho, max(dU, dX), cuda_time_ms(solve, 10),
+                      kernel_ms(solve, 10, "admm_kernel"),
+                      cuda_time_ms(lambda: admm_solve_plain(qp, scfg1, warm, acar.rho), 3))
+        log(f"[admm] na={na}: {admm[name][4]:.3f} ms/solve kernel (wrapper), {admm[name][5]:.4f} ms kernel "
+            f"(device), {admm[name][6]:.3f} ms/solve plain ({card})")
 
     # ---- 4. kernel 2 (megastep) vs its plain version, 5 closed-loop steps ----
     mega_err = {}
@@ -685,9 +731,6 @@ def main():
     # and BASELINE config 1's kinematic oval N=10. Fixed count: 2e-4 on lanes
     # converged on both sides, 5e-3 on every lane (see the racestep's
     # comment), done-at within one iteration; early exit: 5e-3 ----
-    kcfg = MPCConfig(N=10, model="kinematic", weights=MPCWeights.for_model("kinematic"))
-    oval = oval_track()                                   # the default device: the card
-    check(oval.kappa.is_cuda, f"oval_track() made tensors on {oval.kappa.device}, not the card")
     fused_fixed = SolverConfig(max_iter=20, rho_interval=0, backend="fused", early_exit=False,
                                check_termination=2, certify_infeasibility=False)
     fused_err, fused_iso, fused_args = {}, {}, {}
@@ -730,9 +773,6 @@ def main():
     check(fused_mpc_solve.launches > 0, "the fused kernel was not launched")
 
     # ---- 5c. the kinematic megastep vs its plain version, 5 closed-loop steps ----
-    kscen = make_scenario_grid(p, kcfg, n_ey=64, n_mu=B_MAIN // 64, vx0=0.5)
-    kprm = megastep_params(kscen.params, B_MAIN)
-    kref = constant_refs(kcfg, 1.5)
     for name, kscfg, tol_u, tol_x in (
         ("fixed", SolverConfig(max_iter=20, rho_interval=0, early_exit=False, check_termination=2), 2e-4, 5e-4),
         ("early-exit", SolverConfig(max_iter=20, rho_interval=0, early_exit=True, check_termination=2), 5e-3, 5e-3),
@@ -769,6 +809,31 @@ def main():
             wave_ms[nb] = kernel_ms(lambda: fused_mpc_solve(*cut_args), 5, "fused_kernel")
         log(f"[waves] fused {name}, device ms on the first B lanes: " + ", ".join(
             f"B={nb} ({-(-nb // 128)} clusters) {ms:.4f}" for nb, ms in wave_ms.items()) + f" ({card})")
+    for name, (mcfg, mtrack, mprm, mref, mc0) in (("dynamic", (cfg, track, prm, x_ref, c0)),
+                                                  ("kinematic", (kcfg, oval, kprm, kref, kc0))):
+        wave_ms = {}
+        for nb in (2048, 3840, B_MAIN):
+            cut_car = type(mc0)(*(t[..., :nb].contiguous() for t in mc0))
+            cut_prm = mprm[:, :nb].contiguous()
+            wave_ms[nb] = kernel_ms(lambda: megastep(mcfg, scfg, mtrack, cut_prm, mref, cut_car, n_sub=4), 5,
+                                    "megastep_kernel")
+        log(f"[waves] megastep {name} N={mcfg.N}, device ms of the first step on the first B lanes: "
+            + ", ".join(f"B={nb} ({-(-nb // 128)} clusters) {ms:.4f}" for nb, ms in wave_ms.items())
+            + f" ({card})")
+    if "admm_kernel" in admm and not ab:
+        # the solver-only kernel: 16 QPs per block, one block per SM at na=8,
+        # N=20 (its shared memory), so 2,112 QPs per wave of the 132 SMs
+        qp8, w8, r8 = admm["admm_kernel"][:3]
+        wave_ms = {}
+        for nb in (1056, 2112, B_MAIN):
+            cut = lambda t: t[:nb].contiguous()
+            cqp = qp8._replace(dyn=type(qp8.dyn)(*(cut(t) for t in qp8.dyn)),
+                               cost=type(qp8.cost)(*(cut(t) for t in qp8.cost)),
+                               lb=cut(qp8.lb), ub=cut(qp8.ub), x0=cut(qp8.x0))
+            cw, cr = tuple(cut(t) for t in w8), cut(r8)
+            wave_ms[nb] = kernel_ms(lambda: admm_kernel_solve(cqp, scfg1, cw, cr), 5, "admm_kernel")
+        log(f"[waves] admm na=8 N={N_MAIN}, device ms on the first B QPs: " + ", ".join(
+            f"B={nb} ({-(-nb // 16)} blocks of 16) {ms:.4f}" for nb, ms in wave_ms.items()) + f" ({card})")
 
     if quick:
         log("[quick] kernel checks passed; stopping before the main path")
@@ -791,6 +856,25 @@ def main():
             check(n == expected.get(k, 0), f"{label}: {k} launched {n} times, expected {expected.get(k, 0)}")
         return got
 
+    scfg_admm = SolverConfig(max_iter=20, rho_interval=0, backend="admm",
+                             polish=False, certify_infeasibility=False)
+
+    def admm_route(pcfg, ptrack, pscen, pref, mcar):
+        """K_ADMM_ROUTE steps of mpc_step_batched(backend="admm") + plant_step
+        from the megastep's carry: the final state and the converged fraction
+        of each step."""
+        fb = lambda t: t.movedim(-1, 0)
+        xs = fb(mcar.x).contiguous()
+        c = MPCCarry(X_pred=fb(mcar.X_pred), U_pred=fb(mcar.U_pred), s=fb(mcar.s),
+                     lam=fb(mcar.lam), u_prev=fb(mcar.u_prev), rho=mcar.rho)
+        out = []
+        for _ in range(K_ADMM_ROUTE):
+            u, c, dg = mpc_step_batched(pscen.params, pcfg, scfg_admm, ptrack, xs, pref, c)
+            xs = plant_step(pscen.params, pcfg, ptrack, xs, u, n_sub=4)
+            out.append(dg.converged.float().mean().item())
+        torch.cuda.synchronize()
+        return xs, out
+
     reset_launches()
     car = megastep_init(scen.params, cfg, track, scen.x0)
     s_start = car.x[4].clone()
@@ -809,26 +893,26 @@ def main():
     torch.cuda.synchronize()
     mega_ms = start.elapsed_time(end) / (K_MAIN - 1)
     # the same controller through the solver-only kernel, from the final state
-    scfg_admm = SolverConfig(max_iter=20, rho_interval=0, backend="admm",
-                             polish=False, certify_infeasibility=False)
-    fb = lambda t: t.movedim(-1, 0)
-    xs = fb(car.x).contiguous()
-    mcar = MPCCarry(X_pred=fb(car.X_pred), U_pred=fb(car.U_pred), s=fb(car.s),
-                    lam=fb(car.lam), u_prev=fb(car.u_prev), rho=car.rho)
-    conv_admm = []
-    for _ in range(K_ADMM_ROUTE):
-        ub, mcar, dg = mpc_step_batched(scen.params, cfg, scfg_admm, track, xs, x_ref, mcar)
-        xs = plant_step(scen.params, cfg, track, xs, ub, n_sub=4)
-        conv_admm.append(dg.converged.float().mean().item())
-    torch.cuda.synchronize()
+    xs, conv_admm = admm_route(cfg, track, scen, x_ref, car)
     launches = read_launches("main", {"megastep": K_MAIN, "admm": K_ADMM_ROUTE})
+    # the device's time per step of the megastep path, on 20 more steps
+    # from the final carry (the loop's two reductions included)
+    held, red, done_row = [car], torch.empty(2, device=dev), torch.empty(B, device=dev)
+
+    def main_step():
+        held[0], _, dg = megastep(cfg, scfg, track, prm, x_ref, held[0], n_sub=4)
+        red[0], red[1] = dg[2].mean(), dg[4].mean()
+        done_row.copy_(dg[4])
+
+    main_dev_ms, main_all_ms = step_device_ms(main_step, 20, "megastep_kernel")
 
     finite = all(bool(torch.isfinite(t).all()) for t in car) and bool(torch.isfinite(xs).all())
     conv_last = conv[-100:].mean().item()
     done_at = iters.mean().item()
     progress = (car.x[4] - s_start).mean().item()
     log(f"[main] K={K_MAIN} B={B} N={N_MAIN}: {mega_ms:.4f} ms/step "
-        f"({B / mega_ms * 1e3:.0f} solves/s) ({card})")
+        f"({B / mega_ms * 1e3:.0f} solves/s) ({card}); device per step: megastep {main_dev_ms:.4f} ms, "
+        f"every device operation {main_all_ms:.4f} ms")
     log(f"[main] converged {conv.mean().item():.4f} (last 100: {conv_last:.4f}), mean done-at "
         f"{done_at:.3f}/20 (last 100: {iters[-100:].mean().item():.3f}), mean progress "
         f"{progress:.2f} m, finite={finite}")
@@ -949,8 +1033,11 @@ def main():
         k_ey = torch.maximum(k_ey, kcar.x[3].abs().max())
     end.record()
     torch.cuda.synchronize()
-    kin_launches = read_launches("config1-mega", {"megastep": K_MAIN})
     kin_ms = start.elapsed_time(end) / (K_MAIN - 1)
+    # then the same controller through the solver-only kernel (na=6), which
+    # older trees (--ab) do not take
+    kxs, kconv_admm = admm_route(kcfg, oval, kscen, kref, kcar) if not ab else (None, None)
+    kin_launches = read_launches("config1-mega", {"megastep": K_MAIN, "admm": 0 if ab else K_ADMM_ROUTE})
     kin_conv = kconv[-100:].mean().item()
     kin_prog = (kcar.x[2] - kscen.x0[:, 2]).mean().item()
     log(f"[config1-mega] K={K_MAIN} B={B_MAIN} N=10 kinematic megastep: {kin_ms:.4f} ms/step "
@@ -961,24 +1048,35 @@ def main():
     check(kin_conv >= 0.99, f"config 1 megastep: converged (last 100) {kin_conv:.4f} < 0.99")
     check(k_ey.item() < 0.4, f"config 1 megastep: |e_y| max {k_ey.item():.4f} >= 0.4")
     check(kin_prog > 0.0, "config 1 megastep: the cars did not advance")
+    if not ab:
+        log(f"[config1-mega] admm route, {K_ADMM_ROUTE} steps: converged {[round(c, 4) for c in kconv_admm]}")
+        check(bool(torch.isfinite(kxs).all()) and min(kconv_admm) >= 0.99,
+              "config 1 admm route did not converge")
 
     # ---- bounds: this run's shapes, data and iteration counts ----
     # the admm kernel's stage matrices are its inputs: their patterns are
     # read from this run's QPs (A = Aa, B = Ba there)
     pat_of = lambda t: (t != 0).reshape((-1,) + tuple(t.shape[-2:])).any(dim=0).cpu().numpy()
-    qD = np.concatenate([qp.Dx.cpu().numpy() != 0, qp.Du.cpu().numpy() != 0], axis=1)
-    qA, qB = pat_of(qp.dyn.A), pat_of(qp.dyn.B)
-    qc = (qp.dyn.c != 0).reshape(-1, qp.dyn.c.shape[-1]).any(dim=0).cpu().numpy()
-    S_qp = Structure(qA, qB, qA, qB, qD, int(torch.isfinite(qp.soft).sum().item()))
+
+    def admm_per_lane(qp):
+        """(operations, bytes) per QP of the solver-only kernel."""
+        qD = np.concatenate([qp.Dx.cpu().numpy() != 0, qp.Du.cpu().numpy() != 0], axis=1)
+        qA, qB = pat_of(qp.dyn.A), pat_of(qp.dyn.B)
+        qc = (qp.dyn.c != 0).reshape(-1, qp.dyn.c.shape[-1]).any(dim=0).cpu().numpy()
+        S_qp = Structure(qA, qB, qA, qB, qD, int(torch.isfinite(qp.soft).sum().item()))
+        N_qp, na = qp.dyn.A.shape[1], qp.Dx.shape[1]
+        return (N_qp * factor_ops(qA, qB, qc) + scfg1.max_iter * iteration_ops(S_qp, N_qp, c=qc),
+                admm_bytes(N_qp, na))
+
     S_dyn, S_kin, S_race = (model_structure(p, c, scfg) for c in (cfg, kcfg, rcfg))
     win = min(2 * _win_cells(track, 3.0) + 1, track.n_cells)
-    it = {"admm_kernel": scfg1.max_iter, "megastep_kernel": executed_iters(mega_done),
+    it = {"admm_kernel": scfg1.max_iter, "admm_kernel_kinematic": scfg1.max_iter,
+          "megastep_kernel": executed_iters(mega_done),
           "megastep_kernel_kinematic": executed_iters(kin_done),
           "racestep_kernel": executed_iters(riters), "fused_kernel": fused_fixed.max_iter,
           "fused_kernel_kinematic": fused_fixed.max_iter}
     per_lane = {   # (operations, bytes) per lane; the shared tables per launch below
-        "admm_kernel": (N_MAIN * factor_ops(qA, qB, qc)
-                        + it["admm_kernel"] * iteration_ops(S_qp, N_MAIN, c=qc), admm_bytes(N_MAIN)),
+        **{name: admm_per_lane(rec[0]) for name, rec in admm.items()},
         "megastep_kernel": (core_ops(S_dyn, cfg.tire, N_MAIN, it["megastep_kernel"])
                             + plant_ops(S_dyn, cfg.tire, 4), mega_bytes(6, N_MAIN)),
         "megastep_kernel_kinematic": (core_ops(S_kin, kcfg.tire, kcfg.N, it["megastep_kernel_kinematic"])
@@ -989,7 +1087,9 @@ def main():
         "fused_kernel_kinematic": (fused_ops(S_kin, kcfg.tire, kcfg.N, it["fused_kernel_kinematic"]),
                                    fused_bytes(4, kcfg.N)),
     }
-    shared = {"megastep_kernel": 4 * track.n_cells, "megastep_kernel_kinematic": 4 * oval.n_cells,
+    # shared per launch: the curvature and pose tables, the selector rows
+    shared = {**{name: 4 * (NC * (rec[0].Dx.shape[1] + NU) + NC) for name, rec in admm.items()},
+              "megastep_kernel": 4 * track.n_cells, "megastep_kernel_kinematic": 4 * oval.n_cells,
               "racestep_kernel": 4 * (4 * track.n_cells + 3 * table.vx.shape[0] + 16)}
     bounds = {k: bound(B_MAIN * o, B_MAIN * b + shared.get(k, 0)) for k, (o, b) in per_lane.items()}
     log("[bound] per launch on the H100 at B=4096 (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
@@ -998,16 +1098,18 @@ def main():
 
     src = f"{PKG}/ops/csrc"
     ref_pkg = "autonomous_racing_lpv_mpp_mpc_tpu/ops"
-    core, gcore = f"{src}/mpc_core.cuh", f"{src}/group_core.cuh"
+    gcore = f"{src}/group_core.cuh"
     # (name, source, TPU kernel, launches on its main path, max |kernel - plain|,
     # ms on the card (CUDA events), device ms (profiler), plain ms); one record
     # per instantiation
+    admm_launches = {"admm_kernel": launches["admm"], "admm_kernel_kinematic": kin_launches["admm"]}
     records = [
-        ("admm_kernel", f"{src}/admm_kernel.cu", "admm_kernel.py:342", launches["admm"], max(dU, dX),
-         admm_ms, admm_dev_ms, admm_plain_ms),
-        ("megastep_kernel", f"{src}/megastep_kernel.cu + {core}", "megastep_kernel.py:1081",
+        (name, f"{src}/admm_kernel.cu + {gcore}", "admm_kernel.py:342", admm_launches[name], *rec[3:])
+        for name, rec in admm.items()
+    ] + [
+        ("megastep_kernel", f"{src}/megastep_kernel.cu + {gcore}", "megastep_kernel.py:1081",
          launches["megastep"], mega_err["fixed"], mega_ms, mega_dev_ms, mega_plain_ms),
-        ("megastep_kernel_kinematic", f"{src}/megastep_kernel.cu + {core}", "megastep_kernel.py:1081",
+        ("megastep_kernel_kinematic", f"{src}/megastep_kernel.cu + {gcore}", "megastep_kernel.py:1081",
          kin_launches["megastep"], mega_err["kinematic fixed"], kin_ms, kin_dev_ms, kin_plain_ms),
         ("racestep_kernel", f"{src}/racestep_kernel.cu + {gcore}", "racestep_kernel.py:831",
          race_launches["racestep"], race_err["fixed"], race_ms, race_dev_ms, race_plain_step_ms),

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from autonomous_racing_lpv_mpp_mpc_tpu.core import MPCConfig as JMPCConfig
+from autonomous_racing_lpv_mpp_mpc_tpu.core import MPCWeights as JMPCWeights
 from autonomous_racing_lpv_mpp_mpc_tpu.core import SolverConfig as JSolverConfig
 from autonomous_racing_lpv_mpp_mpc_tpu.core import VehicleParams as JVehicleParams
 from autonomous_racing_lpv_mpp_mpc_tpu.loop import constant_refs as jconstant_refs
@@ -26,6 +27,7 @@ from autonomous_racing_lpv_mpp_mpc_tpu.loop.mpc import mpc_prepare as jmpc_prepa
 from autonomous_racing_lpv_mpp_mpc_tpu.ops import pallas_admm_solve
 from autonomous_racing_lpv_mpp_mpc_tpu.parallel import make_scenario_grid as jgrid
 from autonomous_racing_lpv_mpp_mpc_tpu.solver import admm_solve as jadmm_solve
+from autonomous_racing_lpv_mpp_mpc_tpu.track import oval_track as joval
 from autonomous_racing_lpv_mpp_mpc_tpu.track import racetrack as jrace
 
 from autonomous_racing_lpv_mpp_mpc_tpu_torch import convert
@@ -43,16 +45,21 @@ def _random_batch(seeds, tight):
     return jax.tree.map(lambda *ls: jnp.stack(ls), *qps)
 
 
-def _tracker_batch(N=12):
-    """Batched tracker QPs (na=8, nu=2, nc=6: the kernel's shape) with their
-    shifted warm start, at a perturbed first step on the racetrack."""
-    jp, jcfg, jt = JVehicleParams(), JMPCConfig(N=N), jrace()
-    scen = jgrid(jp, jcfg, n_ey=3, n_mu=2, vx0=1.5)
+def _tracker_batch(N=12, model="dynamic"):
+    """Batched tracker QPs (the kernel's shapes: na=8, nu=2, nc=6 for the
+    dynamic bicycle on the racetrack; na=6 for the kinematic one on the
+    oval) with their shifted warm start, at a perturbed first step."""
+    kin = model == "kinematic"
+    jp = JVehicleParams()
+    jcfg = JMPCConfig(N=N, model=model, weights=JMPCWeights.for_model(model))
+    jt = joval() if kin else jrace()
+    scen = jgrid(jp, jcfg, n_ey=3, n_mu=2, vx0=0.5 if kin else 1.5)
     carry = jax.vmap(lambda pp, x: jmpc_init(pp, jcfg, jt, x))(scen.params, scen.x0)
     rng = np.random.default_rng(7)
     x = np.asarray(scen.x0) + rng.normal(0, 0.05, scen.x0.shape).astype(np.float32)
+    vref = 1.5 if kin else 1.8
     qp, warm, _ = jax.vmap(
-        lambda pp, xx, c: jmpc_prepare(pp, jcfg, jt, xx, jconstant_refs(jcfg, 1.8), c)
+        lambda pp, xx, c: jmpc_prepare(pp, jcfg, jt, xx, jconstant_refs(jcfg, vref), c)
     )(scen.params, x, carry)
     lam = np.asarray(rng.normal(0, 0.5, np.shape(warm[1])), np.float32)
     return qp, (warm[0], jnp.asarray(lam), warm[2], warm[3]), jnp.full((scen.batch,), 0.3)
@@ -86,10 +93,12 @@ def test_admm_solve_warm_start_matches_jax():
     _compare(sol, ref)
 
 
-@pytest.mark.parametrize("case", ["random-cold", "random-warm", "tracker-warm"])
+@pytest.mark.parametrize("case", ["random-cold", "random-warm", "tracker-warm", "kinematic-cold",
+                                  "kinematic-warm"])
 def test_admm_kernel_plain_matches_pallas(case):
     """B = 5 or 6 (not a multiple of 128): the kernel's plain version vs
-    the Pallas kernel, which pads the batch to 128 lanes."""
+    the Pallas kernel, which pads the batch to 128 lanes; the tracker QPs of
+    both models (na = 8 and na = 6, the widths the CUDA kernel takes)."""
     if case.startswith("random"):
         qp_b = _random_batch(range(5), tight=True)
         cfg = JSolverConfig(max_iter=60, rho_interval=0)
@@ -97,9 +106,15 @@ def test_admm_kernel_plain_matches_pallas(case):
         if case == "random-warm":
             cold = jax.jit(lambda q: pallas_admm_solve(q, cfg, interpret=True))(qp_b)
             warm, rho0 = (cold.s, cold.lam, cold.X, cold.U), cold.rho
-    else:
+    elif case == "tracker-warm":
         qp_b, warm, rho0 = _tracker_batch()
         cfg = JSolverConfig(max_iter=20, rho_interval=0)
+    else:
+        qp_b, warm, rho0 = _tracker_batch(N=10, model="kinematic")
+        assert qp_b.Dx.shape[-1] == 6
+        cfg = JSolverConfig(max_iter=20, rho_interval=0)
+        if case == "kinematic-cold":
+            warm, rho0 = None, None
     ref = jax.jit(lambda q, w, r: pallas_admm_solve(q, cfg, warm=w, rho0=r, interpret=True))(
         qp_b, warm, rho0)
     sol = admm_kernel_solve(

@@ -26,6 +26,8 @@ from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
     mpc_step_batched, plant_step,
 )
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import admm_kernel as ak
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import megastep_kernel as mk
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import racestep_kernel as rk
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.admm_kernel import admm_kernel_solve, admm_solve_plain
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import (
@@ -111,9 +113,10 @@ def test_cuda_requests_raise_without_a_card():
 
 
 def test_kernel_sources_and_workspace_layout():
-    """The library name follows the sources' content; the megastep's
-    workspace formula matches the per-lane layout of the tracker core's CUDA
-    source (mpc_core.cuh, shared with the racestep)."""
+    """The library name follows the sources' content; the tracker core's
+    workspace formula matches the per-lane layout of its CUDA source
+    (mpc_core.cuh, shared by the megastep, the racestep and the fused
+    kernel)."""
     names = {p.name for p in _cuda._sources()}
     assert {"arl_common.cuh", "mpc_core.cuh", "admm_kernel.cu", "megastep_kernel.cu",
             "racestep_kernel.cu", "fused_kernel.cu"} <= names
@@ -128,6 +131,73 @@ def test_kernel_sources_and_workspace_layout():
         # kinematic: Xs 4, Us 2, kap 1, lb/ub 12, Ad 16, Bd 8, q0 4, K 12, Hiv 4,
         # Hux 12, d 2, Xsol 6, Usol 2 per stage
         assert core_workspace(N, "kinematic") == 85 * N + (4 + 1 + 12 + 4 + 6)
+
+
+def test_admm_launch_shape_from_N_and_na():
+    """The solver-only kernel's layout: the most QPs per block (16 at most)
+    whose operand slices fit in a block's shared memory, else 16 QPs per
+    block with the operands in device memory; the slice size matches the
+    per-QP layout of its CUDA source (AdmmLayout)."""
+    src = (_cuda.CSRC / "admm_kernel.cu").read_text()
+    assert src.split("struct AdmmLayout")[1].split("total = o;")[0].count("o +=") == 13
+    # per stage: A 64, B 16, c 8, r 2, Hux 16, Hiv 4, Vc 8, d 2, rt 2, U 2;
+    # q, qt, X 8 each on N+1 stages (na=8); na=6: 36, 12, 6, 2, 12, 4, 6, 2, 2, 2
+    assert ak.admm_ops_floats(20, 8) == 124 * 20 + 24 * 21
+    assert ak.admm_ops_floats(10, 6) == 84 * 10 + 18 * 11
+    assert ak.admm_launch_shape(20, 8) == (16, 16 * 2984 * 4, True)
+    assert ak.admm_launch_shape(10, 6) == (16, 16 * 1038 * 4, True)
+    assert ak.admm_launch_shape(20, 6) == (16, 16 * 2058 * 4, True)
+    assert ak.admm_launch_shape(40, 8) == (8, 8 * 5944 * 4, True)
+    assert ak.admm_launch_shape(100, 8) == (2, 2 * ak.admm_ops_floats(100, 8) * 4, True)
+    assert ak.admm_launch_shape(500, 8) == (16, 0, False)
+    for N in (1, 8, 20, 40, 100, 500):
+        for na in (6, 8):
+            sh = ak.admm_launch_shape(N, na)
+            assert sh.ints() == [sh.lanes, int(sh.ops_in_smem), sh.smem_bytes]
+            assert sh.smem_bytes <= 232_448 - 1_024
+
+
+def test_admm_kernel_width_check():
+    """The solver-only kernel takes (na, nu, nc) = (8, 2, 6) and (6, 2, 6);
+    the kernel route raises on any other width before it reaches the card,
+    and on a taken width it needs the card (no fallback)."""
+    ak.check_widths(8, 2, 6)
+    ak.check_widths(6, 2, 6)
+    for dims in ((4, 2, 6), (7, 2, 6), (10, 2, 6), (8, 3, 6), (8, 2, 5), (6, 1, 6)):
+        with pytest.raises(ValueError, match="takes"):
+            ak.check_widths(*dims)
+    p, cfg, track, scen, x_ref = _small_case()
+    carry = mpc_init(scen.params, cfg, track, scen.x0)
+    qp, warm, _ = mpc_prepare(scen.params, cfg, track, scen.x0, x_ref, carry)
+    scfg = SolverConfig(max_iter=5, rho_interval=0)
+    wide = qp._replace(Dx=torch.zeros((6, 9)))
+    with pytest.raises(ValueError, match="takes"):
+        ak._admm_cuda(wide, scfg, warm, carry.rho)
+    if not torch.cuda.is_available():
+        _cuda.library.cache_clear()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ak._admm_cuda(qp, scfg, warm, carry.rho)
+    assert admm_kernel_solve.launches == 0
+
+
+def test_one_tracker_core():
+    """ops/csrc holds one tracker core, the group core: no one-thread
+    prepare, factor, z_update, admm_iteration or mpc_core is left, the
+    header of parameters and layout defines no device code, and every
+    kernel of the tracker runs the group core."""
+    import re
+
+    srcs = {p.name: p.read_text() for p in _cuda._sources()}
+    one_thread = re.compile(r"\b(void|Resid)\s+(prepare|factor|z_update|admm_iteration|mpc_core)\s*\(")
+    for name, text in srcs.items():
+        assert not one_thread.search(text), name
+        assert "__syncthreads_and" not in text or name == "arl_sync.cuh", name
+    assert "__device__" not in srcs["mpc_core.cuh"].split("struct WsLayout")[0]
+    assert "__device__ __forceinline__ void" not in srcs["mpc_core.cuh"]
+    for name in ("megastep_kernel.cu", "racestep_kernel.cu", "fused_kernel.cu", "admm_kernel.cu"):
+        assert '#include "group_core.cuh"' in srcs[name], name
+    for name in ("megastep_kernel.cu", "racestep_kernel.cu"):
+        assert "mpc_core_g(" in srcs[name], name
 
 
 _PAD = 4096   # floats past each output that a kernel must leave untouched
@@ -281,6 +351,97 @@ def test_kinematic_megastep_matches_plain_on_card(cuda_device, early_exit, tol_u
         assert (ck.x - cp.x).abs().max().item() <= tol_x
 
 
+def _mega_case(device, model, B):
+    """The megastep at B lanes: the dynamic bench protocol (N=20,
+    racetrack) or BASELINE config 1 (kinematic, N=10, oval)."""
+    kin = model == "kinematic"
+    cfg = MPCConfig(N=10 if kin else 20, model=model, weights=MPCWeights.for_model(model))
+    track = oval_track(device=device) if kin else racetrack(device=device)
+    n_ey, n_mu = (20, 15) if B == 300 else (B, 1)
+    scen = make_scenario_grid(VehicleParams(), cfg, n_ey=n_ey, n_mu=n_mu, vx0=0.5 if kin else 1.5,
+                              device=device)
+    x_ref = constant_refs(cfg, 1.5 if kin else 1.8, device=device)
+    prm = megastep_params(scen.params, scen.batch, device=device)
+    return cfg, track, x_ref, prm, megastep_init(scen.params, cfg, track, scen.x0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [False, True])
+@pytest.mark.parametrize("B", [1, 37, 300, 4096 + 37])
+@pytest.mark.parametrize("model", ["dynamic", "kinematic"])
+def test_megastep_ragged_batches_on_card(cuda_device, model, B, early_exit, monkeypatch):
+    """Three megastep steps at B lanes (ragged batches: a partial vote
+    group, a partial last cluster), both models, with and without early
+    exit: u 2e-4 / x 5e-4 of plain at a fixed count, 5e-3 with early exit.
+    Every output is written and nothing past B is."""
+    cfg, track, x_ref, prm, ck = _mega_case(cuda_device, model, B)
+    cp = ck
+    scfg = SolverConfig(max_iter=20, rho_interval=0, early_exit=early_exit, check_termination=2)
+    tol_u, tol_x = (5e-3, 5e-3) if early_exit else (2e-4, 5e-4)
+    before = megastep.launches
+    for _ in range(3):
+        with _nan_padded_outputs(monkeypatch) as pads:
+            ck, uk, dk = megastep(cfg, scfg, track, prm, x_ref, ck)
+            torch.cuda.synchronize()
+        assert _untouched(pads)
+        assert all(bool(torch.isfinite(t).all()) for t in (*ck, uk, dk))
+        cp, up, _ = megastep_plain(cfg, scfg, track, prm, x_ref, cp)
+        torch.cuda.synchronize()
+        assert uk.shape == (2, B)
+        assert (uk - up).abs().max().item() <= tol_u
+        assert (ck.x - cp.x).abs().max().item() <= tol_x
+    assert megastep.launches == before + 3
+
+
+def _admm_case(device, na, B, N=None):
+    """The first step's tracker QPs at B lanes: na=8 the dynamic bicycle on
+    the racetrack (N=20), na=6 the kinematic one on the oval (N=10)."""
+    kin = na == 6
+    cfg = MPCConfig(N=N or (10 if kin else 20), model="kinematic" if kin else "dynamic",
+                    weights=MPCWeights.for_model("kinematic" if kin else "dynamic"))
+    track = oval_track(device=device) if kin else racetrack(device=device)
+    n_ey, n_mu = (20, 15) if B == 300 else (B, 1)
+    scen = make_scenario_grid(VehicleParams(), cfg, n_ey=n_ey, n_mu=n_mu, vx0=0.5 if kin else 1.5,
+                              device=device)
+    x_ref = constant_refs(cfg, 1.5 if kin else 1.8, device=device)
+    carry = mpc_init(scen.params, cfg, track, scen.x0)
+    qp, warm, _ = mpc_prepare(scen.params, cfg, track, scen.x0, x_ref, carry)
+    return qp, warm, carry.rho
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shared", "device", "8 per block"])
+@pytest.mark.parametrize("B", [1, 37, 300, 4096 + 37])
+@pytest.mark.parametrize("na", [8, 6])
+def test_admm_kernel_widths_and_layouts_on_card(cuda_device, na, B, layout, monkeypatch):
+    """The solver-only kernel at both widths and ragged B, with its operands
+    in shared memory (16 or 8 QPs per block) or in device memory: U, X 2e-4
+    and r_prim 1e-4 of plain, done-at within 1; every output is written and
+    nothing past B is."""
+    qp, warm, rho = _admm_case(cuda_device, na, B)
+    N = qp.dyn.A.shape[1]
+    floats = ak.admm_ops_floats(N, na)
+    shapes = {"shared": ak.admm_launch_shape, "device": lambda N, na: ak.AdmmShape(16, 0, False),
+              "8 per block": lambda N, na: ak.AdmmShape(8, 8 * floats * 4, True)}
+    scfg = SolverConfig(max_iter=20, rho_interval=0)
+    before = admm_kernel_solve.launches
+    with monkeypatch.context() as m:
+        m.setattr(ak, "admm_launch_shape", shapes[layout])
+        with _nan_padded_outputs(monkeypatch) as pads:
+            sol = admm_kernel_solve(qp, scfg, warm, rho)
+            torch.cuda.synchronize()
+    assert _untouched(pads)
+    assert admm_kernel_solve.launches == before + 1
+    ref = admm_solve_plain(qp, scfg, warm, rho)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in (sol.X, sol.U, sol.s, sol.lam, sol.r_prim, sol.rho))
+    assert sol.U.shape == (B, N, 2) and sol.X.shape == (B, N + 1, na)
+    assert (sol.U - ref.U).abs().max().item() <= 2e-4
+    assert (sol.X - ref.X).abs().max().item() <= 2e-4
+    assert (sol.r_prim - ref.r_prim).abs().max().item() <= 1e-4
+    assert (sol.iters - ref.iters).abs().max().item() <= 1
+
+
 def test_racestep_wrapper_routes_by_device():
     """CPU tensors take the plain version and count no launch; a carry on
     another device raises; CUDA tensors cannot be made without a card; the
@@ -410,8 +571,8 @@ def test_racestep_measurement_at_window_edges_on_card(cuda_device):
 def test_group_kernels_operands_in_device_memory_on_card(cuda_device, B, monkeypatch):
     """The group kernels with their ADMM operands in the device-memory
     workspace (the layout launch_shape picks for long horizons) give the
-    shared-memory layout's results exactly: one fused solve per model with
-    and without early exit, and 3 racestep steps. A fused solve past the
+    shared-memory layout's results exactly: two megastep steps and one fused
+    solve per model with and without early exit, and 3 racestep steps. A fused solve past the
     shared-memory limit (N=48) takes that layout and stays within 5e-3 of
     plain."""
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import fused_kernel as fk
@@ -427,6 +588,24 @@ def test_group_kernels_operands_in_device_memory_on_card(cuda_device, B, monkeyp
             b = run()
         torch.cuda.synchronize()
         return a, b
+
+    def both_layouts_mega(run):
+        a = run()
+        with monkeypatch.context() as m:
+            m.setattr(mk, "launch_shape", in_device_memory)
+            b = run()
+        torch.cuda.synchronize()
+        return a, b
+
+    for model in ("dynamic", "kinematic"):
+        cfg, track, x_ref, prm, car = _mega_case(cuda_device, model, B)
+        for early_exit in (False, True):
+            sc = SolverConfig(max_iter=20, rho_interval=0, early_exit=early_exit, check_termination=2)
+            c = car
+            for _ in range(2):
+                a, b = both_layouts_mega(lambda: megastep(cfg, sc, track, prm, x_ref, c))
+                assert all(torch.equal(x, y) for x, y in zip((*a[0], *a[1:]), (*b[0], *b[1:]))), (model, early_exit)
+                c = a[0]
 
     for model, N in (("dynamic", 20), ("kinematic", 10)):
         cfg, scfg, args = _fused_case(cuda_device, model, N, n_ey=B, n_mu=1)
@@ -460,7 +639,26 @@ def test_group_kernels_operands_in_device_memory_on_card(cuda_device, B, monkeyp
 def test_group_kernels_take_any_sequence_of_horizons_on_card(cuda_device):
     """The group kernels' shared memory per block follows N: on one kernel,
     a long horizon after a shorter one (N = 20, 10, 20) still launches, and
-    each result agrees with its plain version."""
+    each result agrees with its plain version (the megastep, the fused
+    kernel, the racestep and the solver-only kernel)."""
+    p, _, track, scen, _ = _small_case(cuda_device, n_ey=37, n_mu=1)
+    scfg = SolverConfig(max_iter=20, rho_interval=0, check_termination=2)
+    prm = megastep_params(scen.params, scen.batch, device=cuda_device)
+    for N in (20, 10, 20):
+        cfg = MPCConfig(N=N)
+        x_ref = constant_refs(cfg, 1.8, device=cuda_device)
+        car = megastep_init(scen.params, cfg, track, scen.x0)
+        ck, uk, _ = megastep(cfg, scfg, track, prm, x_ref, car)
+        cp, up, _ = megastep_plain(cfg, scfg, track, prm, x_ref, car)
+        torch.cuda.synchronize()
+        assert (uk - up).abs().max().item() <= 5e-3, N
+        assert (ck.x - cp.x).abs().max().item() <= 5e-3, N
+    for N in (20, 10, 20):
+        qp, warm, rho = _admm_case(cuda_device, 8, 37, N=N)
+        sol = admm_kernel_solve(qp, scfg, warm, rho)
+        ref = admm_solve_plain(qp, scfg, warm, rho)
+        torch.cuda.synchronize()
+        assert (sol.U - ref.U).abs().max().item() <= 2e-4, N
     for N in (20, 10, 20):
         cfg, scfg, args = _fused_case(cuda_device, "dynamic", N, n_ey=37, n_mu=1, warm_steps=2)
         sk = fused_mpc_solve(cfg, scfg, *args)
