@@ -31,6 +31,7 @@ from .loop.mpc import MPCCarry
 from .loop.race import RaceCarry
 from .ops.megastep_kernel import MegaCarry
 from .ops.racestep_kernel import RaceMegaCarry
+from .planner.opponents import OpponentSet
 from .planner.reftable import RefTable
 from .solver.admm import BoxQP
 from .solver.riccati import LQRCost, LQRDynamics
@@ -98,7 +99,13 @@ def race_mega_carry(obj, device=None) -> RaceMegaCarry:
 
 
 def ref_table(obj, device=None) -> RefTable:
+    """A RefTable, shared (channels (n,), 0-d ds/length) or per lane (the
+    JAX package's table with every leaf broadcast to (B,) + shape)."""
     return RefTable(*(tensor(getattr(obj, f.name), device) for f in dataclasses.fields(RefTable)))
+
+
+def opponent_set(obj, device=None) -> OpponentSet:
+    return OpponentSet(*(tensor(getattr(obj, n), device) for n in OpponentSet._fields))
 
 
 def ekf_state(obj, device=None) -> EKFState:
@@ -142,8 +149,9 @@ def boxqp(obj, device=None) -> BoxQP:
 
 def to_numpy(carry) -> dict:
     """A port carry (MPCCarry, MegaCarry, RaceMegaCarry, EKFState,
-    FrictionState, RaceCarry) or RefTable as a dict of numpy arrays; nested
-    carries become nested dicts and RaceCarry's generator is left out."""
+    FrictionState, RaceCarry), OpponentSet or RefTable as a dict of numpy
+    arrays; nested carries become nested dicts and RaceCarry's generator is
+    left out."""
     if isinstance(carry, RefTable):
         return {f.name: getattr(carry, f.name).detach().cpu().numpy() for f in dataclasses.fields(carry)}
     out = {}

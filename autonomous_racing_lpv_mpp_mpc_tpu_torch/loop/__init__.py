@@ -24,6 +24,7 @@ from .race import (
     BatchedRaceLog,
     RaceCarry,
     batched_race_sweep,
+    corridor_eyb,
     make_racestep_scan,
     mega_race_sweep,
 )
@@ -42,6 +43,7 @@ __all__ = [
     "batched_race_sweep",
     "closed_loop",
     "constant_refs",
+    "corridor_eyb",
     "ekf_init",
     "ekf_step",
     "estimate_frenet",

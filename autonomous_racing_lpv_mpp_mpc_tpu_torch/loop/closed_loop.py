@@ -41,13 +41,16 @@ def plant_step(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
 def closed_loop(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
                 x0: torch.Tensor, x_ref: torch.Tensor, T: int, n_sub: int = 10,
                 sim_tire: Optional[str] = None,
-                carry0: Optional[MPCCarry] = None) -> ClosedLoopLog:
-    """Run T control steps for a batch x0 (B, nx); returns stacked logs."""
+                carry0: Optional[MPCCarry] = None, obstacles=None) -> ClosedLoopLog:
+    """Run T control steps for a batch x0 (B, nx); returns stacked logs.
+    ``obstacles`` is a static (n_obs, 4) corridor-block array
+    (``engine.assembly.corridor_from_blocks``) applied to every step's
+    tracker bounds: parked obstacles."""
     carry = carry0 if carry0 is not None else mpc_init(p, cfg, track, x0)
     x = x0
     outs = []
     for _ in range(T):
-        u, carry, diag = mpc_step_batched(p, cfg, scfg, track, x, x_ref, carry)
+        u, carry, diag = mpc_step_batched(p, cfg, scfg, track, x, x_ref, carry, obstacles)
         x = plant_step(p, cfg, track, x, u, n_sub=n_sub, sim_tire=sim_tire)
         outs.append((x, u, diag.converged, diag.iters, diag.r_prim, diag.r_dual))
     return ClosedLoopLog(*(torch.stack(col) for col in zip(*outs)))

@@ -82,7 +82,8 @@ def mpc_prepare(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
 
     Returns (qp, warm, U_sched) with warm = (s, lam, Xa, U) shifted one
     stage. ``x_ref`` is (N+1, nx) shared, (B, N+1, nx), or a
-    :class:`RefTable` sampled along each lane's scheduled s.
+    :class:`RefTable` sampled along each lane's scheduled s; ``obstacles``
+    ((n_obs, 4) corridor blocks) tighten the e_y row.
     """
     X_sched, U_sched, warm = _shift_and_warm(x, carry)
     if isinstance(x_ref, RefTable):
@@ -93,19 +94,20 @@ def mpc_prepare(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
 
 
 def mpc_prepare_light(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor, x_ref,
-                      carry: MPCCarry):
+                      carry: MPCCarry, obstacles=None):
     """Scheduling, bounds and warm start WITHOUT the stage matrices: the
     fused solve (``ops.fused_kernel``) builds those itself.
 
     Returns (X_sched (B, N+1, nx), U_sched, kappas (B, N) by
     ``curvature_at``, x_ref (B, N+1, nx) with vx clamped to the per-stage
-    friction cap, lb, ub, x0a (B, na), warm)."""
+    friction cap, lb, ub with the e_y row tightened around ``obstacles``,
+    x0a (B, na), warm)."""
     X_sched, U_sched, warm = _shift_and_warm(x, carry)
     s_idx, _ = model_s_ey(cfg.model)
     kappas = curvature_at(track, X_sched[..., :cfg.N, s_idx])
     if isinstance(x_ref, RefTable):
         x_ref = refs_from_table(cfg, x_ref, X_sched[..., s_idx])
-    lb, ub = tracker_bounds(p, cfg, track, X_sched)
+    lb, ub = tracker_bounds(p, cfg, track, X_sched, obstacles=obstacles)
     x_ref = x_ref.to(X_sched).expand(X_sched.shape).clone()
     x_ref[..., 0] = torch.minimum(x_ref[..., 0], ub[..., 0])
     x0a = torch.cat([x, carry.u_prev], dim=-1)
@@ -149,15 +151,18 @@ def _check_unit_rows(qp: BoxQP):
 
 
 def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
-                     track: Track, x_b: torch.Tensor, x_ref, carry_b: MPCCarry):
-    """Batched control step. Returns (u (B, nu), new_carry, diag).
+                     track: Track, x_b: torch.Tensor, x_ref, carry_b: MPCCarry, obstacles=None):
+    """Batched control step (the JAX package's ``mpc_step`` vmapped over the
+    batch). Returns (u (B, nu), new_carry, diag).
 
     ``scfg.backend``: "plain" solves with :func:`solver.admm.admm_solve`;
     "admm" with the solver-only kernel ``ops.admm_kernel.admm_kernel_solve``;
     "fused" assembles and solves in one kernel,
     ``ops.fused_kernel.fused_mpc_solve``, after :func:`mpc_prepare_light`
     (each kernel's plain version on CPU tensors). The whole-step kernel is
-    ``ops.megastep_kernel.megastep``.
+    ``ops.megastep_kernel.megastep``. ``obstacles`` ((n_obs, 4) corridor
+    blocks, shared by the batch) tighten every route's e_y row through
+    ``tracker_bounds``.
     """
     if scfg.polish or scfg.certify_infeasibility:
         raise NotImplementedError(
@@ -166,11 +171,12 @@ def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
     if scfg.backend == "fused":
         from ..ops.fused_kernel import fused_mpc_solve
 
-        Xs, Us, kap, xr, lb, ub, x0a, warm_b = mpc_prepare_light(p_b, cfg, track, x_b, x_ref, carry_b)
+        Xs, Us, kap, xr, lb, ub, x0a, warm_b = mpc_prepare_light(
+            p_b, cfg, track, x_b, x_ref, carry_b, obstacles)
         sol_b = fused_mpc_solve(cfg, scfg, p_b, Xs, Us, kap, xr, lb, ub, x0a, warm_b[0], warm_b[1],
                                 carry_b.rho)
         return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, warm_b[3], sol_b)
-    qp_b, warm_b, U_sched_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b)
+    qp_b, warm_b, U_sched_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b, obstacles)
     if scfg.equilibrate:
         _check_unit_rows(qp_b)
     if scfg.backend == "plain":
@@ -186,10 +192,11 @@ def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
 
 
 def mpc_step(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
-             x: torch.Tensor, x_ref, carry: MPCCarry):
+             x: torch.Tensor, x_ref, carry: MPCCarry, obstacles=None):
     """One control step for one vehicle: x (nx,), carry leaves unbatched,
-    ``p`` leaves floats or 0-d tensors."""
+    ``p`` leaves floats or 0-d tensors; ``obstacles`` (n_obs, 4) corridor
+    blocks, which the tracker's soft e_y row then clears."""
     one = lambda t: t.unsqueeze(0)
     carry_b = MPCCarry(*(one(t) for t in carry))
-    u, new_carry, diag = mpc_step_batched(p, cfg, scfg, track, one(x), x_ref, carry_b)
+    u, new_carry, diag = mpc_step_batched(p, cfg, scfg, track, one(x), x_ref, carry_b, obstacles)
     return (u[0], MPCCarry(*(t[0] for t in new_carry)), MPCDiag(*(t[0] for t in diag)))

@@ -15,14 +15,18 @@ Two forms of the same step:
   one racestep launch (``ops.racestep``: the CUDA kernel for CUDA tensors,
   its plain version for CPU tensors), batch-last.
 
+Obstacle corridor blocks ((n_obs, 4), ``planner.opponents``) reach the
+tracker's e_y row in both: through ``tracker_bounds`` in the module
+composition, and as the racestep's per-stage ``eyb`` operand, evaluated by
+``engine.assembly.corridor_from_blocks`` along each step's scheduled s.
+
 Randomness: the JAX ``key=`` becomes ``seed=`` (a ``torch.Generator`` on the
 carry's device seeded with it) or ``generator=``. The streams differ from
 ``jax.random``'s, so noisy runs agree with the JAX package in distribution,
 not sample for sample; tests hand both sides the same numpy noise.
 
 Not ported yet: ``race_loop`` (needs the planner), ``mega_race_learn``
-(lap learning), ``checkpointed_race_sweep`` (orbax), obstacle corridors
-(raise ``NotImplementedError``).
+(lap learning), ``checkpointed_race_sweep`` (orbax).
 """
 
 from __future__ import annotations
@@ -33,8 +37,9 @@ import numpy as np
 import torch
 
 from ..core.config import MPCConfig, SolverConfig, VehicleParams
+from ..engine.assembly import block_curvatures, corridor_from_blocks, steerable_curvature
 from ..planner.reftable import RefTable
-from ..track.track import Track, frenet_to_global
+from ..track.track import Track, frenet_to_global, wrap_s
 from .estimator import DEFAULT_EKF_Q, EKFState, ekf_init, ekf_step
 from .friction import FrictionState, friction_init, friction_step
 from .global_loop import estimate_frenet, global_plant_step
@@ -61,11 +66,6 @@ class BatchedRaceLog(NamedTuple):
     converged: torch.Tensor  # (B, T)
 
 
-def _no_obstacles(obstacles):
-    if obstacles is not None:
-        raise NotImplementedError("obstacle corridors (corridor_from_blocks) are not ported yet")
-
-
 def _ekf_r(noise_sigma) -> np.ndarray:
     sig = np.zeros(6, np.float32) if noise_sigma is None else np.asarray(noise_sigma, np.float32)
     return np.where(sig > 0, sig ** 2, 1e-4).astype(np.float32)
@@ -75,20 +75,25 @@ def _make_segment(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: T
                   mu_true: float, mu0: float, sim_tire: str, n_sub: int, noise_sigma,
                   use_ekf: bool, adapt_mu: bool, ekf_q):
     """``run(carry, table, obstacles=None, mu_plant=None)``: ``T_seg``
-    composed steps of the module composition. ``mu_plant`` (B,) overrides
-    the plant friction per lane. Returns (carry, outs) with outs = (Xg, Xf,
-    Z, U, mu_hat, converged, iters, r_prim), each stacked (T_seg, B, ...).
+    composed steps of the module composition. ``obstacles`` ((n_obs, 4)
+    corridor blocks) reach the tracker's e_y row; ``mu_plant`` (B,)
+    overrides the plant friction per lane. Returns (carry, outs) with outs =
+    (Xg, Xf, Z, U, mu_hat, converged, iters, r_prim), each stacked (T_seg,
+    B, ...).
 
-    The tracker's infeasibility certificate is a diagnostic this log does
-    not carry, so it is switched off here."""
-    if noise_sigma is not None and not np.any(np.asarray(noise_sigma) > 0):
-        noise_sigma = None
+    The EKF's R is the JAX composition's: diag(noise_sigma^2) whenever
+    ``noise_sigma`` is given, zero channels included, and 1e-4 I only
+    without it (the racestep's kernel form floors zero channels at 1e-4
+    instead, as in the JAX package). The tracker's infeasibility
+    certificate is a diagnostic this log does not carry, so it is switched
+    off here."""
     scfg = scfg.replace(certify_infeasibility=False)
     Rn_diag = (np.asarray(noise_sigma, np.float32) ** 2 if noise_sigma is not None
                else np.full(6, 1e-4, np.float32))
+    if noise_sigma is not None and not np.any(np.asarray(noise_sigma) > 0):
+        noise_sigma = None             # nothing to draw
 
     def run(carry: RaceCarry, table: RefTable, obstacles=None, mu_plant=None):
-        _no_obstacles(obstacles)
         dev = carry.xg.device
         f32 = dict(dtype=torch.float32, device=dev)
         B = carry.xg.shape[0]
@@ -97,6 +102,7 @@ def _make_segment(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: T
         mu_p = mu_true if mu_plant is None else mu_plant
         p_plant = p.replace(mu=torch.as_tensor(mu_p, **f32).expand(B))
         sig = None if noise_sigma is None else torch.as_tensor(np.asarray(noise_sigma, np.float32), **f32)
+        blocks = None if obstacles is None else torch.as_tensor(obstacles, **f32)
         c, outs = carry, []
         for _ in range(T_seg):
             z = estimate_frenet(track, c.xg, s_hint=c.ekf.x[:, 4])
@@ -110,7 +116,7 @@ def _make_segment(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: T
             else:
                 ekf2, xf = EKFState(x=z, P=c.ekf.P), z
             fric2 = friction_step(p, c.fric, c.x_prev_f, xf, c.u_prev, cfg.dt) if adapt_mu else c.fric
-            u, mpc2, diag = mpc_step_batched(p_hat, cfg, scfg, track, xf, table, c.mpc)
+            u, mpc2, diag = mpc_step_batched(p_hat, cfg, scfg, track, xf, table, c.mpc, blocks)
             xg2 = global_plant_step(p_plant, cfg, c.xg, u, n_sub=n_sub, sim_tire=sim_tire)
             c = RaceCarry(xg=xg2, mpc=mpc2, ekf=ekf2, fric=fric2, x_prev_f=xf, u_prev=u,
                           generator=c.generator)
@@ -160,10 +166,33 @@ def batched_race_sweep(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, tra
     return BatchedRaceLog(Xg=bf(Xg), Xf=bf(Xf), U=bf(U), mu_hat=bf(mu_hat), converged=bf(conv))
 
 
+def corridor_eyb(p: VehicleParams, cfg: MPCConfig, track: Track, blocks, device=None):
+    """``eyb(s0, s_pred)``: the (N+1, 2, B) e_y corridor operand of the
+    megastep and racestep kernels for corridor ``blocks`` (n_rows, 4), the
+    JAX package's ``eyb_from_sched``. ``s0`` (B,) is the step's starting s,
+    ``s_pred`` (N+1, B) the carry's predicted s; the corridor is
+    ``corridor_from_blocks`` (margin 0, half-width ``ey_max``) along the
+    shifted schedule ``[s0, s_pred[2:], s_pred[N]]``. The block curvatures
+    are evaluated once, here."""
+    blk = torch.as_tensor(blocks, dtype=torch.float32, device=device)
+    kb = block_curvatures(track, blk)
+    kc = steerable_curvature(p, cfg.bounds.delta_max).to(blk.device)
+    half = float(cfg.bounds.ey_max)
+
+    def eyb(s0: torch.Tensor, s_pred: torch.Tensor) -> torch.Tensor:
+        sm = wrap_s(track, torch.cat([s0[None], s_pred[2:], s_pred[-1:]]))
+        lo, hi = corridor_from_blocks(sm, torch.full_like(sm, -half), torch.full_like(sm, half),
+                                      blk, 0.0, half, kappa_blk=kb, kappa_cap=kc)
+        return torch.stack([lo, hi], dim=1)
+
+    return eyb
+
+
 def make_racestep_scan(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
                        table, T: int, mu_true_b: torch.Tensor, sigma, use_ekf: bool = True,
                        adapt_mu: bool = True, sim_tire: str = "pacejka", n_sub: int = 10,
-                       ekf_q=None, obstacles=None, gate_sigma: float = 0.0, n_sub_ekf: int = 4):
+                       ekf_q=None, obstacles=None, gate_sigma: float = 0.0, n_sub_ekf: int = 4,
+                       table_arg: bool = False, obstacles_arg: bool = False):
     """Build the T-step composed runner ``run(carry0, generator)`` on the
     racestep once.
 
@@ -172,11 +201,22 @@ def make_racestep_scan(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, tra
     noise (zeros: clean, no draw). Each step draws its (6, B) noise from
     ``generator`` on the device. ``run`` returns (carry, outs) with outs =
     (Xg, Xf, U, mu_hat, converged, Z, iters, r_prim), each stacked
-    (T, ., B)."""
+    (T, ., B).
+
+    ``table_arg=True`` returns ``run(carry0, generator, table)``: the
+    reference table (shared, or per lane with (B, n) channels) comes with
+    each call. ``obstacles_arg=True``, with ``table_arg``, returns
+    ``run(carry0, generator, table, blocks)``: padded (n_rows, 4) corridor
+    blocks per call, so that moving obstacles change between segments.
+    Static ``obstacles`` apply to every call otherwise. With blocks, each
+    step's e_y corridor is ``corridor_from_blocks`` (margin 0, half-width
+    ``ey_max``) along the pre-step carry's scheduled s, ``[ekx[4],
+    X_pred[2:, 4], X_pred[N, 4]]``, handed to the kernel as ``eyb``."""
     from ..ops.megastep_kernel import megastep_params
     from ..ops.racestep_kernel import racestep
 
-    _no_obstacles(obstacles)
+    if obstacles_arg and not table_arg:
+        raise ValueError("obstacles_arg needs table_arg: the runner is run(carry, generator, table, blocks)")
     B = mu_true_b.shape[0]
     sig_np = np.asarray(sigma, np.float32)
     ekf_r = _ekf_r(sig_np)
@@ -184,7 +224,7 @@ def make_racestep_scan(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, tra
         ekf_q = np.asarray(DEFAULT_EKF_Q, np.float32)
     noisy = bool(np.any(sig_np > 0))
 
-    def run(carry, generator):
+    def run(carry, generator, tbl, blocks=None):
         dev = carry.xg.device
         f32 = dict(dtype=torch.float32, device=dev)
         prm = megastep_params(p, B, device=dev)
@@ -193,17 +233,24 @@ def make_racestep_scan(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, tra
         q = torch.as_tensor(ekf_q, **f32)
         r = torch.as_tensor(ekf_r, **f32)
         zeros = torch.zeros((6, B), **f32)
+        blocks = obstacles if blocks is None else blocks
+        eyb_of = None if blocks is None else corridor_eyb(p, cfg, track, blocks, device=dev)
         outs = []
         for _ in range(T):
             noise = sig * torch.randn((6, B), generator=generator, **f32) if noisy else zeros
-            carry, u0, diag, z = racestep(cfg, scfg, track, prm, table, carry, noise, mu_b, q, r,
+            eyb = None if eyb_of is None else eyb_of(carry.ekx[4], carry.X_pred[:, 4])
+            carry, u0, diag, z = racestep(cfg, scfg, track, prm, tbl, carry, noise, mu_b, q, r,
                                           n_sub=n_sub, n_sub_ekf=n_sub_ekf, sim_tire=sim_tire,
                                           use_ekf=use_ekf, adapt_mu=adapt_mu,
-                                          gate_sigma=gate_sigma)
+                                          gate_sigma=gate_sigma, eyb=eyb)
             outs.append((carry.xg, carry.x_prev_f, u0, diag[5], diag[2], z, diag[4], diag[0]))
         return carry, tuple(torch.stack(col) for col in zip(*outs))
 
-    return run
+    if obstacles_arg:
+        return run
+    if table_arg:
+        return lambda carry, generator, tbl: run(carry, generator, tbl)
+    return lambda carry, generator: run(carry, generator, table)
 
 
 def mega_race_sweep(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
@@ -213,7 +260,9 @@ def mega_race_sweep(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track:
                     n_sub: int = 10, ekf_q=None, obstacles=None) -> BatchedRaceLog:
     """The contract of :func:`batched_race_sweep` with every step one
     racestep launch (the kernel on CUDA tensors). The noise stream is drawn
-    per step from ``generator`` (or a new one seeded with ``seed``)."""
+    per step from ``generator`` (or a new one seeded with ``seed``).
+    ``obstacles`` (n_obs, 4) static corridor blocks reach the kernel as its
+    per-step ``eyb`` corridor."""
     from ..ops.racestep_kernel import racestep_init
 
     if cfg.model != "dynamic":

@@ -105,15 +105,16 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, tensors, floats, ints) -> None:
     """Call the C entry ``name`` with device pointers, float and int
-    parameters on the current stream; raise if the launch failed."""
+    parameters on the current stream; raise if the launch failed. A None
+    in ``tensors`` (an optional operand left out) is a null pointer."""
     lib = library()
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: operands on {dev}; the kernels take CUDA tensors")
     for t in tensors:
-        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        if t is not None and (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()):
             raise ValueError(f"{name}: every operand must be a contiguous float32 tensor on {dev}")
-    ptrs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    ptrs = (ctypes.c_void_p * len(tensors))(*(None if t is None else t.data_ptr() for t in tensors))
     fv = (ctypes.c_float * len(floats))(*floats)
     iv = (ctypes.c_int * len(ints))(*ints)
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -586,9 +586,10 @@ __device__ __forceinline__ void admm_start_g(const CoreParams<M>& P, const Sel<M
   stage_pass_g(P, S, op, L, false, rho, rinv, gr, none);
 }
 
-// Sections 1-4, stage k on thread k mod G: the
-// shifted schedule, curvature and bounds, stage matrices, linear cost, warm
-// start. The group barrier at the end publishes the workspace rows.
+// Sections 1-4, stage k on thread k mod G: the shifted schedule, curvature
+// and bounds (the e_y row from the corridor where one is given), stage
+// matrices, linear cost, warm start. The group barrier at the end publishes
+// the workspace rows.
 template <class M, int G, class O>
 __device__ void prepare_g(const CoreParams<M>& P, int b, const WsLayout<M>& W, const Lane& ws,
                           const O& op, const VehParams& pv, const float (&x)[M::NX],
@@ -627,6 +628,13 @@ __device__ void prepare_g(const CoreParams<M>& P, int b, const WsLayout<M>& W, c
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       float l = lo[c], u = (c == 0) ? cap : hi[c];
+      // the obstacle corridor replaces the e_y box before the disables, so
+      // that the warm-start clip below sees it (JAX _mpc_core's order)
+      if (c == 1 && P.eyb != nullptr) {
+        const Lane eyb = lane_of(P.eyb, b, S);
+        l = eyb[k * 2];
+        u = eyb[k * 2 + 1];
+      }
       if ((k == 0 && c < 2) || (k == N && c >= 2)) {
         l = -INFINITY;
         u = INFINITY;

@@ -14,7 +14,10 @@
 // friction-cap bounds, LPV + Van Loan + linear cost, warm-start shift,
 // Riccati factor, ADMM in chunks of `check` iterations, residuals / rho,
 // accept or limp-home), then section 9, n_sub Euler sub-steps of the
-// Frenet plant, on the group's first thread. With early exit the cluster
+// Frenet plant, on the group's first thread. An optional (N+1, 2, B) e_y
+// corridor (obstacle blocks evaluated on the host along the scheduled s)
+// replaces row 1's box in section 2; its pointer is null otherwise, and
+// the ADMM loop never reads it. With early exit the cluster
 // votes after each chunk (vote_all) and stops when all its 128 lanes have a
 // done-at: the 128-lane grouping of the TPU kernel. Lanes past B vote
 // "done" and touch no memory. The stage operands, iterate and linear terms
@@ -40,7 +43,7 @@ struct MegaParams {
   int n_sub, sim_tire, ws_rows;
 };
 
-constexpr int MEGA_PTRS = 19;
+constexpr int MEGA_PTRS = 20;
 constexpr int MEGA_INTS = 14;
 
 // At most 168 registers, so that three blocks of 128 threads fit on an SM
@@ -94,7 +97,7 @@ int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int de
   MegaParams<M> P{};
   CoreParams<M>& C = P.C;
   const float** in[] = {&P.x, &C.Xp, &C.Up, &C.sw, &C.lamw, &C.uprev, &C.rho, &P.xref,
-                        &P.prm, &C.kappa, &C.taux};
+                        &P.prm, &C.kappa, &C.taux, &C.eyb};
   float** out[] = {&P.x_out, &C.Xp_out, &C.Up_out, &C.s_out, &C.lam_out, &C.u0_out,
                    &C.stats, &P.ws};
   int p = 0;
@@ -118,7 +121,8 @@ int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int de
 
 }  // namespace arl
 
-// C entry: device pointers, float and int parameters in the order of
+// C entry: device pointers (the corridor, the last input, may be null),
+// float and int parameters in the order of
 // ops/megastep_kernel.py::_megastep_cuda (the last three ints: operands in
 // shared memory, its bytes per block, the model: 0 dynamic, 1 kinematic).
 // Returns -1 on an operand-count mismatch, -2 on a workspace- or

@@ -22,6 +22,10 @@ struct CoreParams {
   const float *Xp, *Up, *sw, *lamw, *uprev, *rho;   // warm start in
   const float *kappa;   // (n_cells,) curvature table
   const float *taux;    // (2,) [track length, 1/ds]
+  // (N+1, 2, B) per-stage e_y corridor (lo, hi) replacing row 1's box, or
+  // null: obstacles on the fast path (JAX ops/megastep_kernel.py::_mpc_core,
+  // eyb_ref). Read once per stage in prepare_g, never in the ADMM loop.
+  const float *eyb;
   float *Xp_out, *Up_out, *s_out, *lam_out, *u0_out, *stats;
   int B, N, n_cells, max_iter, check, early_exit, tire, kappa_speed_cap;
   float dt, sigma, alpha, eps_abs, eps_rel, eps_fallback;

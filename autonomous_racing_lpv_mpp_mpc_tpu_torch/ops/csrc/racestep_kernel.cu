@@ -23,12 +23,14 @@
 //   3. friction RLS: axle forces at the midpoint of x_prev_f and xf, two
 //      excitation-gated scalar updates with the analytic dFy/dmu (the
 //      result is the next step's mu-hat), on every thread of the group;
-//   4. references: a shared RefTable sampled into the lane's workspace
-//      rows along the shifted schedule (linear interpolation of vx, e_y and
-//      the precomputed e_psi node channel), row k on thread k mod G, or the
-//      caller's tensor rows;
+//   4. references: a RefTable, shared or one per lane, sampled into the
+//      lane's workspace rows along the shifted schedule (linear
+//      interpolation of vx, e_y and the precomputed e_psi node channel),
+//      row k on thread k mod G, or the caller's tensor rows;
 //   5. the group tracker core of group_core.cuh at mu-hat (stage operands
-//      in shared memory, the 128-lane early-exit vote across the cluster);
+//      in shared memory, the 128-lane early-exit vote across the cluster),
+//      with the optional (N+1, 2, B) e_y corridor of obstacle blocks in
+//      place of row 1's box (CoreParams::eyb, null without obstacles);
 //   6. n_sub Euler sub-steps of the world-frame plant at the lane's true mu,
 //      on the group's first thread.
 //
@@ -41,6 +43,14 @@
 // measurement reads 2 (2 win_cells + 1) table floats per lane from the
 // L1/L2-cached pose tables; nothing but the carry crosses device memory
 // between stages.
+//
+// Per-lane reference tables (the TPU kernel's per_lane_refs, one table per
+// car) are stored lane-major, (B, n_ref): lane b's row starts at
+// b * ref_stride. The group's threads sample its N+1 stages at s values a
+// node or so apart, so with a contiguous row their loads fall in one or two
+// 32-byte sectors; the TPU's batch-last (n_ref, B) columns would put every
+// thread's load in its own sector, B floats away. A shared table has
+// stride 0 and stays in L1/L2 for every lane.
 #include "group_core.cuh"
 
 namespace arl {
@@ -50,17 +60,19 @@ struct RaceParams {
   // inputs, batch-last
   const float *xg, *ekx, *ekP, *fr, *xprev, *noise, *mu_true, *xref, *prm;
   // tables: pose X, Y, psi (n_cells,), EKF q, r (6,), reference vx, ey,
-  // e_psi nodes (n_ref,), reference [length, 1/ds]
+  // e_psi nodes (n_ref,) shared or (B, n_ref) per lane, reference
+  // [length, 1/ds]
   const float *Xt, *Yt, *Pt, *ekq, *ekr, *rvx, *rey, *rep, *rtaux;
   // outputs, batch-last
   float *xg_out, *ekx_out, *ekP_out, *fr_out, *xf_out, *z_out, *ws;
-  int n_sub, sim_tire, ws_rows, n_sub_ekf, use_ekf, adapt_mu, use_table, n_ref, win_cells;
+  int n_sub, sim_tire, ws_rows, n_sub_ekf, use_ekf, adapt_mu, use_table, n_ref, ref_stride,
+      win_cells;
   Sel<Dynamic> Sl;
   float gate_sigma, forgetting, min_sensitivity, fd_eps, inv_fd_eps;
 };
 
-constexpr int RACE_PTRS = 39;
-constexpr int RACE_INTS = 19;
+constexpr int RACE_PTRS = 40;
+constexpr int RACE_INTS = 20;
 constexpr int RACE_FLOATS = core_floats<Dynamic>() + 5;
 constexpr float MU_MIN = 0.1f;
 constexpr float MU_MAX = 1.5f;
@@ -347,24 +359,26 @@ __device__ __forceinline__ void friction_rls(const RaceParams& P, const VehParam
   }
 }
 
-// 4. The lane's (N+1, NX) reference rows from the shared table, sampled at
-// the shifted schedule's s: row 0 at xf, row k at X_pred[min(k+1, N)].
-// Row k on thread k mod G.
+// 4. The lane's (N+1, NX) reference rows from its table (the shared one, or
+// its own row of the per-lane tables), sampled at the shifted schedule's s:
+// row 0 at xf, row k at X_pred[min(k+1, N)]. Row k on thread k mod G.
 template <int G>
 __device__ __forceinline__ void table_refs(const RaceParams& P, int b, float s0, const Grp<G>& gr,
                                            const Lane& rows) {
   const int N = P.C.N, S = P.C.B, n = P.n_ref;
   const Lane Xp = lane_of(P.C.Xp, b, S);
   const float Lt = P.rtaux[0], inv_dst = P.rtaux[1];
+  const size_t row = (size_t)b * P.ref_stride;
+  const float *rvx = P.rvx + row, *rey = P.rey + row, *rep = P.rep + row;
   for (int k = gr.g; k <= N; k += G) {
     const float s = k == 0 ? s0 : Xp[min(k + 1, N) * NX + 4];
     const float ff = __fmul_rn(wrap_s(s, Lt), inv_dst);
     const int i0 = min(max(__float2int_rz(ff), 0), n - 1);
     const int i1 = i0 + 1 == n ? 0 : i0 + 1;
     const float t = __fsub_rn(ff, (float)i0), w0 = 1.0f - t;
-    const float vx = __fadd_rn(__fmul_rn(__ldg(P.rvx + i0), w0), __fmul_rn(__ldg(P.rvx + i1), t));
-    const float ey = __fadd_rn(__fmul_rn(__ldg(P.rey + i0), w0), __fmul_rn(__ldg(P.rey + i1), t));
-    const float ep = __fadd_rn(__fmul_rn(__ldg(P.rep + i0), w0), __fmul_rn(__ldg(P.rep + i1), t));
+    const float vx = __fadd_rn(__fmul_rn(__ldg(rvx + i0), w0), __fmul_rn(__ldg(rvx + i1), t));
+    const float ey = __fadd_rn(__fmul_rn(__ldg(rey + i0), w0), __fmul_rn(__ldg(rey + i1), t));
+    const float ep = __fadd_rn(__fmul_rn(__ldg(rep + i0), w0), __fmul_rn(__ldg(rep + i1), t));
     rows[k * NX + 0] = vx;
     rows[k * NX + 1] = 0.0f;
     rows[k * NX + 2] = 0.0f;
@@ -469,7 +483,8 @@ __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_co
 
 }  // namespace arl
 
-// C entry: device pointers, float and int parameters in the order of
+// C entry: device pointers (the corridor, the last input, may be null),
+// float and int parameters in the order of
 // ops/racestep_kernel.py::_racestep_cuda (the last two ints: operands in
 // shared memory, its bytes per block). Returns -1 on an operand-count
 // mismatch, -2 on a workspace- or shared-memory-size mismatch, -3 on a bad
@@ -484,7 +499,7 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
   const float** in[] = {&P.xg, &P.ekx, &P.ekP, &P.fr, &P.xprev, &P.noise, &P.mu_true,
                         &C.Xp, &C.Up, &C.sw, &C.lamw, &C.uprev, &C.rho, &P.xref, &P.prm,
                         &C.kappa, &C.taux, &P.Xt, &P.Yt, &P.Pt, &P.ekq, &P.ekr,
-                        &P.rvx, &P.rey, &P.rep, &P.rtaux};
+                        &P.rvx, &P.rey, &P.rep, &P.rtaux, &C.eyb};
   float** out[] = {&P.xg_out, &P.ekx_out, &P.ekP_out, &P.fr_out, &P.xf_out, &P.z_out,
                    &C.Xp_out, &C.Up_out, &C.s_out, &C.lam_out, &C.u0_out, &C.stats, &P.ws};
   int p = 0;
@@ -493,7 +508,7 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
   int ops_smem = 0, smem = 0;
   int* ints[] = {&C.B, &C.N, &C.n_cells, &P.n_sub, &C.max_iter, &C.check, &C.early_exit,
                  &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows, &P.n_sub_ekf,
-                 &P.use_ekf, &P.adapt_mu, &P.use_table, &P.n_ref, &P.win_cells,
+                 &P.use_ekf, &P.adapt_mu, &P.use_table, &P.n_ref, &P.ref_stride, &P.win_cells,
                  &ops_smem, &smem};
   for (int i = 0; i < RACE_INTS; ++i) *ints[i] = iv[i];
   read_core_floats(C, fv);
@@ -503,7 +518,7 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
   if (P.ws_rows != WsLayout<Dynamic>(C.N).total + (C.N + 1) * NX) return -2;
   if (smem != (ops_smem ? BLOCK_LANES * OpsLayout<Dynamic>(C.N).total * 4 : 0)) return -2;
   if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1 || P.n_sub < 1 || P.n_sub_ekf < 1 ||
-      C.n_cells < 1 || (P.use_table && P.n_ref < 1))
+      C.n_cells < 1 || (P.use_table && P.n_ref < 1) || P.ref_stride < 0)
     return -3;
   cudaSetDevice(device);
   const int grid = (C.B + BLOCK - 1) / BLOCK * CLUSTER;

@@ -21,9 +21,12 @@ at a cell boundary.
 
 Both the dynamic (nx=6) and the kinematic (nx=4, BASELINE config 1)
 bicycle; ``cfg.model`` selects the LPV stages, the plant and the carry's
-state width. On the card the kernel runs the group-cooperative tracker core
-of the fused kernel and the racestep, in their launch shape
-(``fused_kernel.launch_shape``).
+state width. An optional ``eyb`` (N+1, 2, B) per-stage e_y corridor (lo,
+hi), ``engine.assembly.corridor_from_blocks`` evaluated along the
+scheduled s, replaces row 1's +-ey_max bounds before the stage-0 and
+terminal disables: obstacles on the fast path. On the card the kernel runs
+the group-cooperative tracker core of the fused kernel and the racestep, in
+their launch shape (``fused_kernel.launch_shape``).
 
 :func:`megastep_plain` is the plain PyTorch version (batch-last); the
 wrapper :func:`megastep` takes it for CPU tensors and launches the kernel
@@ -80,13 +83,13 @@ class MegaCarry(NamedTuple):
     rho: torch.Tensor      # (B,)
 
 
-def _check_supported(cfg: MPCConfig, scfg: SolverConfig, eyb, cache):
+def _check_supported(cfg: MPCConfig, scfg: SolverConfig, cache, eyb=None, B: int = 0):
+    if eyb is not None and tuple(eyb.shape) != (cfg.N + 1, 2, B):
+        raise ValueError(f"eyb has shape {tuple(eyb.shape)}, expected ({cfg.N + 1}, 2, {B})")
     if cfg.model not in MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.linearization != "lpv" or cfg.discretization != "expm":
         raise NotImplementedError("the megastep builds LPV stages with the Van Loan expm")
-    if eyb is not None:
-        raise NotImplementedError("per-stage e_y corridors (eyb) are not ported yet")
     if cache is not None or scfg.cache_build:
         raise NotImplementedError("discretization caching (cache_build) is not ported")
     if scfg.max_iter < 1:
@@ -116,7 +119,8 @@ def megastep_refs(cfg: MPCConfig, x_ref, carry: MegaCarry) -> torch.Tensor:
     B = carry.x.shape[-1]
     if isinstance(x_ref, RefTable):
         if x_ref.vx.dim() != 1:
-            raise NotImplementedError("per-lane reference tables are not ported yet")
+            raise NotImplementedError("the megastep samples one shared table, as the JAX "
+                                      "megastep_refs does; per-lane tables run on the racestep")
         s_idx, _ = model_s_ey(cfg.model)
         s_sched = torch.cat([carry.x[s_idx][None], carry.X_pred[2:, s_idx], carry.X_pred[-1:, s_idx]],
                             dim=0)
@@ -143,7 +147,7 @@ def _kap_lookup(track: Track, device):
 
 
 def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: dict, kap_at,
-                   carry, xref: torch.Tensor, k: MegaConsts):
+                   carry, xref: torch.Tensor, k: MegaConsts, eyb=None):
     """The tracker step of the kernels, sections 1-8, in plain PyTorch:
     schedule shift, curvature + bounds, LPV + Van Loan, warm start, Riccati
     factor, ADMM (with the 128-lane early exit), residuals / rho, accept or
@@ -152,9 +156,10 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
 
     ``x_now`` (nx, B) is the state the step starts from, ``pv`` the
     per-lane parameter rows (mu may be an estimate), ``carry`` anything
-    with the warm-start fields of :class:`MegaCarry`, ``xref`` (N+1, nx, B).
-    Returns (X_pred, U_pred, s, lam, u0 (NU, B), diag (5, B): r_prim,
-    r_dual, converged, rho_next, iters)."""
+    with the warm-start fields of :class:`MegaCarry`, ``xref`` (N+1, nx, B),
+    ``eyb`` an optional (N+1, 2, B) e_y corridor for row 1. Returns (X_pred,
+    U_pred, s, lam, u0 (NU, B), diag (5, B): r_prim, r_dual, converged,
+    rho_next, iters)."""
     N, dt = cfg.N, float(cfg.dt)
     nx, _ = model_dims(cfg.model)
     s_idx, ey_idx = model_s_ey(cfg.model)
@@ -180,6 +185,10 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
     lb = lo[None, :, None].expand(N + 1, NC, B).clone()
     ub = hi[None, :, None].expand(N + 1, NC, B).clone()
     ub[:, 0] = cap
+    if eyb is not None:
+        # the corridor replaces row 1 before the disables, so the warm-start
+        # clip below sees it too
+        lb[:, 1], ub[:, 1] = eyb[:, 0], eyb[:, 1]
     inf = float("inf")
     lb[0, :2], ub[0, :2] = -inf, inf
     lb[N, 2:], ub[N, 2:] = -inf, inf
@@ -235,17 +244,17 @@ def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
                    eyb=None, cache=None):
     """Plain PyTorch version of the megastep kernel (any device): the
     shared tracker core, then ``n_sub`` Euler sub-steps of the Frenet plant
-    of ``cfg.model``.
+    of ``cfg.model``; ``eyb`` an optional (N+1, 2, B) e_y corridor.
 
     Returns (new_carry, u0 (NU, B), diag (5, B): r_prim, r_dual, converged,
     rho_next, iters)."""
-    _check_supported(cfg, scfg, eyb, cache)
+    _check_supported(cfg, scfg, cache, eyb, carry.x.shape[-1])
     dev = carry.x.device
     pv = unpack_params(prm)
     kap_at = _kap_lookup(track, dev)
     X_pred, U_pred, s_f, lam_f, u0, diag = mpc_core_plain(
         cfg, scfg, carry.x, pv, kap_at, carry, megastep_refs(cfg, x_ref, carry),
-        _make_consts(cfg, scfg, dev))
+        _make_consts(cfg, scfg, dev), eyb)
 
     # 9. plant: fine Euler sub-steps
     s_idx, _ = model_s_ey(cfg.model)
@@ -291,6 +300,7 @@ def megastep(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.Tensor
     """One closed-loop step for every scenario: the plain version for CPU
     tensors, one CUDA kernel launch for CUDA tensors.
 
+    ``eyb`` (N+1, 2, B), optional, replaces the e_y row's bounds per stage.
     Returns (new_carry, u0 (NU, B), diag (5, B): r_prim, r_dual,
     converged, rho_next, iters — the done-at iteration)."""
     dev = carry.x.device
@@ -303,11 +313,11 @@ def megastep(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.Tensor
 
 def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, cache):
     """Launch the kernel on the carry's device (one launch per step)."""
-    _check_supported(cfg, scfg, eyb, cache)
     dev = carry.x.device
     N = cfg.N
     nx, _ = model_dims(cfg.model)
     B = carry.x.shape[-1]
+    _check_supported(cfg, scfg, cache, eyb, B)
     _check_cuda_operands(carry, prm, N, nx)
     sim_tire = sim_tire or cfg.tire
     if cfg.tire not in TIRES or sim_tire not in TIRES:
@@ -315,8 +325,9 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
     kw = dict(dtype=torch.float32, device=dev)
     xref = megastep_refs(cfg, x_ref, carry)
     kappa, taux = _track_inputs(track, dev)
+    # the corridor pointer is null without one: the kernel then keeps the box
     ins = [carry.x, carry.X_pred, carry.U_pred, carry.s, carry.lam, carry.u_prev,
-           carry.rho, xref, prm, kappa, taux]
+           carry.rho, xref, prm, kappa, taux, eyb]
     out = MegaCarry(
         x=torch.empty((nx, B), **kw), X_pred=torch.empty((N + 1, nx, B), **kw),
         U_pred=torch.empty((N, NU, B), **kw), s=torch.empty((N + 1, NC, B), **kw),
@@ -328,8 +339,8 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
     ws = torch.empty((ws_rows, B), **kw)
     _cuda.launch(
         "arl_megastep",
-        [t.contiguous() for t in ins] + [out.x, out.X_pred, out.U_pred, out.s, out.lam,
-                                         out.u_prev, stats, ws],
+        [t if t is None else t.contiguous() for t in ins]
+        + [out.x, out.X_pred, out.U_pred, out.s, out.lam, out.u_prev, stats, ws],
         core_floats(cfg, scfg),
         [B, N, track.n_cells, n_sub, scfg.max_iter, max(1, scfg.check_termination),
          int(scfg.early_exit), TIRES[cfg.tire], TIRES[sim_tire], int(cfg.kappa_speed_cap),

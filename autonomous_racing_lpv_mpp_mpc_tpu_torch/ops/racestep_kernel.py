@@ -13,11 +13,13 @@ Replaces the JAX package's ``ops/racestep_kernel.py::_racestep_kernel``
     3 friction RLS: axle-force inversion, two excitation-gated scalar
       updates with the analytic dFy/dmu (the result is the NEXT step's
       mu-hat; the EKF and the tracker run at the previous one)
-    4 references: a shared :class:`RefTable` sampled along the shifted
-      schedule (vx, e_y and a precomputed e_psi node channel, linear
-      interpolation), or tensor references passed through
+    4 references: a :class:`RefTable` sampled along the shifted schedule
+      (vx, e_y and a precomputed e_psi node channel, linear interpolation),
+      shared by every lane or one per lane (channels (B, n)), or tensor
+      references passed through
     5 tracker: the megastep's sections 1-8 (``mpc_core_plain`` / the CUDA
-      ``mpc_core``) at mu-hat
+      ``mpc_core_g``) at mu-hat, with an optional (N+1, 2, B) e_y corridor
+      ``eyb`` in place of row 1's box (obstacles)
     6 plant: ``n_sub`` Euler sub-steps of the world-frame bicycle at each
       lane's true mu
 
@@ -116,9 +118,12 @@ def racestep_init(p: VehicleParams, cfg: MPCConfig, track: Track, x0_b: torch.Te
 def _ref_epsi_nodes(table: RefTable, probe: float = EPSI_PROBE) -> torch.Tensor:
     """The racing line's heading at the table nodes: ``refs_from_table``'s
     +-probe slope (atan, seam guard) evaluated once, so the step samples
-    one channel instead of two probes per stage."""
+    one channel instead of two probes per stage. (n,), or (B, n) for
+    per-lane tables, at lane 0's node spacing (the JAX package vmaps this
+    over the lanes)."""
     n = table.vx.shape[-1]
-    s_nodes = torch.arange(n, dtype=torch.float32, device=table.vx.device) * table.ds
+    s_nodes = torch.arange(n, dtype=torch.float32, device=table.vx.device) * table.ds.reshape(-1)[0]
+    s_nodes = s_nodes.expand(table.vx.shape)
     eyp = table.lookup(s_nodes + probe)[1]
     eym = table.lookup(s_nodes - probe)[1]
     ep = torch.atan2(eyp - eym, torch.full_like(eyp, 2.0 * probe))
@@ -126,17 +131,19 @@ def _ref_epsi_nodes(table: RefTable, probe: float = EPSI_PROBE) -> torch.Tensor:
 
 
 def _aux(length, ds, device) -> torch.Tensor:
-    """[length, 1/ds] of a uniform table, float32."""
-    return torch.stack([length, 1.0 / ds]).to(dtype=torch.float32, device=device)
+    """[length, 1/ds] of a uniform table, float32; per-lane tables share
+    lane 0's grid (one track)."""
+    return torch.stack([length.reshape(-1)[0], 1.0 / ds.reshape(-1)[0]]).to(dtype=torch.float32,
+                                                                             device=device)
 
 
 _TABLE_INPUTS = weakref.WeakKeyDictionary()   # RefTable -> {device: inputs}
 
 
 def _ref_table_inputs(table: RefTable, device):
-    """(vx, ey, e_psi nodes, [length, 1/ds]) of a shared reference table,
-    prepared once per table and device (a table is immutable: a new plan
-    is a new RefTable)."""
+    """(vx, ey, e_psi nodes, [length, 1/ds]) of a reference table, the
+    channels (n,) shared or (B, n) per lane, prepared once per table and
+    device (a table is immutable: a new plan is a new RefTable)."""
     per_dev = _TABLE_INPUTS.setdefault(table, {})
     key = torch.device(device)
     if key not in per_dev:
@@ -154,14 +161,18 @@ def _pose_tables(track: Track, device):
                  for a in (track.X, track.Y, track.psi))
 
 
-def _check_race_supported(cfg: MPCConfig, scfg: SolverConfig, x_ref, eyb):
+def _check_race_supported(cfg: MPCConfig, scfg: SolverConfig, x_ref, eyb, B: int):
     if cfg.model != "dynamic":
         raise NotImplementedError("the composed step needs the dynamic model")
-    if isinstance(x_ref, RefTable) and x_ref.vx.dim() != 1:
-        raise NotImplementedError("per-lane reference tables are not ported yet")
-    if eyb is not None:
-        raise NotImplementedError("obstacle corridors (eyb) are not ported yet")
-    _check_supported(cfg, scfg, None, None)
+    if isinstance(x_ref, RefTable) and x_ref.vx.dim() == 2 and x_ref.vx.shape[0] != B:
+        raise ValueError(f"racestep: per-lane tables have {x_ref.vx.shape[0]} lanes, the carry {B}")
+    _check_supported(cfg, scfg, None, eyb, B)
+
+
+def _take(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """a[i] of a shared (n,) channel, or lane b's a[b, i[:, b]] of a
+    per-lane (B, n) one; i (K, B)."""
+    return a[i] if a.dim() == 1 else torch.gather(a, 1, i.T).T
 
 
 def _win_cells(track: Track, window_m: float) -> int:
@@ -178,11 +189,11 @@ def racestep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
 
     Returns (new_carry, u0 (NU, B), diag (6, B): r_prim, r_dual, converged,
     rho_next, iters, mu_hat, z (6, B) the raw measurement)."""
-    _check_race_supported(cfg, scfg, x_ref, eyb)
     N, dt = cfg.N, float(cfg.dt)
     dev = carry.xg.device
     f32 = dict(dtype=torch.float32, device=dev)
     B = carry.xg.shape[-1]
+    _check_race_supported(cfg, scfg, x_ref, eyb, B)
     pv = unpack_params(prm)
     kap_at = _kap_lookup(track, dev)
     taux = _aux(track.length, track.ds, dev)
@@ -284,14 +295,14 @@ def racestep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
     # 4. references along the shifted schedule
     if isinstance(x_ref, RefTable):
         rvx, rey, rep, rtaux = _ref_table_inputs(x_ref, dev)
-        n_ref = rvx.shape[0]
+        n_ref = rvx.shape[-1]
         s_k = torch.cat([xf[4][None], carry.X_pred[2:, 4], carry.X_pred[-1:, 4]], dim=0)
         smt = s_k - rtaux[0] * torch.floor(s_k / rtaux[0])
         ff = smt * rtaux[1]
         i0 = torch.clamp(ff.to(torch.int32), 0, n_ref - 1).long()
         i1 = torch.remainder(i0 + 1, n_ref)
         tt = ff - i0.to(torch.float32)
-        at = lambda a: a[i0] * (1.0 - tt) + a[i1] * tt
+        at = lambda a: _take(a, i0) * (1.0 - tt) + _take(a, i1) * tt
         zr = torch.zeros_like(tt)
         xref = torch.stack([at(rvx), zr, zr, at(rep), zr, at(rey)], dim=1)
     else:
@@ -299,7 +310,7 @@ def racestep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
 
     # 5. tracker at mu-hat
     X_pred, U_pred, s_f, lam_f, u0, diag = mpc_core_plain(
-        cfg, scfg, xf, pv_hat, kap_at, carry, xref, _make_consts(cfg, scfg, dev))
+        cfg, scfg, xf, pv_hat, kap_at, carry, xref, _make_consts(cfg, scfg, dev), eyb)
 
     # 6. plant: world-frame Euler sub-steps at the true mu
     pv_plant = dict(pv, mu=mu_true.reshape(B).to(**f32))
@@ -331,9 +342,10 @@ def racestep(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.Tensor
 
     ``prm`` (10, B) holds the NOMINAL parameters (mu row = the controller
     seed mu0), ``x_ref`` a shared (N+1, NX) array, a batch-last
-    (N+1, NX, B) one or a shared :class:`RefTable`, ``noise`` (6, B) the
-    pre-scaled sensor noise of this step, ``mu_true`` (B,) each lane's
-    plant friction, ``ekf_q``/``ekf_r`` (6,) the EKF's diagonal Q and R.
+    (N+1, NX, B) one or a :class:`RefTable`, shared or per lane (channels
+    (B, n)), ``noise`` (6, B) the pre-scaled sensor noise of this step,
+    ``mu_true`` (B,) each lane's plant friction, ``ekf_q``/``ekf_r`` (6,) the
+    EKF's diagonal Q and R, ``eyb`` an optional (N+1, 2, B) e_y corridor.
     Returns (new_carry, u0 (NU, B), diag (6, B): r_prim, r_dual,
     converged, rho_next, iters, mu_hat, z (6, B))."""
     dev = carry.xg.device
@@ -374,10 +386,10 @@ def _racestep_cuda(cfg, scfg, track, prm, x_ref, carry, noise, mu_true, ekf_q, e
                    n_sub_ekf, sim_tire, use_ekf, adapt_mu, gate_sigma, forgetting,
                    min_sensitivity, window_m, eyb):
     """Launch the kernel on the carry's device (one launch per step)."""
-    _check_race_supported(cfg, scfg, x_ref, eyb)
     dev = carry.xg.device
     N = cfg.N
     B = carry.xg.shape[-1]
+    _check_race_supported(cfg, scfg, x_ref, eyb, B)
     _check_race_operands(carry, prm, noise, mu_true, N)
     sim_tire = sim_tire or cfg.tire
     if cfg.tire not in TIRES or sim_tire not in TIRES:
@@ -387,16 +399,20 @@ def _racestep_cuda(cfg, scfg, track, prm, x_ref, carry, noise, mu_true, ekf_q, e
     if use_table:
         rvx, rey, rep, rtaux = _ref_table_inputs(x_ref, dev)
         xref = torch.zeros((1,), **kw)
+        # a per-lane table is (B, n_ref), lane-major: lane b's row starts at
+        # b * n_ref; a shared one has stride 0
+        ref_stride = rvx.shape[-1] if rvx.dim() == 2 else 0
     else:
         xref = megastep_refs(cfg, x_ref, _RefView(x=carry.ekx, X_pred=carry.X_pred))
         rvx = rey = rep = torch.zeros((1,), **kw)
         rtaux = torch.ones((2,), **kw)
+        ref_stride = 0
     Xt, Yt, Pt = _pose_tables(track, dev)
     ins = [carry.xg, carry.ekx, carry.ekP, carry.fr, carry.x_prev_f, noise, mu_true,
            carry.X_pred, carry.U_pred, carry.s, carry.lam, carry.u_prev, carry.rho, xref, prm,
            track.kappa.to(**kw), _aux(track.length, track.ds, dev), Xt, Yt, Pt,
            torch.as_tensor(ekf_q, **kw).reshape(6), torch.as_tensor(ekf_r, **kw).reshape(6),
-           rvx, rey, rep, rtaux]
+           rvx, rey, rep, rtaux, eyb]
     new = RaceMegaCarry(
         xg=torch.empty((6, B), **kw), ekx=torch.empty((6, B), **kw),
         ekP=torch.empty((6, 6, B), **kw), fr=torch.empty((2, B), **kw),
@@ -409,14 +425,14 @@ def _racestep_cuda(cfg, scfg, track, prm, x_ref, carry, noise, mu_true, ekf_q, e
     ws = torch.empty((racestep_workspace(N), B), **kw)
     _cuda.launch(
         "arl_racestep",
-        [t.contiguous() for t in ins] + [new.xg, new.ekx, new.ekP, new.fr, new.x_prev_f, z,
-                                         new.X_pred, new.U_pred, new.s, new.lam, new.u_prev,
-                                         stats, ws],
+        [t if t is None else t.contiguous() for t in ins]
+        + [new.xg, new.ekx, new.ekP, new.fr, new.x_prev_f, z, new.X_pred, new.U_pred, new.s, new.lam,
+           new.u_prev, stats, ws],
         list(core_floats(cfg, scfg)) + [gate_sigma, forgetting, min_sensitivity, FD_EPS, 1.0 / FD_EPS],
         [B, N, track.n_cells, n_sub, scfg.max_iter, max(1, scfg.check_termination),
          int(scfg.early_exit), TIRES[cfg.tire], TIRES[sim_tire], int(cfg.kappa_speed_cap),
          racestep_workspace(N), n_sub_ekf, int(use_ekf), int(adapt_mu), int(use_table),
-         rvx.shape[0] if use_table else 0, _win_cells(track, window_m),
+         rvx.shape[-1] if use_table else 0, ref_stride, _win_cells(track, window_m),
          *launch_shape(N).ints()],
     )
     racestep.launches += 1

@@ -15,8 +15,10 @@ from ..models import model_nx
 
 @dataclasses.dataclass(frozen=True)
 class RefTable:
-    """Uniform-grid reference table; ``ds`` and ``length`` are 0-d tensors,
-    the channels (n,) tensors shared by every lane."""
+    """Uniform-grid reference table. The channels are (n,) tensors shared
+    by every lane, or (B, n): one table per lane (the JAX package's table
+    with leaves broadcast to (B,) + shape). ``ds`` and ``length`` are 0-d,
+    or (B,) for per-lane tables."""
 
     ds: torch.Tensor
     length: torch.Tensor
@@ -31,14 +33,22 @@ class RefTable:
         return RefTable(*(getattr(self, f.name).to(device) for f in dataclasses.fields(self)))
 
     def lookup(self, s: torch.Tensor):
-        """Linear-interpolated (vx_ref, ey_ref, delta_ff) at arc length s."""
-        sm = s - self.length * torch.floor(s / self.length)
-        n = self.vx.shape[0]
-        f = sm / self.ds
+        """Linear-interpolated (vx_ref, ey_ref, delta_ff) at arc length s.
+        With per-lane tables, s is (B, ...) and lane b reads its own row."""
+        per_lane = self.vx.dim() == 2
+        lane = lambda a: a.reshape(a.shape + (1,) * (s.dim() - a.dim())) if per_lane else a
+        length, ds = lane(self.length), lane(self.ds)
+        sm = s - length * torch.floor(s / length)
+        n = self.vx.shape[-1]
+        f = sm / ds
         i0 = torch.clamp(f.to(torch.int32), 0, n - 1).long()
         i1 = torch.remainder(i0 + 1, n)
         t = f - i0.to(f.dtype)
-        interp = lambda a: a[i0] * (1 - t) + a[i1] * t
+        if per_lane:
+            at = lambda a, i: torch.gather(a, 1, i.reshape(i.shape[0], -1)).reshape(i.shape)
+        else:
+            at = lambda a, i: a[i]
+        interp = lambda a: at(a, i0) * (1 - t) + at(a, i1) * t
         return interp(self.vx), interp(self.ey), interp(self.delta)
 
 

@@ -6,8 +6,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ops/csrc`` with nvcc, holds
-each against its plain PyTorch version on the card, then drives four main
-paths:
+each against its plain PyTorch version on the card (the megastep and the
+racestep also with an obstacle corridor, the racestep with per-lane
+reference tables), then drives five main paths:
 
 - the batched receding-horizon tracker of ``bench.py``: B=4096 scenarios of
   the dynamic bicycle on the racetrack, N=20, dt=1/30, constant reference
@@ -31,7 +32,15 @@ paths:
 - BASELINE config 1 batched: the kinematic bicycle, N=10, on the oval,
   constant reference vx=1.5, a 64 x 64 grid of initial e_y and friction
   from vx0=0.5 — K=500 steps through the fused path, then K=500 through
-  the kinematic megastep, then a few steps through the solver-only kernel.
+  the kinematic megastep, then a few steps through the solver-only kernel;
+- the composed protocol racing moving opponents (``race_loop``'s mega
+  segments without the planner): the second path's cars, each with its own
+  reference table (vx scaled by sqrt(mu_true / 1.2)), three opponents
+  (s0 = 0.2, 0.5, 0.8 of the lap, e_y = 0.15, -0.15, 0, v = 0.8, 1.0, 0.6)
+  whose swept blocks (``opponents_obstacle_fn``, padded to 8 rows) are
+  refreshed every 60 steps, 9 segments through ``make_racestep_scan(...,
+  table_arg=True, obstacles_arg=True)``: one racestep launch per step with
+  the e_y corridor operand; then the same with all-dummy blocks.
 
 The new paths build their tracks, grids and references without naming a
 device: the port's default device is the card. The ``kernels`` line has
@@ -57,8 +66,9 @@ first check of freshly edited kernels) and prints no result.
 ``--ab`` measures an older checkout of the port the same way: copy this
 script to that checkout's root and run it there with ``--ab``. It skips
 the ``[shape]`` lines (the group kernels' launch shape, which older
-checkouts lack) and the solver-only kernel at na=6 (which they do not
-take), and runs every other phase. A one-call A/B of a change
+checkouts lack), the solver-only kernel at na=6, the corridor and per-lane
+table phases and the fifth path (which they do not take), and runs every
+other phase. A one-call A/B of a change
 runs the parent's copy and the change's script in turn (parent, change,
 change, parent) and compares their lines.
 """
@@ -81,6 +91,9 @@ K_MAIN = 500
 K_ADMM_ROUTE = 5
 K_RACE_CMP = 5
 K_FUSED_WARM = 50
+K_OBS_CMP = 3          # racestep steps held against plain with eyb and per-lane tables
+OBS_SEGMENT = 60       # steps between block refreshes on main path 5
+K_OBS_SEGMENTS = 9
 SIGMA = (0.03, 0.01, 0.02, 0.01, 0.02, 0.01)
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, SXM, 700 W
 H100_BYTES_S = 3.35e12      # HBM3
@@ -322,19 +335,24 @@ def fused_bytes(nx, N):
     return 4 * (ins + outs)
 
 
-def mega_bytes(nx, N):
+def mega_bytes(nx, N, eyb=False):
     """Carry in and out (x, X_pred, U_pred, s, lam, u_prev), rho, xref, prm,
-    stats (the shared curvature table is added per call)."""
+    stats, and the (N+1, 2) e_y corridor where one is given (the shared
+    curvature table is added per call)."""
     carry = nx + (N + 1) * nx + 2 * N + 2 * 6 * (N + 1) + 2
-    return 4 * (2 * carry + 1 + (N + 1) * nx + 10 + 8)
+    return 4 * (2 * carry + 1 + (N + 1) * nx + 10 + 8 + (2 * (N + 1) if eyb else 0))
 
 
-def race_bytes(N):
+def race_bytes(N, eyb=False, per_lane=False):
     """The race carry in and out (xg, ekx, ekP, fr, x_prev, X_pred, U_pred,
-    s, lam, u_prev), noise, xf, z, mu_true, rho, prm, stats (the shared
-    tables are added per call)."""
+    s, lam, u_prev), noise, xf, z, mu_true, rho, prm, stats; the (N+1, 2)
+    e_y corridor where one is given; with per-lane tables the lane's own
+    table nodes that its N+1 reference rows sample (two nodes per row in
+    each of 3 channels: what this step needs of its 3 x n_ref row). The
+    shared tables are added per call."""
     carry = 6 + 6 + 36 + 2 + 6 + (N + 1) * 6 + 2 * N + 2 * 6 * (N + 1) + 2
-    return 4 * (2 * carry + 6 + 6 + 1 + 1 + 10 + 8)
+    extra = (2 * (N + 1) if eyb else 0) + (2 * 3 * (N + 1) if per_lane else 0)
+    return 4 * (2 * carry + 6 + 6 + 1 + 1 + 10 + 8 + extra)
 
 
 def admm_bytes(N, na):
@@ -660,6 +678,49 @@ def main():
     log(f"[mega] first step: {mega_ms_iso:.3f} ms kernel, {mega_dev_ms:.4f} ms kernel (device), "
         f"{mega_plain_ms:.3f} ms plain ({card})")
 
+    # ---- 4b. the megastep's e_y corridor operand (obstacle blocks ahead of
+    # the grid), 5 closed-loop steps; each step's corridor is made once from
+    # the plain carry's schedule and handed to both versions ----
+    mega_eyb = None
+    if not ab:
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import corridor_eyb
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import pad_blocks
+
+        # a block on the lower half of the corner ahead: the corridor moves
+        # up, and most lanes still converge within 20 iterations
+        mega_blocks = pad_blocks(np.array([[1.0, 2.0, -0.45, -0.1]], np.float32), 8)
+        eyb_of = corridor_eyb(p, cfg, track, mega_blocks, device=dev)
+        mega_eyb = {}
+        for name, scfg_e, tol_u, tol_x in (
+            ("fixed", SolverConfig(max_iter=20, rho_interval=0, early_exit=False, check_termination=2), 2e-4, 5e-4),
+            ("early-exit", scfg, 5e-3, 5e-3),
+        ):
+            ck = cp = cf = megastep_init(scen.params, cfg, track, scen.x0)
+            du = dx = 0.0
+            for _ in range(5):
+                e = eyb_of(cp.x[4], cp.X_pred[:, 4])
+                ck, uk, dk = megastep(cfg, scfg_e, track, prm, x_ref, ck, n_sub=4, eyb=e)
+                cp, up, dp = megastep_plain(cfg, scfg_e, track, prm, x_ref, cp, n_sub=4, eyb=e)
+                cf, _, _ = megastep(cfg, scfg_e, track, prm, x_ref, cf, n_sub=4)
+                torch.cuda.synchronize()
+                du = max(du, (uk - up).abs().max().item())
+                dx = max(dx, (ck.x - cp.x).abs().max().item())
+            bind = (ck.x - cf.x).abs().max().item()
+            log(f"[mega-eyb] {name}: max|du|={du:.3e} max|dx|={dx:.3e} done-at kernel {dk[4].mean().item():.3f} "
+                f"plain {dp[4].mean().item():.3f}; |x - x without the corridor| max {bind:.3e}")
+            check(du <= tol_u and dx <= tol_x, f"megastep with eyb {name}: beyond ({tol_u}, {tol_x}) of plain")
+            check(bind > 1e-3, f"megastep with eyb {name}: the corridor did not bind ({bind:.3e})")
+            mega_eyb[name] = max(du, dx)
+        e0 = eyb_of(c0.x[4], c0.X_pred[:, 4])
+        box = torch.tensor([-cfg.bounds.ey_max, cfg.bounds.ey_max], device=dev).reshape(1, 2, 1)
+        box = box.expand(N_MAIN + 1, 2, B).contiguous()
+        mega_eyb["box_dev_ms"] = kernel_ms(lambda: megastep(cfg, scfg, track, prm, x_ref, c0, n_sub=4, eyb=box),
+                                           10, "megastep_kernel")
+        mega_eyb["dev_ms"] = kernel_ms(lambda: megastep(cfg, scfg, track, prm, x_ref, c0, n_sub=4, eyb=e0),
+                                       10, "megastep_kernel")
+        log(f"[mega-eyb] first step, device: {mega_dev_ms:.4f} ms without eyb, {mega_eyb['box_dev_ms']:.4f} ms "
+            f"with the box as eyb (the read alone), {mega_eyb['dev_ms']:.4f} ms with the corridor ({card})")
+
     # ---- 5. kernel 3 (racestep) vs its plain version: the composed protocol ----
     rcfg = MPCConfig(N=N_MAIN, model="dynamic", tire="pacejka")
     table = initial_table(track, ds=0.05, vx0=1.5)
@@ -725,6 +786,99 @@ def main():
     race_plain_ms = cuda_time_ms(lambda: racestep_plain(*race_args), 3)
     log(f"[race] first step: {race_ms_iso:.3f} ms kernel (wrapper), {race_dev_ms:.4f} ms kernel (device), "
         f"{race_plain_ms:.3f} ms plain ({card})")
+
+    # ---- 5a. the racestep with per-lane tables and an obstacle corridor:
+    # main path 5's inputs (each lane's table vx scaled by sqrt(mu_true /
+    # 1.2), three opponents' swept blocks), its first K_OBS_CMP steps; each
+    # step's corridor is made once from the plain carry and handed to both.
+    # Two comparisons: the kernel and plain each on its own carry (the
+    # racestep's bounds on the lanes converged throughout), and the kernel
+    # from plain's carry, one step at a time (the same bounds on every
+    # lane). The per-lane tables brake the low-friction cars hard on these
+    # first steps and the corridor starts cars inside blocks, so about half
+    # the lanes do not converge within 20 iterations; on those a 3e-5
+    # difference of the carries moves u0 by up to 1.2e-3 and the world state
+    # and the prediction by up to 5.0e-3 after 3 steps (NVIDIA H100 80GB HBM3):
+    # the unconverged solve's sensitivity, not the kernel's error, which the
+    # one-step comparison bounds on every lane (4e-6). ----
+    obs = None
+    if not ab:
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import corridor_eyb
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import (
+            RefTable, collision_trace, opponents, opponents_obstacle_fn, pad_blocks,
+        )
+
+        nref = table.vx.shape[0]
+        lanes_tab = RefTable(ds=table.ds.expand(B_MAIN), length=table.length.expand(B_MAIN),
+                             vx=table.vx[None] * torch.sqrt(mu_b / 1.2)[:, None],
+                             ey=table.ey.expand(B_MAIN, nref), delta=table.delta.expand(B_MAIN, nref))
+        L = float(track.length)
+        opp = opponents(s0=(0.2 * L, 0.5 * L, 0.8 * L), e_y=(0.15, -0.15, 0.0), v=(0.8, 1.0, 0.6))
+        obs_fn = opponents_obstacle_fn(track, opp, rcfg.dt, replan_every=OBS_SEGMENT)
+        blocks0 = pad_blocks(obs_fn(0), 8)
+        eyb_of = corridor_eyb(p_nom, rcfg, track, blocks0, device=dev)
+        obs = {"table": lanes_tab, "opp": opp, "obs_fn": obs_fn}
+        ck = cp = racestep_init(p, rcfg, track, x0r, 0.85)
+        lane_err, step_err, bound_lanes = {}, {}, 0
+        conv_lanes = torch.ones(B_MAIN, dtype=torch.bool, device=dev)
+
+        def worst(acc, key, x, y):
+            d = (x - y).abs().reshape(-1, B_MAIN).amax(dim=0)
+            acc[key] = torch.maximum(acc[key], d) if key in acc else d
+
+        for k in range(K_OBS_CMP):
+            e = eyb_of(cp.ekx[4], cp.X_pred[:, 4])
+            bound_lanes = max(bound_lanes, int((e[:, 0] > -rcfg.bounds.ey_max).any(dim=0).sum().item()))
+            a = (rcfg, fixed, track, rprm, lanes_tab)
+            ck, uk, dk, zk = racestep(*a, ck, noises[k], mu_b, ekq, ekr, eyb=e)
+            cs, us, _, zs = racestep(*a, cp, noises[k], mu_b, ekq, ekr, eyb=e)
+            cp, up, dp, zp = racestep_plain(*a, cp, noises[k], mu_b, ekq, ekr, eyb=e)
+            torch.cuda.synchronize()
+            conv_lanes &= (dk[2] > 0.5) & (dp[2] > 0.5)
+            for acc, c, u, z in ((lane_err, ck, uk, zk), (step_err, cs, us, zs)):
+                for key, x, y in (("u0", u, up), ("z", z, zp)) + tuple(
+                        (f, getattr(c, f), getattr(cp, f)) for f in ("xg", "ekx", "ekP", "fr", "X_pred")):
+                    worst(acc, key, x, y)
+        err_all = {key: v.max().item() for key, v in lane_err.items()}
+        err_conv = {key: (v[conv_lanes].max().item() if bool(conv_lanes.any()) else 0.0)
+                    for key, v in lane_err.items()}
+        err_step = {key: v.max().item() for key, v in step_err.items()}
+        n_conv = int(conv_lanes.sum().item())
+        log(f"[race-eyb] per-lane tables ({B_MAIN} x {nref} nodes x 3 channels) and the corridor of "
+            f"{int((blocks0[:, 0] <= blocks0[:, 1]).sum())} opponent blocks, bound on {bound_lanes} lanes: "
+            f"lanes converged at every step {n_conv}/{B_MAIN}: "
+            + " ".join(f"max|d{key}|={v:.3e}" for key, v in err_conv.items()))
+        log("[race-eyb] all lanes, each version on its own carry: "
+            + " ".join(f"max|d{key}|={v:.3e}" for key, v in err_all.items())
+            + f" done-at kernel {dk[4].mean().item():.3f} plain {dp[4].mean().item():.3f}")
+        log("[race-eyb] all lanes, one step from the same carry: "
+            + " ".join(f"max|d{key}|={v:.3e}" for key, v in err_step.items()))
+        check(bound_lanes > 0, "racestep with eyb: the corridor bound no lane")
+        check(n_conv >= 0.25 * B_MAIN, f"racestep with eyb: only {n_conv} lanes converged throughout")
+        for key, tol in tight.items():
+            check(err_conv[key] <= tol,
+                  f"racestep with eyb: |d{key}| {err_conv[key]:.3e} beyond {tol} of plain (converged lanes)")
+            check(err_step[key] <= tol,
+                  f"racestep with eyb: |d{key}| {err_step[key]:.3e} beyond {tol} of plain (one step, all lanes)")
+        obs["err"] = max(err_step[key] for key in tight)
+        obs["err_own_carries"] = max(err_all[key] for key in tight)
+        # device time of the first step, main path 5's solver config: shared
+        # table without and with the box as eyb (the read alone), per-lane
+        # tables, per-lane tables with the corridor
+        e0 = eyb_of(c0r.ekx[4], c0r.X_pred[:, 4])
+        box = torch.tensor([-rcfg.bounds.ey_max, rcfg.bounds.ey_max], device=dev).reshape(1, 2, 1)
+        box = box.expand(N_MAIN + 1, 2, B_MAIN).contiguous()
+        variants = (("box", table, box), ("per-lane", lanes_tab, None), ("per-lane+eyb", lanes_tab, e0))
+        obs["dev_ms"] = {}
+        for name, tab_v, e_v in variants:
+            racestep(rcfg, scfg, track, rprm, tab_v, c0r, noises[0], mu_b, ekq, ekr, eyb=e_v)   # warm-up
+            obs["dev_ms"][name] = kernel_ms(
+                lambda: racestep(rcfg, scfg, track, rprm, tab_v, c0r, noises[0], mu_b, ekq, ekr, eyb=e_v), 10,
+                "racestep_kernel")
+        log(f"[race-eyb] first step, device: {race_dev_ms:.4f} ms shared table, "
+            + ", ".join(f"{v:.4f} ms {k}" for k, v in obs["dev_ms"].items()) + f" ({card})")
+        obs["plain_ms"] = cuda_time_ms(
+            lambda: racestep_plain(rcfg, scfg, track, rprm, lanes_tab, c0r, noises[0], mu_b, ekq, ekr, eyb=e0), 3)
 
     # ---- 5b. kernel 4 (fused) vs its plain version, on prepared inputs after
     # K_FUSED_WARM steps of the fused path: the bench's dynamic racetrack N=20
@@ -976,6 +1130,52 @@ def main():
     check(rconv_last >= 0.99, f"composed converged fraction over the last 100 steps {rconv_last:.4f} < 0.99")
     check(rprogress > 0.0, "the composed cars did not advance")
 
+    # ---- 7b. main path 5: the composed protocol with per-lane tables,
+    # racing three moving opponents whose swept blocks (padded to 8 rows)
+    # are refreshed every OBS_SEGMENT steps: race_loop's mega segments. The
+    # same run with all-dummy blocks shows the corridor's cost and effect;
+    # the quality numbers are reported, the outputs gated on being finite ----
+    def obstacle_race(run5, blocks_at, label):
+        car = racestep_init(p, rcfg, track, x0r, 0.85)
+        gen5 = torch.Generator(device=dev).manual_seed(3)
+        segs = []
+        reset_launches()
+        st, en = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        st.record()
+        for i in range(K_OBS_SEGMENTS):
+            car, outs = run5(car, gen5, obs["table"], blocks_at(i * OBS_SEGMENT))
+            segs.append(outs)
+        en.record()
+        torch.cuda.synchronize()
+        steps = K_OBS_SEGMENTS * OBS_SEGMENT
+        out = {"launches": read_launches(label, {"racestep": steps}),
+               "ms": st.elapsed_time(en) / steps}
+        Xf5 = torch.cat([o[1] for o in segs])                     # (T, 6, B)
+        conv5, it5 = torch.cat([o[4] for o in segs]), torch.cat([o[6] for o in segs])
+        hit = collision_trace(track, obs["opp"], Xf5.permute(2, 0, 1), rcfg.dt)
+        out.update(conv_last=conv5[-100:].mean().item(), done_at=it5.mean().item(), iters=it5,
+                   collide=hit.float().mean().item(), lanes_hit=int(hit.any(dim=1).sum().item()),
+                   progress=(Xf5[-1, 4] - x0r[:, 4]).mean().item(),
+                   finite=all(bool(torch.isfinite(t).all()) for t in car) and bool(torch.isfinite(Xf5).all()))
+        log(f"[{label}] K={steps} ({K_OBS_SEGMENTS} segments of {OBS_SEGMENT}) B={B_MAIN} N={N_MAIN}: "
+            f"{out['ms']:.4f} ms/step ({B_MAIN / out['ms'] * 1e3:.0f} composed solves/s) ({card}); converged "
+            f"(last 100) {out['conv_last']:.4f}, mean done-at {out['done_at']:.3f}/20, lane-steps in collision "
+            f"{out['collide']:.5f} ({out['lanes_hit']} lanes ever), mean progress {out['progress']:.2f} m, "
+            f"finite={out['finite']}")
+        check(out["finite"], f"{label}: non-finite state")
+        return out
+
+    obs_run = obs_free = None
+    if obs is not None:
+        run5 = make_racestep_scan(p_nom, rcfg, scfg, track, None, OBS_SEGMENT, mu_b, SIGMA, table_arg=True,
+                                  obstacles_arg=True)
+        obs_run = obstacle_race(run5, lambda t: pad_blocks(obs["obs_fn"](t), 8), "race-obs")
+        obs_free = obstacle_race(run5, lambda t: pad_blocks(None, 8), "race-obs-dummy-blocks")
+        log(f"[race-obs] the corridor: {obs_run['ms'] - obs_free['ms']:+.4f} ms/step, lane-steps in collision "
+            f"{obs_free['collide']:.5f} -> {obs_run['collide']:.5f}, converged (last 100) "
+            f"{obs_free['conv_last']:.4f} -> {obs_run['conv_last']:.4f}, mean done-at "
+            f"{obs_free['done_at']:.3f} -> {obs_run['done_at']:.3f}")
+
     # ---- 8. main path 3: bench.py's fused protocol ----
     def fused_run(fcfg, ftrack, fscen, fref, label):
         """K_MAIN steps of mpc_step_batched(backend="fused") + plant_step."""
@@ -1091,6 +1291,17 @@ def main():
     shared = {**{name: 4 * (NC * (rec[0].Dx.shape[1] + NU) + NC) for name, rec in admm.items()},
               "megastep_kernel": 4 * track.n_cells, "megastep_kernel_kinematic": 4 * oval.n_cells,
               "racestep_kernel": 4 * (4 * track.n_cells + 3 * table.vx.shape[0] + 16)}
+    if obs_run is not None:
+        # main path 5: the corridor operand and each lane's own table nodes
+        it["racestep_kernel+eyb+per-lane"] = executed_iters(obs_run["iters"])
+        per_lane["racestep_kernel+eyb+per-lane"] = (
+            race_ops(S_race, N_MAIN, it["racestep_kernel+eyb+per-lane"], 4, 10, win, gate=False),
+            race_bytes(N_MAIN, eyb=True, per_lane=True))
+        shared["racestep_kernel+eyb+per-lane"] = 4 * (4 * track.n_cells + 16)
+        # the megastep with a corridor, at main path 1's executed iterations
+        it["megastep_kernel+eyb"] = it["megastep_kernel"]
+        per_lane["megastep_kernel+eyb"] = (per_lane["megastep_kernel"][0], mega_bytes(6, N_MAIN, eyb=True))
+        shared["megastep_kernel+eyb"] = shared["megastep_kernel"]
     bounds = {k: bound(B_MAIN * o, B_MAIN * b + shared.get(k, 0)) for k, (o, b) in per_lane.items()}
     log("[bound] per launch on the H100 at B=4096 (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
         f"{k} {bounds[k][0]:.4f} ms ({bounds[k][1]}: {per_lane[k][0]:,.0f} operations and "
@@ -1119,11 +1330,28 @@ def main():
          fused_cfg1["launches"]["fused"], fused_err["kinematic", "fixed"], *fused_iso["kinematic"]),
     ]
     # no single PyTorch call computes a batched Riccati / ADMM solve: library_ms is null
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": f"{ref_pkg}/{tpu}", "launches": n,
          "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
-        for name, source, tpu, n, err, ms, dev_ms, plain in records]}), flush=True)
+        for name, source, tpu, n, err, ms, dev_ms, plain in records]
+    if obs_run is not None:
+        # the racestep runs main paths 2 and 5: its launches are both paths';
+        # ms, device_ms and the bound above are main path 2's, path 5's below
+        race_rec = next(k for k in kernels if k["name"] == "racestep_kernel")
+        race_rec["launches"] += obs_run["launches"]["racestep"]
+        b5 = bounds["racestep_kernel+eyb+per-lane"]
+        race_rec["paths"] = {
+            "race-main": {"launches": race_launches["racestep"], "ms": race_ms, "device_ms": race_dev_ms},
+            "race-obs": {"launches": obs_run["launches"]["racestep"], "ms": obs_run["ms"],
+                         "device_ms": obs["dev_ms"]["per-lane+eyb"], "max_abs_err": obs["err"],
+                         "max_abs_err_own_carries": obs["err_own_carries"],
+                         "plain_ms": obs["plain_ms"], "bound_ms": b5[0], "bound_by": b5[1]}}
+        mega_rec = next(k for k in kernels if k["name"] == "megastep_kernel")
+        mega_rec["eyb"] = {"max_abs_err": mega_eyb["fixed"], "device_ms": mega_eyb["dev_ms"],
+                           "box_device_ms": mega_eyb["box_dev_ms"],
+                           "bound_ms": bounds["megastep_kernel+eyb"][0]}
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -22,7 +22,7 @@ from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import (
     MPCConfig, MPCWeights, SolverConfig, VehicleParams,
 )
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
-    DEFAULT_EKF_Q, constant_refs, initial_table, mpc_init, mpc_prepare, mpc_prepare_light,
+    DEFAULT_EKF_Q, constant_refs, corridor_eyb, initial_table, mpc_init, mpc_prepare, mpc_prepare_light,
     mpc_step_batched, plant_step,
 )
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
@@ -40,6 +40,7 @@ from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.racestep_kernel import (
     RaceMegaCarry, racestep, racestep_init, racestep_plain,
 )
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.parallel import make_scenario_grid
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import RefTable, pad_blocks
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track, racetrack
 
 PKG = "autonomous_racing_lpv_mpp_mpc_tpu_torch"
@@ -89,8 +90,18 @@ def test_wrappers_route_by_device():
         megastep(cfg, scfg, track, prm, x_ref, MegaCarry(*(meta(t) for t in mc)))
     with pytest.raises(NotImplementedError):
         megastep(cfg, scfg.replace(cache_build=True), track, prm, x_ref, mc)
-    with pytest.raises(NotImplementedError):
-        megastep(cfg, scfg, track, prm, x_ref, mc, eyb=torch.zeros((cfg.N + 1, 2, scen.batch)))
+    # the e_y corridor operand: the box's own bounds change nothing, a
+    # narrower corridor does, and a misshapen one raises
+    box = torch.tensor([-cfg.bounds.ey_max, cfg.bounds.ey_max]).reshape(1, 2, 1)
+    box = box.expand(cfg.N + 1, 2, scen.batch).contiguous()
+    c0, u0, _ = megastep(cfg, scfg, track, prm, x_ref, mc)
+    c1, u1, _ = megastep(cfg, scfg, track, prm, x_ref, mc, eyb=box)
+    c2, u2, _ = megastep(cfg, scfg, track, prm, x_ref, mc, eyb=0.1 * box)
+    assert torch.equal(u0, u1) and torch.equal(c0.x, c1.x) and torch.equal(c0.s, c1.s)
+    assert (u0 - u2).abs().max() > 1e-3
+    with pytest.raises(ValueError, match="eyb has shape"):
+        megastep(cfg, scfg, track, prm, x_ref, mc, eyb=box[:-1])
+    assert megastep.launches == 0
 
 
 def test_cuda_requests_raise_without_a_card():
@@ -250,17 +261,28 @@ def test_admm_kernel_matches_plain_on_card(cuda_device, N):
     assert (sol.iters - ref.iters).abs().max().item() <= 1
 
 
+# corridor blocks ahead of the scenario grid's start on the racetrack, and
+# spread over the lap for cars spread over it
+_MEGA_BLOCKS = [[1.0, 2.0, -0.45, -0.1]]
+_RACE_BLOCKS = [[3.0, 4.2, -0.25, 0.1], [8.0, 9.0, -0.1, 0.3], [20.0, 21.5, -0.4, 0.0]]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("eyb", [False, True])
 @pytest.mark.parametrize("early_exit,tol_u,tol_x", [(False, 2e-4, 5e-4), (True, 5e-3, 5e-3)])
-def test_megastep_kernel_matches_plain_on_card(cuda_device, early_exit, tol_u, tol_x):
+def test_megastep_kernel_matches_plain_on_card(cuda_device, early_exit, tol_u, tol_x, eyb):
+    """5 steps, with and without an e_y corridor (each step's made once
+    from the plain carry and handed to both)."""
     p, cfg, track, scen, x_ref = _small_case(cuda_device, N=20, n_ey=20, n_mu=15)
     scfg = SolverConfig(max_iter=20, rho_interval=0, early_exit=early_exit, check_termination=2)
     prm = megastep_params(scen.params, scen.batch, device=cuda_device)
     ck = cp = megastep_init(scen.params, cfg, track, scen.x0)
+    eyb_of = corridor_eyb(p, cfg, track, pad_blocks(_MEGA_BLOCKS, 8), device=cuda_device) if eyb else None
     before = megastep.launches
     for _ in range(5):
-        ck, uk, _ = megastep(cfg, scfg, track, prm, x_ref, ck)
-        cp, up, _ = megastep_plain(cfg, scfg, track, prm, x_ref, cp)
+        e = eyb_of(cp.x[4], cp.X_pred[:, 4]) if eyb else None
+        ck, uk, _ = megastep(cfg, scfg, track, prm, x_ref, ck, eyb=e)
+        cp, up, _ = megastep_plain(cfg, scfg, track, prm, x_ref, cp, eyb=e)
         torch.cuda.synchronize()
         assert (uk - up).abs().max().item() <= tol_u
         assert (ck.x - cp.x).abs().max().item() <= tol_x
@@ -466,14 +488,32 @@ def test_racestep_wrapper_routes_by_device():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             rk._racestep_cuda(cfg, scfg, track, prm, constant_refs(cfg, 1.2, device="cpu"), car, *args, 10, 4, None,
                               True, True, 0.0, 0.995, 0.05, 3.0, None)
-    with pytest.raises(NotImplementedError):
-        racestep(cfg, scfg, track, prm, constant_refs(cfg, 1.2, device="cpu"), car, *args, eyb=torch.zeros(9, 2, 2))
+    # the e_y corridor operand: the box's own bounds change nothing, a
+    # corridor that excludes the cars' line does
+    refs = constant_refs(cfg, 1.2, device="cpu")
+    box = torch.tensor([-cfg.bounds.ey_max, cfg.bounds.ey_max]).reshape(1, 2, 1).expand(9, 2, 2).contiguous()
+    base = racestep(cfg, scfg, track, prm, refs, car, *args)
+    same = racestep(cfg, scfg, track, prm, refs, car, *args, eyb=box)
+    above = box.clone()
+    above[:, 0] = 0.1
+    narrow = racestep(cfg, scfg, track, prm, refs, car, *args, eyb=above)
+    assert all(torch.equal(a, b) for a, b in zip((*base[0], *base[1:]), (*same[0], *same[1:])))
+    assert (base[1] - narrow[1]).abs().max() > 1e-3
+    with pytest.raises(ValueError, match="eyb has shape"):
+        racestep(cfg, scfg, track, prm, refs, car, *args, eyb=box[:, :, :1])
     with pytest.raises(NotImplementedError):
         racestep(cfg.replace(model="kinematic"), scfg, track, prm, constant_refs(cfg, 1.2, device="cpu"), car, *args)
-    per_lane = initial_table(track)
-    per_lane = per_lane.replace(vx=per_lane.vx[None].expand(2, -1))
-    with pytest.raises(NotImplementedError):
-        racestep(cfg, scfg, track, prm, per_lane, car, *args)
+    # per-lane tables: every lane given the shared table's rows reads what
+    # the shared table gives; a table for another number of lanes raises
+    shared = initial_table(track)
+    shared = shared.replace(ey=0.05 * torch.sin(torch.arange(shared.vx.shape[0]) * 0.1))
+    lanes = lambda t, nb: t.replace(**{f: getattr(t, f).expand((nb,) + getattr(t, f).shape).contiguous()
+                                       for f in ("ds", "length", "vx", "ey", "delta")})
+    a = racestep(cfg, scfg, track, prm, shared, car, *args)
+    b = racestep(cfg, scfg, track, prm, lanes(shared, 2), car, *args)
+    assert all(torch.equal(x, y) for x, y in zip((*a[0], *a[1:]), (*b[0], *b[1:])))
+    with pytest.raises(ValueError, match="per-lane tables have 3 lanes"):
+        racestep(cfg, scfg, track, prm, lanes(shared, 3), car, *args)
     assert rk.racestep_workspace(20) == 123 * 20 + 33 + 21 * 6
     assert racestep.launches == 0
 
@@ -489,44 +529,90 @@ def _race_case(device, Bc):
     return track, cfg, x0, mu_b, prm
 
 
+def _lane_tables(track, Bc):
+    """Per-lane tables of main path 5's size: each lane its own vx level
+    (1.425-1.575) and a racing line of its own phase."""
+    shared = initial_table(track, ds=0.05, vx0=1.5)
+    n, dev = shared.vx.shape[0], shared.vx.device
+    w = torch.arange(n, device=dev) * (2 * math.pi * 3 / n)
+    lane = torch.arange(Bc, device=dev)[:, None]
+    return RefTable(ds=shared.ds.expand(Bc), length=shared.length.expand(Bc),
+                    vx=(1.5 * (0.95 + 0.1 * lane / Bc)).expand(Bc, n).contiguous(),
+                    ey=0.05 * torch.sin(w[None] + 0.1 * lane), delta=torch.zeros((Bc, n), device=dev))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("early_exit", [False, True])
-@pytest.mark.parametrize("Bc", [1, 37, 300, 4096 + 37])
-@pytest.mark.parametrize("refs,gate", [("table", 0.0), ("constant", 3.0)])
+@pytest.mark.parametrize("Bc", [1, 37, 130, 300, 4096 + 37])
+@pytest.mark.parametrize("refs,gate", [("table", 0.0), ("constant", 3.0), ("per_lane", 0.0), ("per_lane+eyb", 0.0),
+                                       ("table+eyb", 0.0)])
 def test_racestep_kernel_matches_plain_on_card(cuda_device, refs, gate, Bc, early_exit, monkeypatch):
-    """The racetrack protocol at Bc lanes (ragged batches), N=20, 5 steps
-    with and without early exit; the bounds of chip_smoke.py on the lanes
-    that converged throughout (5e-3 with early exit), 5e-3 on every lane.
-    Every output is written and nothing past Bc is."""
+    """The racetrack protocol at Bc lanes (ragged batches: B=130 leaves a
+    partial block and vote group, for the per-lane tables' stride), N=20,
+    5 steps with and without early exit, with shared, constant or per-lane
+    references and with or without an obstacle corridor (each step's made
+    once from the plain carry and handed to both); the bounds of
+    chip_smoke.py on the lanes that converged throughout (5e-3 with early
+    exit), 5e-3 on every lane. Every output is written and nothing past Bc
+    is.
+
+    Per-lane tables and corridors start many cars off their line or outside
+    their corridor, so on these first steps many lanes stop unconverged
+    (half must converge throughout, 90% otherwise), and on those the two
+    versions' carries drift apart by the unconverged solve's sensitivity,
+    up to a flipped limp-home choice. There, as in chip_smoke.py's
+    [race-eyb], every lane is held to the converged-lane bounds one step at
+    a time from plain's carry instead."""
     track, cfg, x0, mu_b, prm = _race_case(cuda_device, Bc)
     scfg = SolverConfig(max_iter=20, rho_interval=0, check_termination=2, early_exit=early_exit)
-    ref = initial_table(track, ds=0.05, vx0=1.5) if refs == "table" else constant_refs(cfg, 1.5, device=cuda_device)
+    ref = {"constant": lambda: constant_refs(cfg, 1.5, device=cuda_device),
+           "per_lane": lambda: _lane_tables(track, Bc), "per_lane+eyb": lambda: _lane_tables(track, Bc)}.get(
+        refs, lambda: initial_table(track, ds=0.05, vx0=1.5))()
+    eyb_of = (corridor_eyb(VehicleParams(), cfg, track, pad_blocks(_RACE_BLOCKS, 8), device=cuda_device)
+              if refs.endswith("eyb") else None)
+    one_step = refs not in ("table", "constant")
     sig = torch.tensor(_SIGMA, device=cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     ck = cp = racestep_init(VehicleParams(), cfg, track, x0, 0.85)
     before = racestep.launches
     conv = torch.ones(Bc, dtype=torch.bool, device=cuda_device)
-    worst = {}
+    worst, worst_step = {}, {}
+
+    def widen(acc, key, x, y):
+        d = (x - y).abs().reshape(-1, Bc).amax(dim=0)
+        acc[key] = torch.maximum(acc[key], d) if key in acc else d
+
     for _ in range(5):
         noise = sig[:, None] * torch.randn((6, Bc), generator=gen, device=cuda_device)
         a = (cfg, scfg, track, prm, ref)
+        e = None if eyb_of is None else eyb_of(cp.ekx[4], cp.X_pred[:, 4])
         with _nan_padded_outputs(monkeypatch) as pads:
-            ck, uk, dk, zk = racestep(*a, ck, noise, mu_b, _EKF_Q, _SIGMA ** 2, gate_sigma=gate)
+            ck, uk, dk, zk = racestep(*a, ck, noise, mu_b, _EKF_Q, _SIGMA ** 2, gate_sigma=gate, eyb=e)
             torch.cuda.synchronize()
         assert _untouched(pads)
         assert all(bool(torch.isfinite(t).all()) for t in (*ck, uk, dk, zk))
-        cp, up, dp, zp = racestep_plain(*a, cp, noise, mu_b, _EKF_Q, _SIGMA ** 2, gate_sigma=gate)
+        if one_step:
+            cs, us, _, zs = racestep(*a, cp, noise, mu_b, _EKF_Q, _SIGMA ** 2, gate_sigma=gate, eyb=e)
+        cp, up, dp, zp = racestep_plain(*a, cp, noise, mu_b, _EKF_Q, _SIGMA ** 2, gate_sigma=gate, eyb=e)
         torch.cuda.synchronize()
         conv &= (dk[2] > 0.5) & (dp[2] > 0.5)
         for key, x, y in (("u0", uk, up), ("z", zk, zp), ("xg", ck.xg, cp.xg), ("ekx", ck.ekx, cp.ekx),
                           ("X_pred", ck.X_pred, cp.X_pred), ("fr", ck.fr, cp.fr)):
-            d = (x - y).abs().reshape(-1, Bc).amax(dim=0)
-            worst[key] = torch.maximum(worst[key], d) if key in worst else d
-    assert racestep.launches == before + 5
-    assert int(conv.sum()) >= 0.9 * Bc
+            widen(worst, key, x, y)
+        if one_step:
+            for key, x, y in (("u0", us, up), ("z", zs, zp), ("xg", cs.xg, cp.xg), ("ekx", cs.ekx, cp.ekx),
+                              ("X_pred", cs.X_pred, cp.X_pred), ("fr", cs.fr, cp.fr)):
+                widen(worst_step, key, x, y)
+    assert racestep.launches == before + (10 if one_step else 5)
+    assert int(conv.sum()) >= (0.5 if one_step else 0.9) * Bc
     for key, tol in (("u0", 2e-4), ("z", 5e-4), ("xg", 5e-4), ("ekx", 5e-4), ("X_pred", 5e-4), ("fr", 1e-4)):
-        assert worst[key][conv].max().item() <= (5e-3 if early_exit else tol), key
-        assert worst[key].max().item() <= 5e-3, key
+        tol = 5e-3 if early_exit else tol
+        if bool(conv.any()):
+            assert worst[key][conv].max().item() <= tol, key
+        if one_step:
+            assert worst_step[key].max().item() <= tol, key
+        else:
+            assert worst[key].max().item() <= 5e-3, key
 
 
 @pytest.mark.cuda

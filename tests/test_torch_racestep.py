@@ -1,9 +1,11 @@
 """The racestep's plain PyTorch version vs the JAX package's racestep kernel
-(Pallas, interpret mode under ``jax.jit``) on the CPU, its measurement and
-its innovation gating. The wrapper's routing and the kernel-vs-plain test
+(Pallas, interpret mode under ``jax.jit``) on the CPU, with shared,
+constant and per-lane references and with an obstacle corridor, its
+measurement and its innovation gating. The wrapper's routing and the kernel-vs-plain test
 on a card are in tests/test_torch_port.py, which imports no JAX.
 
-Bounds against JAX over 5 composed steps with identical numpy noise: u0
+Bounds against JAX over 5 composed steps (3 with per-lane tables or a
+corridor) with identical numpy noise: u0
 2e-4; xg, ekx, X_pred and z 5e-4; fr 1e-4 (the megastep's kernel-parity
 bounds plus the measurement's). The measurement stage against
 ``global_to_frenet_windowed``: 2e-5 (tests/test_racestep.py).
@@ -18,6 +20,7 @@ import torch
 from autonomous_racing_lpv_mpp_mpc_tpu.core import MPCConfig as JMPCConfig
 from autonomous_racing_lpv_mpp_mpc_tpu.core import SolverConfig as JSolverConfig
 from autonomous_racing_lpv_mpp_mpc_tpu.core import VehicleParams as JVehicleParams
+from autonomous_racing_lpv_mpp_mpc_tpu.engine import assembly as jasm
 from autonomous_racing_lpv_mpp_mpc_tpu.loop import constant_refs as jconstant_refs
 from autonomous_racing_lpv_mpp_mpc_tpu.loop.lap_learning import initial_table as jinitial_table
 from autonomous_racing_lpv_mpp_mpc_tpu.ops.megastep_kernel import megastep_params as jmegastep_params
@@ -25,6 +28,7 @@ from autonomous_racing_lpv_mpp_mpc_tpu.ops.racestep_kernel import racestep as jr
 from autonomous_racing_lpv_mpp_mpc_tpu.ops.racestep_kernel import racestep_init as jracestep_init
 from autonomous_racing_lpv_mpp_mpc_tpu.track import oval_track as joval
 from autonomous_racing_lpv_mpp_mpc_tpu.track import racetrack as jrace
+from autonomous_racing_lpv_mpp_mpc_tpu.planner.opponents import DUMMY_BLOCK
 from autonomous_racing_lpv_mpp_mpc_tpu.track.track import global_to_frenet_windowed, wrap_s
 
 from autonomous_racing_lpv_mpp_mpc_tpu_torch import convert
@@ -54,23 +58,58 @@ def _inputs():
     return track, mu_b, x0, noise
 
 
-@pytest.mark.parametrize("refs", ["table", "constant"])
+def _per_lane_table(track):
+    """``initial_table`` made per lane: every leaf broadcast to (B,) +
+    shape, each lane its own vx level and a racing line of its own."""
+    base = jinitial_table(track, ds=0.05, vx0=1.2)
+    n = base.vx.shape[0]
+    w = 2 * np.pi * np.arange(n, dtype=np.float32) * float(base.ds) / float(base.length)
+    lane = np.arange(B, dtype=np.float32)[:, None]
+    lanes = lambda a: jnp.broadcast_to(a, (B,) + jnp.shape(a))
+    return base.replace(ds=lanes(base.ds), length=lanes(base.length),
+                        vx=jnp.asarray((1.1 + 0.1 * lane + 0.2 * np.sin(w)).astype(np.float32)),
+                        ey=jnp.asarray((0.06 * (lane - 1) * np.sin(2 * w + lane)).astype(np.float32)),
+                        delta=jnp.zeros((B, n), jnp.float32))
+
+
+def _jax_eyb(track, carry, blocks):
+    """The (N+1, 2, B) corridor operand along the JAX carry's schedule,
+    made by the JAX package's corridor functions (as its race runner does)."""
+    half = CFG.bounds.ey_max
+    s = jnp.concatenate([carry.ekx[4][None], carry.X_pred[2:, 4], carry.X_pred[-1:, 4]], axis=0)
+    sm = wrap_s(track, s)
+    lo, hi = jasm.corridor_from_blocks(sm, jnp.full(sm.shape, -half), jnp.full(sm.shape, half), blocks, 0.0,
+                                       half, kappa_blk=jasm.block_curvatures(track, blocks),
+                                       kappa_cap=jasm.steerable_curvature(P, CFG.bounds.delta_max))
+    return np.asarray(jnp.stack([lo, hi], axis=1))
+
+
+@pytest.mark.parametrize("refs", ["table", "constant", "per_lane", "table+eyb"])
 def test_racestep_plain_matches_jax_kernel(refs):
-    """5 composed steps, EKF and adaptation on, noisy measurements."""
+    """Composed steps with EKF and adaptation on and noisy measurements: 5
+    with a shared table or constant references, 3 with per-lane tables and
+    with a shared table under an obstacle corridor (eyb). The corridor is
+    made once per step from the JAX carry and handed to both sides."""
     track, mu_b, x0, noise = _inputs()
-    jref = jinitial_table(track, ds=0.05, vx0=1.2) if refs == "table" else jconstant_refs(CFG, 1.2)
+    jref = {"constant": jconstant_refs(CFG, 1.2), "per_lane": _per_lane_table(track)}.get(
+        refs, jinitial_table(track, ds=0.05, vx0=1.2))
     jprm = jmegastep_params(P.replace(mu=jnp.float32(0.8)), B)
-    step = jax.jit(lambda c, n: jracestep(CFG, SCFG, track, jprm, jref, c, n, jnp.asarray(mu_b),
-                                          EKF_Q, SIGMA ** 2, interpret=True))
+    step = jax.jit(lambda c, n, e: jracestep(CFG, SCFG, track, jprm, jref, c, n, jnp.asarray(mu_b),
+                                             EKF_Q, SIGMA ** 2, interpret=True, eyb=e))
     jc = jracestep_init(P, CFG, track, jnp.asarray(x0), 0.8)
     cfg, scfg, ptrack = convert.mpc_config(CFG), convert.solver_config(SCFG), convert.track(track, device="cpu")
-    pref = initial_table(ptrack, ds=0.05, vx0=1.2) if refs == "table" else constant_refs(cfg, 1.2, device="cpu")
+    pref = constant_refs(cfg, 1.2, device="cpu") if refs == "constant" else convert.ref_table(jref, device="cpu")
     pc = racestep_init(VehicleParams(), cfg, ptrack, torch.tensor(x0), 0.8)
     prm = megastep_params(VehicleParams(mu=0.8), B, device="cpu")
-    for k in range(5):
-        jc, ju, jd, jz = step(jc, jnp.asarray(noise[k]))
+    blocks = jnp.asarray([[2.1, 2.6, -0.3, 0.05], DUMMY_BLOCK], jnp.float32)
+    ey_bound = []
+    for k in range(3 if refs in ("per_lane", "table+eyb") else 5):
+        eyb = _jax_eyb(track, jc, blocks) if refs == "table+eyb" else None
+        jc, ju, jd, jz = step(jc, jnp.asarray(noise[k]), eyb)
         pc, pu, pd, pz = racestep(cfg, scfg, ptrack, prm, pref, pc, torch.tensor(noise[k]),
-                                  torch.tensor(mu_b), EKF_Q, SIGMA ** 2)
+                                  torch.tensor(mu_b), EKF_Q, SIGMA ** 2,
+                                  eyb=None if eyb is None else torch.tensor(eyb))
+        ey_bound.append(eyb is not None and bool((eyb[:, 0] > -CFG.bounds.ey_max).any()))
         np.testing.assert_allclose(pu.numpy(), np.asarray(ju), atol=2e-4, rtol=0)
         np.testing.assert_allclose(pz.numpy(), np.asarray(jz), atol=5e-4, rtol=0)
         for name, tol in (("xg", 5e-4), ("ekx", 5e-4), ("X_pred", 5e-4), ("fr", 1e-4)):
@@ -80,6 +119,7 @@ def test_racestep_plain_matches_jax_kernel(refs):
         np.testing.assert_allclose(pd[5].numpy(), np.asarray(jd[5]), atol=1e-4, rtol=0)  # mu-hat
     assert np.abs(pc.fr[0].numpy() - 0.8).max() > 1e-3                     # the RLS moved
     assert racestep.launches == 0 and megastep.launches == 0
+    assert any(ey_bound) == (refs == "table+eyb")                           # the corridor reached stages
 
 
 def test_racestep_measurement_matches_windowed_transform():
