@@ -8,10 +8,12 @@ an obvious counterpart:
 - ``track``    — track compiler, curvature lookup, Frenet transforms.
 - ``models``   — tires, Frenet bicycle ODEs, LPV model, discretization.
 - ``engine``   — horizon scheduling and block-structured QP assembly.
-- ``solver``   — Riccati factor/solve and batched OSQP-semantics ADMM.
+- ``solver``   — Riccati factor/solve, batched OSQP-semantics ADMM and
+                 its production pipeline (equilibrate, polish, certificate).
 - ``loop``     — receding-horizon controller, closed loop, EKF, friction
                  RLS, world-frame plant and the composed race loop.
-- ``planner``  — reference tables.
+- ``planner``  — the MPP planner, online replanning, reference tables
+                 and opponents.
 - ``parallel`` — scenario grids.
 - ``ops``      — hand-written CUDA kernels (``ops/csrc``) with their plain
                  PyTorch versions beside them.

@@ -23,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .core.config import MPCBounds, MPCConfig, MPCWeights, SolverConfig, VehicleParams
+from .core.config import MPCBounds, MPCConfig, MPCWeights, MPPConfig, SolverConfig, VehicleParams
 from .core.device import resolve_device
 from .loop.estimator import EKFState
 from .loop.friction import FrictionState
@@ -69,6 +69,16 @@ def mpc_config(obj) -> MPCConfig:
     kw["a_lat_frac"] = float(kw["a_lat_frac"])
     return MPCConfig(weights=MPCWeights(**_floats(MPCWeights, obj.weights)),
                      bounds=MPCBounds(**{k: float(v) for k, v in _floats(MPCBounds, obj.bounds).items()}),
+                     **kw)
+
+
+def mpp_config(obj) -> MPPConfig:
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(MPPConfig) if f.name != "bounds"}
+    for name in ("dt", "w_progress", "a_lat_frac", "ey_margin", "ds_ref"):
+        kw[name] = float(kw[name])
+    for name in ("q_trust", "r", "dr"):
+        kw[name] = tuple(float(x) for x in kw[name])
+    return MPPConfig(bounds=MPCBounds(**{k: float(v) for k, v in _floats(MPCBounds, obj.bounds).items()}),
                      **kw)
 
 
@@ -172,3 +182,17 @@ def boxqp_to_numpy(qp: BoxQP) -> dict:
         "cost": {n: np_(getattr(qp.cost, n)) for n in LQRCost._fields},
         **{n: np_(getattr(qp, n)) for n in ("Dx", "Du", "lb", "ub", "x0", "soft")},
     }
+
+
+def race_log_to_numpy(log) -> dict:
+    """A port ``RaceLog`` as a dict of numpy arrays, the JAX ``RaceLog``'s
+    fields and types."""
+    return {n: getattr(log, n).detach().cpu().numpy() for n in log._fields}
+
+
+def replan_log_to_numpy(log) -> dict:
+    """A port ``ReplanLog``: its closed-loop log's fields as numpy arrays,
+    beside ``replan_steps`` and ``plan_progress``."""
+    out = {n: getattr(log.log, n).detach().cpu().numpy() for n in log.log._fields}
+    out.update(replan_steps=np.asarray(log.replan_steps), plan_progress=np.asarray(log.plan_progress))
+    return out

@@ -2,6 +2,7 @@ from .config import (
     MPCBounds,
     MPCConfig,
     MPCWeights,
+    MPPConfig,
     SolverConfig,
     VehicleParams,
     broadcast_params,
@@ -12,6 +13,7 @@ __all__ = [
     "MPCBounds",
     "MPCConfig",
     "MPCWeights",
+    "MPPConfig",
     "SolverConfig",
     "VehicleParams",
     "broadcast_params",

@@ -112,9 +112,11 @@ class SolverConfig(_Replace):
     """Batched ADMM (OSQP semantics) + Riccati x-update solver config.
 
     Same fields and defaults as the JAX package; see the module docstring
-    for the ``backend`` names. ``riccati="assoc"``, ``cache_build``,
-    ``polish`` and ``certify_infeasibility`` are not ported yet and raise
-    where they would take effect.
+    for the ``backend`` names. ``riccati`` is "scan" (sequential) or
+    "assoc" (parallel in the horizon); ``equilibrate``, ``polish`` and
+    ``certify_infeasibility`` are the production pipeline's stages
+    (``solver.production``). ``cache_build`` is not ported: the megastep
+    raises for it.
     """
 
     rho: float = 0.1
@@ -135,3 +137,40 @@ class SolverConfig(_Replace):
     equilibrate: bool = True
     polish: bool = False
     certify_infeasibility: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MPPConfig(_Replace):
+    """MPP planner config: the tracker's LPV machinery with a progress
+    reward, a trust region and the planner's per-stage bounds
+    (curvature-limited speed, obstacle-shifted corridor)."""
+
+    H: int = 512                    # planning stages
+    n_sqp: int = 4                  # relinearizations
+    dt: float = 1.0 / 30.0
+    model: str = "dynamic"
+    tire: str = "linear"
+    linearization: str = "lpv"
+    discretization: str = "expm"
+    # progress reward (linear weight on terminal s) and trust-region weights
+    w_progress: float = 50.0
+    q_trust: Tuple[float, ...] = (0.0, 0.5, 0.5, 5.0, 0.0, 5.0)
+    r: Tuple[float, ...] = (0.05, 0.05)
+    dr: Tuple[float, ...] = (20.0, 10.0)
+    # share of the friction circle for the curvature speed limit
+    # v <= sqrt(a_lat_frac * mu * g / |kappa|)
+    a_lat_frac: float = 0.7
+    # corridor margin from the track edge [m] (car half-width + safety)
+    ey_margin: float = 0.05
+    bounds: MPCBounds = dataclasses.field(default_factory=MPCBounds)
+    # resolution of the emitted reference table [m]
+    ds_ref: float = 0.05
+
+    @classmethod
+    def for_model(cls, model: str, **kw) -> "MPPConfig":
+        """Per-model defaults in the model's state order."""
+        if model == "dynamic":     # (vx, vy, wz, e_psi, s, e_y)
+            return cls(model="dynamic", **kw)
+        if model == "kinematic":   # (vx, e_psi, s, e_y)
+            return cls(model="kinematic", q_trust=(0.0, 5.0, 0.0, 5.0), **kw)
+        raise ValueError(model)

@@ -65,6 +65,14 @@ def initial_schedule(p: VehicleParams, cfg: MPCConfig, track: Track,
     return X, U
 
 
+def curvature_speed_limit_table(p: VehicleParams, track: Track, vx_min, vx_max,
+                                a_lat_frac: float = 0.85) -> torch.Tensor:
+    """(n_cells,) friction-circle speed limit v <= sqrt(f mu g / |kappa|)
+    per track cell, clipped to [vx_min, vx_max]."""
+    v_lim = torch.sqrt(a_lat_frac * p.mu * p.g / torch.clamp_min(torch.abs(track.kappa), 1e-6))
+    return torch.clamp(v_lim, vx_min, vx_max)
+
+
 def speed_cap_at(p: VehicleParams, track: Track, s, vx_min, vx_max,
                  a_lat_frac: float = 0.85):
     """Friction-circle speed cap sqrt(f mu g / |kappa|) at the cell of s."""

@@ -23,10 +23,12 @@ from .mpc import (
 from .race import (
     BatchedRaceLog,
     RaceCarry,
+    RaceLog,
     batched_race_sweep,
     corridor_eyb,
     make_racestep_scan,
     mega_race_sweep,
+    race_loop,
 )
 
 __all__ = [
@@ -40,6 +42,7 @@ __all__ = [
     "MU_MAX",
     "MU_MIN",
     "RaceCarry",
+    "RaceLog",
     "batched_race_sweep",
     "closed_loop",
     "constant_refs",
@@ -62,4 +65,5 @@ __all__ = [
     "mpc_step_batched",
     "noisy_measurement",
     "plant_step",
+    "race_loop",
 ]

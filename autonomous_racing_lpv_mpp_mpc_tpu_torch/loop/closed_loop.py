@@ -21,6 +21,7 @@ class ClosedLoopLog(NamedTuple):
     iters: torch.Tensor      # (T, B)
     r_prim: torch.Tensor     # (T, B)
     r_dual: torch.Tensor     # (T, B)
+    certified_infeasible: torch.Tensor   # (T, B) the Farkas certificate (MPCDiag)
 
 
 def plant_step(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
@@ -52,5 +53,6 @@ def closed_loop(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Tra
     for _ in range(T):
         u, carry, diag = mpc_step_batched(p, cfg, scfg, track, x, x_ref, carry, obstacles)
         x = plant_step(p, cfg, track, x, u, n_sub=n_sub, sim_tire=sim_tire)
-        outs.append((x, u, diag.converged, diag.iters, diag.r_prim, diag.r_dual))
+        outs.append((x, u, diag.converged, diag.iters, diag.r_prim, diag.r_dual,
+                     diag.certified_infeasible))
     return ClosedLoopLog(*(torch.stack(col) for col in zip(*outs)))

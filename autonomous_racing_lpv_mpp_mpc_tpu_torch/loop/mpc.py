@@ -2,8 +2,11 @@
 ``loop/mpc.py``), with the batch written out as the leading dim.
 
 Per step: shift the previous prediction for quasi-LPV scheduling, assemble
-the QP, solve warm-started, apply u0 — or the limp-home controller when the
-solve is not usable — and keep the prediction for the next step.
+the QP, solve warm-started through the production pipeline (equilibrate,
+ADMM, polish: ``solver.production``), apply u0 — or the limp-home
+controller when the solve is not usable — and keep the prediction for the
+next step. When the in-solver infeasibility heuristic fires, OSQP's
+Farkas certificate confirms it (``MPCDiag.certified_infeasible``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from ..models import model_nx
 from ..models.dynamics import NU
 from ..ops.stage_math import model_s_ey
 from ..planner.reftable import RefTable, refs_from_table
-from ..solver.admm import ADMMSolution, BoxQP, admm_solve
+from ..solver.admm import ADMMSolution
+from ..solver.production import certify_primal_infeasibility, polish_solution, production_solve
+from ..solver.scaling import ruiz_row_equilibrate, unscale_solution
 from ..track.track import Track, curvature_at
 
 
@@ -37,6 +42,11 @@ class MPCDiag(NamedTuple):
     iters: torch.Tensor
     r_prim: torch.Tensor
     r_dual: torch.Tensor
+    # OSQP's Farkas certificate, evaluated only where the in-solver
+    # settled-dual heuristic fired; False wherever it did not, where the
+    # certificate is off (SolverConfig.certify_infeasibility) and on the
+    # kernel routes, which hand no assembled QP to it
+    certified_infeasible: torch.Tensor
 
 
 def constant_refs(cfg: MPCConfig, vx_ref: float, ey_ref: float = 0.0, device=None) -> torch.Tensor:
@@ -114,12 +124,24 @@ def mpc_prepare_light(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.T
     return X_sched, U_sched, kappas, x_ref, lb, ub, x0a, warm
 
 
-def _post_solve(p, cfg, scfg, track, x, warm, U_sched, sol: ADMMSolution):
+def _certified_infeasible_batch(qp_b, scfg: SolverConfig, sol_b: ADMMSolution) -> torch.Tensor:
+    """(B,) certificate behind one any-flag: the certificate (a few more
+    reduced iterations and a dual recovery) runs only on a step where some
+    QP's heuristic fired. The flag is one host read per step, and only when
+    ``certify_infeasibility`` is on and a QP is given."""
+    flags = sol_b.primal_infeasible.to(torch.bool)
+    if qp_b is None or not scfg.certify_infeasibility or not bool(flags.any()):
+        return torch.zeros_like(flags)
+    return flags & certify_primal_infeasibility(qp_b, scfg, sol_b)[0]
+
+
+def _post_solve(p, cfg, scfg, track, x, warm, U_sched, sol: ADMMSolution, qp=None):
     """Limp-home fallback + carry update.
 
     A solve is usable when it converged or both residuals are below
     ``eps_fallback``; otherwise the car steers geometrically toward the
-    centerline and brakes gently, and the shifted schedule is kept.
+    centerline and brakes gently, and the shifted schedule is kept. ``qp``
+    (the assembled QPs) lets the certificate run.
     """
     nx = model_nx(cfg.model)
     s_idx, ey_idx = model_s_ey(cfg.model)
@@ -137,17 +159,9 @@ def _post_solve(p, cfg, scfg, track, x, warm, U_sched, sol: ADMMSolution):
     new_carry = MPCCarry(X_pred=X_new, U_pred=U_new, s=sol.s, lam=sol.lam,
                          u_prev=u, rho=sol.rho)
     diag = MPCDiag(converged=sol.converged, iters=sol.iters,
-                   r_prim=sol.r_prim, r_dual=sol.r_dual)
+                   r_prim=sol.r_prim, r_dual=sol.r_dual,
+                   certified_infeasible=_certified_infeasible_batch(qp, scfg, sol))
     return u, new_carry, diag
-
-
-def _check_unit_rows(qp: BoxQP):
-    """With +-1 selector rows Ruiz row equilibration is the identity, so the
-    port solves the rows as they are; other rows would need the scaling."""
-    norm = torch.maximum(qp.Dx.abs().amax(dim=1), qp.Du.abs().amax(dim=1))
-    if not bool(torch.all(norm == 1.0)):
-        raise NotImplementedError(
-            "row equilibration (solver/scaling.py) is not ported; rows must be +-1 selectors")
 
 
 def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
@@ -155,19 +169,18 @@ def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
     """Batched control step (the JAX package's ``mpc_step`` vmapped over the
     batch). Returns (u (B, nu), new_carry, diag).
 
-    ``scfg.backend``: "plain" solves with :func:`solver.admm.admm_solve`;
-    "admm" with the solver-only kernel ``ops.admm_kernel.admm_kernel_solve``;
-    "fused" assembles and solves in one kernel,
+    ``scfg.backend``: "plain" solves with ``solver.production.
+    production_solve``; "admm" with the solver-only kernel
+    ``ops.admm_kernel.admm_kernel_solve`` between Ruiz row equilibration
+    and the optional polish; "fused" assembles and solves in one kernel,
     ``ops.fused_kernel.fused_mpc_solve``, after :func:`mpc_prepare_light`
-    (each kernel's plain version on CPU tensors). The whole-step kernel is
-    ``ops.megastep_kernel.megastep``. ``obstacles`` ((n_obs, 4) corridor
-    blocks, shared by the batch) tighten every route's e_y row through
-    ``tracker_bounds``.
+    (its rows are unit-norm by construction), and polishes on a
+    re-assembled QP when ``polish`` is set (each kernel's plain version on
+    CPU tensors). The whole-step kernel is ``ops.megastep_kernel.megastep``.
+    ``obstacles`` ((n_obs, 4) corridor blocks, shared by the batch) tighten
+    every route's e_y row through ``tracker_bounds``. Only the "plain" route
+    certifies infeasibility; the kernels raise no heuristic flag.
     """
-    if scfg.polish or scfg.certify_infeasibility:
-        raise NotImplementedError(
-            "polish and the infeasibility certificate are not ported yet; "
-            "set SolverConfig(polish=False, certify_infeasibility=False)")
     if scfg.backend == "fused":
         from ..ops.fused_kernel import fused_mpc_solve
 
@@ -175,19 +188,27 @@ def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
             p_b, cfg, track, x_b, x_ref, carry_b, obstacles)
         sol_b = fused_mpc_solve(cfg, scfg, p_b, Xs, Us, kap, xr, lb, ub, x0a, warm_b[0], warm_b[1],
                                 carry_b.rho)
+        if scfg.polish:
+            qp_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b, obstacles)[0]
+            sol_b = polish_solution(qp_b, scfg, sol_b)
         return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, warm_b[3], sol_b)
     qp_b, warm_b, U_sched_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b, obstacles)
-    if scfg.equilibrate:
-        _check_unit_rows(qp_b)
     if scfg.backend == "plain":
-        sol_b = admm_solve(qp_b, scfg, warm=warm_b, rho0=carry_b.rho)
-    elif scfg.backend == "admm":
-        from ..ops.admm_kernel import admm_kernel_solve
-
-        sol_b = admm_kernel_solve(qp_b, scfg, warm=warm_b, rho0=carry_b.rho)
-    else:
+        sol_b = production_solve(qp_b, scfg, warm=warm_b, rho0=carry_b.rho)
+        return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, U_sched_b, sol_b, qp=qp_b)
+    if scfg.backend != "admm":
         raise ValueError(f"mpc_step_batched backend {scfg.backend!r}; "
                          "the whole-step kernel is ops.megastep_kernel.megastep")
+    from ..ops.admm_kernel import admm_kernel_solve
+
+    if scfg.equilibrate:
+        qp_s, sc = ruiz_row_equilibrate(qp_b)
+        s_w, lam_w, Xa_w, U_w = warm_b
+        sol_b = admm_kernel_solve(qp_s, scfg, warm=(s_w * sc.d, lam_w / sc.d, Xa_w, U_w), rho0=carry_b.rho)
+        sol_b = unscale_solution(sol_b, sc)
+    else:
+        sol_b = admm_kernel_solve(qp_b, scfg, warm=warm_b, rho0=carry_b.rho)
+    sol_b = polish_solution(qp_b, scfg, sol_b)
     return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, U_sched_b, sol_b)
 
 

@@ -15,6 +15,10 @@ Two forms of the same step:
   one racestep launch (``ops.racestep``: the CUDA kernel for CUDA tensors,
   its plain version for CPU tensors), batch-last.
 
+:func:`race_loop` is the flagship program: a single car racing T steps
+with the MPP planner re-planning a receding horizon every ``replan_every``
+steps from the EKF's state at the live mu-hat, its segments on either form.
+
 Obstacle corridor blocks ((n_obs, 4), ``planner.opponents``) reach the
 tracker's e_y row in both: through ``tracker_bounds`` in the module
 composition, and as the racestep's per-stage ``eyb`` operand, evaluated by
@@ -25,19 +29,22 @@ carry's device seeded with it) or ``generator=``. The streams differ from
 ``jax.random``'s, so noisy runs agree with the JAX package in distribution,
 not sample for sample; tests hand both sides the same numpy noise.
 
-Not ported yet: ``race_loop`` (needs the planner), ``mega_race_learn``
-(lap learning), ``checkpointed_race_sweep`` (orbax).
+Not ported yet: ``race_loop``'s lap-learning mode (``ilc_every > 0``) and
+its ``obs_tracker_lead``, ``mega_race_learn`` (lap learning),
+``checkpointed_race_sweep`` (orbax).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..core.config import MPCConfig, SolverConfig, VehicleParams
+from ..core.config import MPCConfig, MPPConfig, SolverConfig, VehicleParams
 from ..engine.assembly import block_curvatures, corridor_from_blocks, steerable_curvature
+from ..planner.mpp import plan_mpp
+from ..planner.opponents import pad_blocks
 from ..planner.reftable import RefTable
 from ..track.track import Track, frenet_to_global, wrap_s
 from .estimator import DEFAULT_EKF_Q, EKFState, ekf_init, ekf_step
@@ -278,3 +285,178 @@ def mega_race_sweep(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track:
     _, (Xg, Xf, U, mu_hat, conv, _z, _it, _r) = run(carry0, _generator(dev, seed, generator))
     bf = lambda a: a.movedim(-1, 0)            # (T, ., B) -> (B, T, .)
     return BatchedRaceLog(Xg=bf(Xg), Xf=bf(Xf), U=bf(U), mu_hat=bf(mu_hat), converged=bf(conv))
+
+
+class RaceLog(NamedTuple):
+    Xg: torch.Tensor           # (T, 6) true world states
+    Xf: torch.Tensor           # (T, 6) filtered Frenet states fed to the MPC
+    Z: torch.Tensor            # (T, 6) raw (noisy) measurements
+    U: torch.Tensor            # (T, 2)
+    mu_hat: torch.Tensor       # (T,)
+    converged: torch.Tensor    # (T,)
+    iters: torch.Tensor        # (T,)
+    r_prim: torch.Tensor       # (T,) solver primal residual
+    replan_steps: torch.Tensor # step index of each table update (int64, host)
+    tables_vx: torch.Tensor    # (n_tables, n) vx profile after each update
+    tables_ey: torch.Tensor    # (n_tables, n) racing line after each update
+    lap_steps: torch.Tensor    # (n_laps,) step at which each lap completed (int64, host)
+
+
+def _obstacles_at(obstacles_fn, t: int, max_rows: int, device=None):
+    """The blocks visible at step t, padded to ``max_rows``, or None."""
+    if obstacles_fn is None:
+        return None
+    obs = obstacles_fn(t)
+    if obs is None:
+        return None
+    return torch.as_tensor(pad_blocks(obs, max_rows), device=device)
+
+
+def race_loop(
+    p: VehicleParams,
+    cfg: MPCConfig,
+    scfg: SolverConfig,
+    pcfg: MPPConfig,
+    track: Track,
+    x0,                           # (6,) initial TRUE state, Frenet (to the track's device)
+    T: int,
+    mu_true: float,
+    mu0: float = 1.0,
+    replan_every: int = 60,
+    noise_sigma=None,             # (6,) per-state sensor sigma, or None
+    seed: int = 0,
+    generator: Optional[torch.Generator] = None,
+    use_ekf: bool = True,
+    adapt_mu: bool = True,
+    obstacles_fn: Optional[Callable[[int], Optional[np.ndarray]]] = None,
+    max_obstacle_rows: int = 8,
+    obs_tracker_lead: float = 0.0,
+    mu_plan0: Optional[float] = None,   # friction for the FIRST plan only
+    ilc_every: int = 0,
+    sim_tire: str = "pacejka",
+    n_sub: int = 10,
+    plan_scfg: Optional[SolverConfig] = None,
+    table0: Optional[RefTable] = None,
+    ekf_q=None,
+    backend: str = "plain",
+) -> RaceLog:
+    """Race ``T`` control steps of one car with the full stack composed:
+    world-frame truth at ``mu_true`` -> noisy measurement -> EKF at mu-hat
+    -> friction RLS -> tracker at mu-hat on the current table -> plant.
+
+    Replanning mode: the MPP plans first at ``mu_plan0`` (default: the
+    live mu-hat, mu0 at the start) from x0, then re-plans a receding
+    horizon every ``replan_every`` steps from the EKF's state (the raw
+    filtered state without the EKF) at the car's current mu-hat, so the
+    estimator's friction flows into the planner's speed caps;
+    ``obstacles_fn(step)`` corridors reach the planner and the tracker. A
+    caller's ``table0`` replaces the first plan.
+
+    ``backend``: "plain" (the JAX "xla") runs each segment as the module
+    composition (``mpc_step`` per step); "mega" runs it on the racestep,
+    one launch per step (the CUDA kernel for CUDA tensors, its plain
+    version on the CPU) at B=1, with moving blocks per segment. The noise
+    stream is drawn from ``generator`` (or one seeded with ``seed``); the
+    two backends draw differently, so noisy runs agree in distribution.
+
+    Lap learning (``ilc_every > 0``) and the ramped line lead-in
+    (``obs_tracker_lead > 0``) need the lap learner, which is not ported:
+    both raise ``NotImplementedError``.
+    """
+    if ilc_every > 0:
+        raise NotImplementedError("race_loop's lap-learning mode (ilc_every > 0) needs "
+                                  "loop/lap_learning.learn_from_lap, which is not ported yet")
+    if obs_tracker_lead > 0.0:
+        raise NotImplementedError("obs_tracker_lead needs the lap learner's obstacle memory "
+                                  "(loop/lap_learning.py), which is not ported yet")
+    if cfg.model != "dynamic":
+        raise ValueError("race_loop composes the friction estimator; it needs the dynamic model")
+    if cfg.model != pcfg.model:
+        raise ValueError(f"tracker model {cfg.model!r} and planner model {pcfg.model!r} differ")
+    if backend not in ("plain", "mega"):
+        raise ValueError(f"race_loop backend {backend!r}: expected 'plain' or 'mega'")
+    dev = track.kappa.device
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if ekf_q is None:
+        ekf_q = np.asarray(DEFAULT_EKF_Q, np.float32)
+    gen = _generator(dev, seed, generator)
+    p_mu0 = p.replace(mu=float(np.float32(mu0)))
+    use_mega = backend == "mega"
+    x0_b = x0[None]
+    if use_mega:
+        from ..ops.racestep_kernel import racestep_init
+
+        sig = np.zeros(6, np.float32) if noise_sigma is None else np.asarray(noise_sigma, np.float32)
+        runner = make_racestep_scan(p_mu0, cfg, scfg, track, None, replan_every,
+                                    torch.full((1,), float(mu_true), **f32), sig, use_ekf=use_ekf,
+                                    adapt_mu=adapt_mu, sim_tire=sim_tire, n_sub=n_sub, ekf_q=ekf_q,
+                                    table_arg=True, obstacles_arg=obstacles_fn is not None)
+        mcarry = racestep_init(p, cfg, track, x0_b, mu0)
+    else:
+        segment = _make_segment(p, cfg, scfg, track, replan_every, mu_true, mu0, sim_tire, n_sub,
+                                noise_sigma, use_ekf, adapt_mu, ekf_q)
+        Xw, Yw, psiw = frenet_to_global(track, x0[4], x0[5], x0[3])
+        carry = RaceCarry(
+            xg=torch.stack([x0[0], x0[1], x0[2], Xw, Yw, psiw])[None],
+            mpc=mpc_init(p_mu0, cfg, track, x0_b), ekf=ekf_init(x0_b),
+            fric=friction_init(mu0, batch=(1,), device=dev), x_prev_f=x0_b,
+            u_prev=torch.zeros((1, 2), **f32), generator=gen)
+
+    def current_mu() -> float:
+        if not adapt_mu:
+            return float(mu0)
+        return float(mcarry.fr[0, 0]) if use_mega else float(carry.fric.mu[0])
+
+    # the first plan's friction is consumed once (and only when race_loop
+    # itself plans it: a caller's table0 is that caller's first plan, so
+    # the first REPLAN already takes the live mu-hat)
+    first_plan_mu = [mu_plan0 if table0 is None else None]
+
+    def plan_now(t: int, x_state) -> RefTable:
+        mu_p = first_plan_mu[0] if first_plan_mu[0] is not None else current_mu()
+        first_plan_mu[0] = None
+        table, _ = plan_mpp(p.replace(mu=float(np.float32(mu_p))), pcfg, track, scfg=plan_scfg,
+                            obstacles=_obstacles_at(obstacles_fn, t, max_obstacle_rows, dev),
+                            x0_state=x_state)
+        return table
+
+    table = table0 if table0 is not None else plan_now(0, x0)
+    replan_steps, tables_vx, tables_ey, segs = [0], [table.vx], [table.ey], []
+    for i in range(-(-T // replan_every)):
+        t = i * replan_every
+        if use_mega:
+            args = (mcarry, gen, table)
+            if obstacles_fn is not None:
+                args += (torch.as_tensor(pad_blocks(obstacles_fn(t), max_obstacle_rows), **f32),)
+            mcarry, (xg_b, xf_b, u_b, mu_b, conv_b, z_b, it_b, rp_b) = runner(*args)
+            lane = lambda a: a[..., 0]                      # (T_seg, ., 1) -> (T_seg, .)
+            outs = (lane(xg_b), lane(xf_b), lane(z_b), lane(u_b), lane(mu_b), lane(conv_b),
+                    lane(it_b), lane(rp_b))
+        else:
+            carry, outs_b = segment(carry, table, _obstacles_at(obstacles_fn, t, max_obstacle_rows, dev))
+            outs = tuple(a[:, 0] for a in outs_b)
+        segs.append(outs)
+        t_next = t + replan_every
+        if t_next >= T:
+            break
+        # replan from the current ESTIMATED state at the current mu-hat
+        if use_mega:
+            x_state = mcarry.ekx[:, 0] if use_ekf else mcarry.x_prev_f[:, 0]
+        else:
+            x_state = carry.ekf.x[0] if use_ekf else carry.x_prev_f[0]
+        table = plan_now(t_next, x_state)
+        replan_steps.append(t_next)
+        tables_vx.append(table.vx)
+        tables_ey.append(table.ey)     # in lockstep with replan_steps
+
+    Xg, Xf, Z, U, mu_hat, conv, iters, r_prim = (torch.cat(col, dim=0)[:T] for col in zip(*segs))
+    # lap completions from the estimator's unwrapped s (the shared contract)
+    s_traj = Xf[:, 4].cpu().numpy()
+    L = float(track.length)
+    s0 = float(x0[4])
+    n_laps = int((s_traj[-1] - s0) // L)
+    lap_steps = [int(np.argmax(s_traj - s0 >= (k + 1) * L)) + 1 for k in range(n_laps)]
+    return RaceLog(Xg=Xg, Xf=Xf, Z=Z, U=U, mu_hat=mu_hat, converged=conv, iters=iters, r_prim=r_prim,
+                   replan_steps=torch.tensor(replan_steps), tables_vx=torch.stack(tables_vx),
+                   tables_ey=torch.stack(tables_ey), lap_steps=torch.tensor(lap_steps, dtype=torch.int64))

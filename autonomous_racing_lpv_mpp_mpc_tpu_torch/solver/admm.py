@@ -1,5 +1,5 @@
 """Batched ADMM with OSQP semantics; x-update = Riccati affine sweep (the
-JAX package's ``solver/admm.py``, fixed-iteration solve).
+JAX package's ``solver/admm.py``).
 
 Problem (block form, from engine/assembly.py):
 
@@ -10,6 +10,20 @@ Problem (block form, from engine/assembly.py):
 Batch dims lead every per-QP tensor (A (..., N, na, na), lb (..., N+1, nc),
 x0 (..., na), rho (...)); the rows ``Dx`` (nc, na), ``Du`` (nc, nu) and the
 per-row softness ``soft`` (nc,) are shared by the batch.
+
+Two entry points, as in the JAX package:
+
+- :func:`admm_solve`: a fixed iteration count in chunks of
+  ``rho_interval`` (the batched path). With ``graphed=True`` and CUDA
+  tensors one chunk (refactorization, ``rho_interval`` iterations, rho
+  update) is captured once as a CUDA graph per shape and solver config and
+  replayed for every chunk of every later solve of that shape (the
+  planner's long-horizon solves, which would otherwise be thousands of
+  small launches per iteration);
+- :func:`admm_solve_single`: early exit, checking OSQP termination every
+  ``check_termination`` iterations. With batch dims each QP stops on its
+  own (a lane that is done keeps its iterate), the semantics of the JAX
+  function under ``vmap``; the loop reads one any-flag per chunk.
 """
 
 from __future__ import annotations
@@ -39,6 +53,11 @@ class BoxQP(NamedTuple):
     # per-row softness: +inf = hard box; finite beta = quadratic penalty
     # beta/2 * dist(row, [lb, ub])^2
     soft: torch.Tensor      # (nc,)
+
+
+def hard_rows(nc: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(nc,) softness of all-hard box rows."""
+    return torch.full((nc,), float("inf"), dtype=dtype, device=device)
 
 
 class ADMMState(NamedTuple):
@@ -155,18 +174,87 @@ def _converged(st: ADMMState):
     return (st.r_prim <= st.eps_prim) & (st.r_dual <= st.eps_dual)
 
 
+def _chunk(qp: BoxQP, cfg: SolverConfig, interval: int, st: ADMMState, rho, it, done_at):
+    """One rho chunk: refactorize at rho, ``interval`` iterations, adapt rho.
+    ``it`` is the 0-d int32 count of iterations run so far and ``done_at``
+    (int32, -1 until converged) the first iteration at which termination
+    held; both stay on the device, so a chunk reads nothing back."""
+    fac = riccati_factor(qp.dyn, _folded_cost(qp, rho, cfg.sigma), cfg.riccati)
+    for _ in range(interval):
+        st = _iterate(qp, fac, cfg, rho, st)
+        it = it + 1
+        done_at = torch.where((done_at < 0) & _converged(st), it, done_at)
+    return st, _new_rho(rho, st), it, done_at
+
+
+class _ChunkGraph:
+    """A CUDA graph of :func:`_chunk` over static buffers. ``run`` copies a
+    solve's QP and starting state into them, replays the graph once per
+    chunk (the graph writes its outputs back over its inputs) and returns
+    copies of the final state."""
+
+    def __init__(self, qp: BoxQP, cfg: SolverConfig, interval: int, state):
+        self.qp = _map_qp(torch.clone, qp)
+        self.state = tuple(t.clone() for t in _flat_state(*state))
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):      # first calls: library handles, workspaces
+            for _ in range(2):
+                _chunk(self.qp, cfg, interval, *_unflat_state(self.state))
+        cur.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            out = _chunk(self.qp, cfg, interval, *_unflat_state(self.state))
+            for dst, src in zip(self.state, _flat_state(*out)):
+                dst.copy_(src)
+
+    def run(self, qp: BoxQP, state, n_chunks: int):
+        for dst, src in zip(_flat_qp(self.qp), _flat_qp(qp)):
+            dst.copy_(src)
+        for dst, src in zip(self.state, _flat_state(*state)):
+            dst.copy_(src)
+        for _ in range(n_chunks):
+            self.graph.replay()
+        return _unflat_state(tuple(t.clone() for t in self.state))
+
+
+_CHUNK_GRAPHS = {}   # (device, solver config, interval, shapes) -> _ChunkGraph
+
+
+def _flat_qp(qp: BoxQP):
+    return (*qp.dyn, *qp.cost, qp.Dx, qp.Du, qp.lb, qp.ub, qp.x0, qp.soft)
+
+
+def _map_qp(fn, qp: BoxQP) -> BoxQP:
+    return BoxQP(dyn=LQRDynamics(*(fn(t) for t in qp.dyn)), cost=LQRCost(*(fn(t) for t in qp.cost)),
+                 Dx=fn(qp.Dx), Du=fn(qp.Du), lb=fn(qp.lb), ub=fn(qp.ub), x0=fn(qp.x0), soft=fn(qp.soft))
+
+
+def _flat_state(st: ADMMState, rho, it, done_at):
+    return (*st, rho, it, done_at)
+
+
+def _unflat_state(flat):
+    n = len(ADMMState._fields)
+    return ADMMState(*flat[:n]), *flat[n:]
+
+
 def admm_solve(
     qp: BoxQP,
     cfg: SolverConfig,
     warm: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]] = None,
     rho0: Optional[torch.Tensor] = None,
+    graphed: bool = False,
 ) -> ADMMSolution:
     """Fixed-iteration batched ADMM.
 
     Runs chunks of ``rho_interval`` iterations (one chunk of ``max_iter``
     when it is 0), refactorizing at the start of each chunk and adapting
     rho at its end. With ``rho_interval=0`` and a carried ``rho0`` that is
-    exactly one factorization per solve.
+    exactly one factorization per solve. ``graphed=True`` replays each chunk
+    from a CUDA graph captured at the first solve of these shapes and this
+    config (CUDA tensors only; CPU tensors run the same ops eagerly).
     """
     interval = cfg.rho_interval if cfg.rho_interval > 0 else cfg.max_iter
     n_chunks = max(1, -(-cfg.max_iter // interval))
@@ -178,23 +266,80 @@ def admm_solve(
         rho = torch.full(batch, cfg.rho, **kw)
     else:
         rho = torch.as_tensor(rho0, **kw).expand(batch).clone()
+    state = (st, rho, torch.zeros((), dtype=torch.int32, device=kw["device"]),
+             torch.full(batch, -1, dtype=torch.int32, device=kw["device"]))
 
-    it = 0
-    done_at = torch.full(batch, -1, dtype=torch.int32, device=kw["device"])
-    for _ in range(n_chunks):
-        fac = riccati_factor(qp.dyn, _folded_cost(qp, rho, cfg.sigma), cfg.riccati)
-        for _ in range(interval):
-            st = _iterate(qp, fac, cfg, rho, st)
-            it += 1
-            done_at = torch.where((done_at < 0) & _converged(st),
-                                  torch.full_like(done_at, it), done_at)
-        rho = _new_rho(rho, st)
+    if graphed and kw["device"].type == "cuda":
+        key = (kw["device"], cfg, interval,
+               tuple((tuple(t.shape), t.dtype) for t in _flat_qp(qp) + _flat_state(*state)))
+        if key not in _CHUNK_GRAPHS:
+            _CHUNK_GRAPHS[key] = _ChunkGraph(qp, cfg, interval, state)
+        st, rho, it, done_at = _CHUNK_GRAPHS[key].run(qp, state, n_chunks)
+    else:
+        for _ in range(n_chunks):
+            state = _chunk(qp, cfg, interval, *state)
+        st, rho, it, done_at = state
 
     return ADMMSolution(
         X=st.X, U=st.U, s=st.s, lam=st.lam,
         r_prim=st.r_prim, r_dual=st.r_dual,
         converged=_converged(st),
-        iters=torch.where(done_at > 0, done_at, torch.full_like(done_at, it)),
+        iters=torch.where(done_at > 0, done_at, it),
         rho=rho,
         primal_infeasible=st.primal_infeasible,
     )
+
+
+def _lanes(mask, t):
+    """``mask`` (batch) broadcast against a batch-first leaf ``t``."""
+    return mask.reshape(mask.shape + (1,) * (t.dim() - mask.dim()))
+
+
+def admm_solve_single(
+    qp: BoxQP,
+    cfg: SolverConfig,
+    warm: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> ADMMSolution:
+    """Early-exit ADMM: chunks of ``check_termination`` iterations at one
+    factorization until OSQP termination holds or ``max_iter`` is reached;
+    rho adapts on the chunk that crosses a ``rho_interval`` boundary.
+    ``iters`` is the iteration count at exit (a multiple of the check
+    cadence). Each QP of a batch stops on its own; the loop ends when every
+    QP has, which costs one host read per chunk."""
+    check = max(1, cfg.check_termination)
+    interval = cfg.rho_interval if cfg.rho_interval > 0 else cfg.max_iter
+    batch = qp.x0.shape[:-1]
+    kw = dict(dtype=qp.dyn.A.dtype, device=qp.dyn.A.device)
+    st = _init_state(qp, warm)
+    rho = torch.full(batch, cfg.rho, **kw)
+    it = torch.zeros(batch, dtype=torch.int32, device=kw["device"])
+    while True:
+        active = (it < cfg.max_iter) & ~_converged(st)
+        if not bool(active.any()):
+            break
+        fac = riccati_factor(qp.dyn, _folded_cost(qp, rho, cfg.sigma), cfg.riccati)
+        st_new = st
+        for _ in range(check):
+            st_new = _iterate(qp, fac, cfg, rho, st_new)
+        it_new = it + check
+        rho_new = torch.where((it_new % interval) < check, _new_rho(rho, st_new), rho)
+        st = ADMMState(*(torch.where(_lanes(active, a), a, b) for a, b in zip(st_new, st)))
+        it = torch.where(active, it_new, it)
+        rho = torch.where(active, rho_new, rho)
+    return ADMMSolution(
+        X=st.X, U=st.U, s=st.s, lam=st.lam,
+        r_prim=st.r_prim, r_dual=st.r_dual,
+        converged=_converged(st), iters=it, rho=rho,
+        primal_infeasible=st.primal_infeasible,
+    )
+
+
+def qp_objective(qp: BoxQP, X: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """0.5 z'Pz + q'z of the tracking cost per QP (diagnostics, oracle
+    checks); (batch) from X (..., N+1, nx), U (..., N, nu)."""
+    N = qp.dyn.A.shape[-3]
+    c = qp.cost
+    quad = lambda v, M: torch.einsum("...ki,...kij,...kj->...", v, M, v)
+    lin = lambda v, w: torch.einsum("...ki,...ki->...", v, w)
+    return (0.5 * quad(X, c.Q) + lin(c.q, X) + 0.5 * quad(U, c.R) + lin(c.r, U)
+            + torch.einsum("...ki,...kij,...kj->...", X[..., :N, :], c.M, U))

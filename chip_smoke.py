@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 It builds the hand-written CUDA kernels from ``ops/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (the megastep and the
 racestep also with an obstacle corridor, the racestep with per-lane
-reference tables), then drives five main paths:
+reference tables and at the race presets' N=12 for B=4096 and B=1), then
+drives seven main paths and the planner:
 
 - the batched receding-horizon tracker of ``bench.py``: B=4096 scenarios of
   the dynamic bicycle on the racetrack, N=20, dt=1/30, constant reference
@@ -40,7 +41,23 @@ reference tables), then drives five main paths:
   whose swept blocks (``opponents_obstacle_fn``, padded to 8 rows) are
   refreshed every 60 steps, 9 segments through ``make_racestep_scan(...,
   table_arg=True, obstacles_arg=True)``: one racestep launch per step with
-  the e_y corridor operand; then the same with all-dummy blocks.
+  the e_y corridor operand; then the same with all-dummy blocks;
+- ``[plan]``: the MPP planner (``plan_mpp``) on the card at the race
+  presets' ``MPPConfig.for_model("dynamic", H=256, n_sqp=2)`` on the
+  racetrack at mu=0.5, eager and from its CUDA graphs, against the same
+  plan by the port on the CPU; then BASELINE config 3's default
+  ``MPPConfig()`` (H=512, n_sqp=4) at mu=1.0;
+- ``race_sweep``'s protocol (path 6): B=4096 cars for T=600 steps on the
+  ``[plan]`` table through ``mega_race_sweep``, ``MPCConfig(N=12,
+  tire="pacejka")``, ``SolverConfig(max_iter=40, early_exit=True,
+  check_termination=2)``, plant friction ``linspace(0.5, 1.2, 4096)``,
+  controller seed mu0=0.85, the sensor noise above: one racestep launch per
+  step;
+- the flagship ``race`` preset (path 7): ``race_loop(backend="mega")``,
+  T=720 on the racetrack, mu_true=0.6, mu0=1.0, the planner above
+  replanning every 60 steps from the EKF's state at the live mu-hat,
+  N=12 Pacejka, ``max_iter=60``: one racestep launch per step at B=1; then
+  120 steps of the same program with ``backend="plain"`` (no kernel).
 
 The new paths build their tracks, grids and references without naming a
 device: the port's default device is the card. The ``kernels`` line has
@@ -67,8 +84,8 @@ first check of freshly edited kernels) and prints no result.
 script to that checkout's root and run it there with ``--ab``. It skips
 the ``[shape]`` lines (the group kernels' launch shape, which older
 checkouts lack), the solver-only kernel at na=6, the corridor and per-lane
-table phases and the fifth path (which they do not take), and runs every
-other phase. A one-call A/B of a change
+table phases, the fifth path, the racestep at N=12, the planner and paths
+6 and 7 (which they do not take), and runs every other phase. A one-call A/B of a change
 runs the parent's copy and the change's script in turn (parent, change,
 change, parent) and compares their lines.
 """
@@ -95,6 +112,14 @@ K_OBS_CMP = 3          # racestep steps held against plain with eyb and per-lane
 OBS_SEGMENT = 60       # steps between block refreshes on main path 5
 K_OBS_SEGMENTS = 9
 SIGMA = (0.03, 0.01, 0.02, 0.01, 0.02, 0.01)
+N_RACE = 12            # the race presets' tracker horizon (paths 6 and 7)
+T_SWEEP = 600          # path 6: race_sweep's steps
+T_RACE = 720           # path 7: the race preset's steps
+T_RACE_PLAIN = 120     # path 7's smoke of the module composition on the card
+REPLAN_EVERY = 60
+# the TPU run's quality numbers (PERF_TPU.md:117-133), printed beside ours
+TPU_SWEEP = {"corr": 0.956, "converged": 0.989, "ey_p99": 0.114}
+TPU_RACE = {"mu_hat": 0.595, "lap_s": 13.97, "ey_rms": 0.043, "converged": 0.965}
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, SXM, 700 W
 H100_BYTES_S = 3.35e12      # HBM3
 
@@ -989,6 +1014,72 @@ def main():
         log(f"[waves] admm na=8 N={N_MAIN}, device ms on the first B QPs: " + ", ".join(
             f"B={nb} ({-(-nb // 16)} blocks of 16) {ms:.4f}" for nb, ms in wave_ms.items()) + f" ({card})")
 
+    # ---- 5e. the racestep at the race presets' horizon, N=12, at path 6's
+    # B=4096 and at path 7's B=1 (one real lane and 127 padding lanes that
+    # vote "done" in the 128-lane group), 5 noisy steps on the composed
+    # protocol's table, at a fixed count (rho_interval=0) and at the path's
+    # own solver config. Every lane is held to section 5's bounds (tight at
+    # the fixed count, 5e-3 at the path config) one step at a time from
+    # plain's carry; each version on its own carry is
+    # reported: at N=12 one lane in 4,096 sits at the friction RLS's
+    # excitation gate (|dFy/dmu| >= 0.05 fz), which the two versions' 1e-6
+    # apart states put on opposite sides, so its mu-hat parts by 0.023 in
+    # one step and its controls by ~3e-4 the steps after (NVIDIA H100 80GB
+    # HBM3; one step from a common carry agrees to 3e-6 on every lane) ----
+    race12 = {}
+    rcfg12 = MPCConfig(N=N_RACE, model="dynamic", tire="pacejka")
+    scfg6 = SolverConfig(max_iter=40, early_exit=True, check_termination=2)
+    scfg7 = SolverConfig(max_iter=60)
+    if not ab:
+        for nb, path_cfg in ((B_MAIN, scfg6), (1, scfg7)):
+            prm_n = rprm[:, :nb].contiguous()
+            race12[nb] = {}
+            for name, sc in (("fixed, rho_interval=0", path_cfg.replace(early_exit=False, rho_interval=0)),
+                             ("path config", path_cfg)):
+                ck = cp = racestep_init(p, rcfg12, track, x0r[:nb], 0.85)
+                own, step = {}, {}
+                for k in range(K_RACE_CMP):
+                    a = (rcfg12, sc, track, prm_n, table)
+                    nz = noises[k][:, :nb].contiguous()
+                    ck, uk, dk, zk = racestep(*a, ck, nz, mu_b[:nb], ekq, ekr)
+                    cs, us, ds_, zs = racestep(*a, cp, nz, mu_b[:nb], ekq, ekr)
+                    cp, up, dp, zp = racestep_plain(*a, cp, nz, mu_b[:nb], ekq, ekr)
+                    torch.cuda.synchronize()
+                    for acc, c, u, z in ((own, ck, uk, zk), (step, cs, us, zs)):
+                        for key, x, y in (("u0", u, up), ("z", z, zp)) + tuple(
+                                (f, getattr(c, f), getattr(cp, f)) for f in ("xg", "ekx", "ekP", "fr", "X_pred")):
+                            d = (x - y).abs().reshape(-1, nb).amax(dim=0)
+                            acc[key] = torch.maximum(acc[key], d) if key in acc else d
+                err_step = {key: v.max().item() for key, v in step.items()}
+                err_own = {key: v.max().item() for key, v in own.items()}
+                n_conv = int(((ds_[2] > 0.5) & (dp[2] > 0.5)).sum().item())
+                log(f"[race-n12] B={nb} N={N_RACE} {name}, max_iter={sc.max_iter}, every lane one step from "
+                    f"plain's carry: " + " ".join(f"max|d{key}|={v:.3e}" for key, v in err_step.items())
+                    + f"; converged at the last step {n_conv}/{nb}")
+                log(f"[race-n12] B={nb} {name}, each version on its own carry: "
+                    + " ".join(f"max|d{key}|={v:.3e}" for key, v in err_own.items())
+                    + f"; lanes with |du0| > 2e-4: {int((own['u0'] > 2e-4).sum().item())}")
+                check(all(bool(torch.isfinite(t).all()) for t in (*ck, uk, dk, zk, *cs, us)),
+                      f"racestep N=12 B={nb}: not finite")
+                check(n_conv >= 0.9 * nb, f"racestep N=12 B={nb} {name}: only {n_conv} lanes converged")
+                # the path configs decide rho switches (and path 6 its exit)
+                # at chunk boundaries, where two roundings may part on a
+                # ratio at its threshold to two terminated points: 5e-3 there
+                bounds_n = tight if name.startswith("fixed") else loose
+                for key, tol in bounds_n.items():
+                    check(err_step[key] <= tol, f"racestep N=12 B={nb} {name}: |d{key}| {err_step[key]:.3e} beyond "
+                          f"{tol} of plain (one step, all lanes)")
+                if name == "path config":
+                    race12[nb].update(max_abs_err=max(err_step[key] for key in tight),
+                                      max_abs_err_own_carries=max(err_own[key] for key in tight))
+            c12 = racestep_init(p, rcfg12, track, x0r[:nb], 0.85)
+            args12 = (rcfg12, path_cfg, track, prm_n, table, c12, noises[0][:, :nb].contiguous(), mu_b[:nb], ekq, ekr)
+            racestep(*args12)                                           # warm-up
+            race12[nb]["device_ms"] = kernel_ms(lambda: racestep(*args12), 10, "racestep_kernel")
+            race12[nb]["plain_ms"] = cuda_time_ms(lambda: racestep_plain(*args12), 3)
+            log(f"[race-n12] B={nb} first step, path config: {race12[nb]['device_ms']:.4f} ms kernel (device), "
+                f"{race12[nb]['plain_ms']:.3f} ms plain ({card})")
+
     if quick:
         log("[quick] kernel checks passed; stopping before the main path")
         return
@@ -1253,6 +1344,162 @@ def main():
         check(bool(torch.isfinite(kxs).all()) and min(kconv_admm) >= 0.99,
               "config 1 admm route did not converge")
 
+    # ---- 10. the planner: plan_mpp at the race presets' MPPConfig on the
+    # card (eager, then from its CUDA graphs: the first graphed plan captures
+    # them) against the same plan by the port on the CPU; then BASELINE
+    # config 3's default MPPConfig (H=512, n_sqp=4) ----
+    plan = sweep = race7 = None
+    if not ab:
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPPConfig
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import mega_race_sweep, race_loop
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import race as race_mod
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import plan_mpp
+
+        def wall_ms(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        pcfg = MPPConfig.for_model("dynamic", H=256, n_sqp=2)
+        p_lo = p.replace(mu=0.5)
+        reset_launches()
+        (tab_e, d_e), plan_eager_ms = wall_ms(lambda: plan_mpp(p_lo, pcfg, track, graphed=False))
+        (_, _), plan_capture_ms = wall_ms(lambda: plan_mpp(p_lo, pcfg, track))
+        (tab_g, d_g), plan_graph_ms = wall_ms(lambda: plan_mpp(p_lo, pcfg, track))
+        read_launches("plan", {})
+        t0 = time.perf_counter()
+        tab_c, d_c = plan_mpp(p_lo, pcfg, racetrack(device="cpu"))
+        plan_cpu_ms = (time.perf_counter() - t0) * 1e3
+        dtab = {k: max((getattr(tab_g, k).cpu() - getattr(tab_c, k)).abs().max().item(),
+                       (getattr(tab_e, k).cpu() - getattr(tab_c, k)).abs().max().item()) for k in ("vx", "ey", "delta")}
+        dge = max((getattr(tab_g, k) - getattr(tab_e, k)).abs().max().item() for k in ("vx", "ey", "delta"))
+        prog_rel = abs(float(d_g.progress) - float(d_c.progress)) / abs(float(d_c.progress))
+        plan = {"eager_ms": plan_eager_ms, "capture_ms": plan_capture_ms, "graph_ms": plan_graph_ms}
+        log(f"[plan] H={pcfg.H} n_sqp={pcfg.n_sqp} racetrack mu=0.5: {plan_eager_ms:.1f} ms/plan eager, {plan_capture_ms:.1f} ms "
+            f"first graphed plan (captures), {plan_graph_ms:.1f} ms/plan graphed ({card}); {plan_cpu_ms:.1f} ms on the "
+            f"host CPU")
+        log(f"[plan] card vs CPU: max|dvx|={dtab['vx']:.3e} max|dey|={dtab['ey']:.3e} max|ddelta|={dtab['delta']:.3e} "
+            f"(tolerance 5e-3); graphed vs eager {dge:.3e}; converged card {d_g.converged.tolist()} cpu "
+            f"{d_c.converged.tolist()}, iters card {d_g.iters.tolist()} cpu {d_c.iters.tolist()}; progress "
+            f"{float(d_g.progress):.4f} vs {float(d_c.progress):.4f} m, lap_time {float(d_g.lap_time):.4f} vs "
+            f"{float(d_c.lap_time):.4f} s")
+        check(all(bool(torch.isfinite(getattr(tab_g, k)).all()) for k in ("vx", "ey", "delta")), "[plan] not finite")
+        check(max(dtab.values()) <= 5e-3, f"[plan] the card's table is {max(dtab.values()):.3e} from the CPU's")
+        check(dge <= 5e-3, f"[plan] the graphed plan is {dge:.3e} from the eager one")
+        check(d_g.converged.tolist() == d_c.converged.tolist(), "[plan] convergence differs from the CPU's")
+        check(prog_rel <= 1e-3, f"[plan] progress {prog_rel:.3e} (relative) from the CPU's")
+        pcfg3 = MPPConfig()
+        (_, _), plan3_capture_ms = wall_ms(lambda: plan_mpp(p, pcfg3, track))
+        (tab3, d3), plan3_ms = wall_ms(lambda: plan_mpp(p, pcfg3, track))
+        plan.update(h512_capture_ms=plan3_capture_ms, h512_ms=plan3_ms)
+        log(f"[plan] H={pcfg3.H} n_sqp={pcfg3.n_sqp} (BASELINE config 3) mu=1.0: {plan3_capture_ms:.1f} ms first (captures), "
+            f"{plan3_ms:.1f} ms/plan graphed ({card}); converged {d3.converged.tolist()}, iters {d3.iters.tolist()}, "
+            f"lap_time {float(d3.lap_time):.4f} s, progress {float(d3.progress):.4f} m")
+        check(bool(torch.isfinite(tab3.vx).all()) and float(d3.progress) > float(track.length),
+              "[plan] the H=512 plan is not finite or covers less than a lap")
+
+        # ---- 11. main path 6: race_sweep's protocol at full width on the
+        # [plan] table (planned at mu_lo = 0.5) ----
+        mu6 = torch.linspace(0.5, 1.2, B_MAIN, device=dev)
+        x06 = torch.zeros((B_MAIN, 6), device=dev)
+        x06[:, 0] = 1.0
+        # each step's done-at per lane, for the bound below: the wrapper calls
+        # its launcher through the module, so a recorder there sees every
+        # launch (and the wrapper still counts it)
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import racestep_kernel as rk_mod
+
+        done6, launch_cuda = [], rk_mod._racestep_cuda
+
+        def recording_launch(*a, **k):
+            out = launch_cuda(*a, **k)
+            done6.append(out[2][4])
+            return out
+
+        reset_launches()
+        st, en = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        rk_mod._racestep_cuda = recording_launch
+        try:
+            st.record()
+            log6 = mega_race_sweep(p, rcfg12, scfg6, track, tab_g, x06, T=T_SWEEP, mu_true_b=mu6, mu0=0.85,
+                                   noise_sigma=SIGMA, seed=6)
+            en.record()
+            torch.cuda.synchronize()
+        finally:
+            rk_mod._racestep_cuda = launch_cuda
+        sweep = {"launches": read_launches("race-sweep", {"racestep": T_SWEEP}),
+                 "ms": st.elapsed_time(en) / T_SWEEP}
+        mu_fin = log6.mu_hat[:, -1].cpu().numpy()
+        err6 = np.abs(mu_fin - mu6.cpu().numpy())
+        ey6 = log6.Xf[..., 5].abs().flatten().cpu().numpy()
+        sweep.update(corr=float(np.corrcoef(mu_fin, mu6.cpu().numpy())[0, 1]), mu_err_median=float(np.median(err6)),
+                     mu_err_p90=float(np.percentile(err6, 90)), converged=log6.converged.mean().item(),
+                     ey_p99=float(np.percentile(ey6, 99)), ey_max=float(ey6.max()),
+                     finite=all(bool(torch.isfinite(t).all()) for t in log6))
+        log(f"[race-sweep] B={B_MAIN} T={T_SWEEP} N={N_RACE}: {sweep['ms']:.4f} ms/composed step "
+            f"({B_MAIN / sweep['ms'] * 1e3:.0f} composed solves/s) ({card}); mu-hat/mu-true corr "
+            f"{sweep['corr']:.4f} (TPU run {TPU_SWEEP['corr']}), |mu err| median {sweep['mu_err_median']:.4f} p90 "
+            f"{sweep['mu_err_p90']:.4f}, converged {sweep['converged']:.4f} (TPU run {TPU_SWEEP['converged']}), "
+            f"|e_y| p99 {sweep['ey_p99']:.4f} (TPU run {TPU_SWEEP['ey_p99']}) max {sweep['ey_max']:.4f}, "
+            f"finite={sweep['finite']}")
+        check(sweep["finite"], "[race-sweep] non-finite output")
+        check(sweep["converged"] >= 0.95, f"[race-sweep] converged {sweep['converged']:.4f} < 0.95")
+
+        # ---- 12. main path 7: the flagship race preset, race_loop on the
+        # racestep at B=1 with the planner replanning every 60 steps; the wall
+        # split between plans and segments by timing race_loop's planner
+        # calls; then 120 steps of the module composition (no kernel) ----
+        plan_wall = [0.0]
+
+        def timed_plan(*a, **k):
+            out, ms = wall_ms(lambda: plan_mpp(*a, **k))
+            plan_wall[0] += ms
+            return out
+
+        race_mod.plan_mpp = timed_plan
+        try:
+            x07 = torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0, 0.0], device=dev)
+            reset_launches()
+            log7, wall7 = wall_ms(lambda: race_loop(p, rcfg12, scfg7, pcfg, track, x07, T=T_RACE, mu_true=0.6,
+                                                    mu0=1.0, replan_every=REPLAN_EVERY, noise_sigma=SIGMA,
+                                                    seed=7, backend="mega"))
+            race7 = {"launches": read_launches("race-loop", {"racestep": T_RACE}), "wall_ms": wall7,
+                     "plan_ms": plan_wall[0]}
+            plan_wall[0] = 0.0
+            reset_launches()
+            log7p, wall7p = wall_ms(lambda: race_loop(p, rcfg12, scfg7, pcfg, track, x07, T=T_RACE_PLAIN,
+                                                      mu_true=0.6, mu0=1.0, replan_every=REPLAN_EVERY,
+                                                      noise_sigma=SIGMA, seed=7, backend="plain"))
+            read_launches("race-loop-plain", {})
+            race7["plain_ms"] = (wall7p - plan_wall[0]) / T_RACE_PLAIN
+        finally:
+            race_mod.plan_mpp = plan_mpp
+        race7["ms"] = (race7["wall_ms"] - race7["plan_ms"]) / T_RACE
+        lap_steps = log7.lap_steps.tolist()
+        lap_s = [round((b - a) * rcfg12.dt, 3) for a, b in zip([0] + lap_steps[:-1], lap_steps)]
+        ey7 = log7.Xf[:, 5]
+        race7.update(mu_hat=log7.mu_hat[-1].item(), laps=len(lap_steps), lap_s=lap_s,
+                     ey_rms=ey7.pow(2).mean().sqrt().item(), ey_max=ey7.abs().max().item(),
+                     converged=log7.converged.mean().item(), updates=log7.replan_steps.numel() - 1,
+                     finite=all(bool(torch.isfinite(getattr(log7, f)).all()) for f in ("Xg", "Xf", "U", "mu_hat")))
+        log(f"[race-loop] T={T_RACE} B=1 N={N_RACE} mega: mu-hat final {race7['mu_hat']:.4f} (TPU run "
+            f"{TPU_RACE['mu_hat']}), laps {race7['laps']}, lap times {race7['lap_s']} s (TPU run {TPU_RACE['lap_s']} s), "
+            f"e_y rms {race7['ey_rms']:.4f} (TPU run {TPU_RACE['ey_rms']}) max {race7['ey_max']:.4f}, converged "
+            f"{race7['converged']:.4f} (TPU run {TPU_RACE['converged']}), table updates {race7['updates']}, "
+            f"finite={race7['finite']}")
+        log(f"[race-loop] wall {race7['wall_ms']:.1f} ms: plans {race7['plan_ms']:.1f} ms "
+            f"({race7['updates'] + 1} plans), segments {race7['wall_ms'] - race7['plan_ms']:.1f} ms = "
+            f"{race7['ms']:.4f} ms/step ({card})")
+        log(f"[race-loop] plain backend, {T_RACE_PLAIN} steps: {race7['plain_ms']:.3f} ms/step of segments "
+            f"(wall {wall7p:.1f} ms, plans {plan_wall[0]:.1f} ms) ({card}); mu-hat {log7p.mu_hat[-1].item():.4f}, "
+            f"converged {log7p.converged.float().mean().item():.4f}")
+        check(race7["finite"], "[race-loop] non-finite output")
+        check(race7["laps"] >= 1, "[race-loop] completed no lap")
+        check(race7["ey_max"] < 0.45, f"[race-loop] |e_y| max {race7['ey_max']:.4f} >= 0.45")
+        check(all(bool(torch.isfinite(getattr(log7p, f)).all()) for f in ("Xg", "Xf", "U", "mu_hat")),
+              "[race-loop] the plain backend's output is not finite")
+
     # ---- bounds: this run's shapes, data and iteration counts ----
     # the admm kernel's stage matrices are its inputs: their patterns are
     # read from this run's QPs (A = Aa, B = Ba there)
@@ -1302,8 +1549,23 @@ def main():
         it["megastep_kernel+eyb"] = it["megastep_kernel"]
         per_lane["megastep_kernel+eyb"] = (per_lane["megastep_kernel"][0], mega_bytes(6, N_MAIN, eyb=True))
         shared["megastep_kernel+eyb"] = shared["megastep_kernel"]
-    bounds = {k: bound(B_MAIN * o, B_MAIN * b + shared.get(k, 0)) for k, (o, b) in per_lane.items()}
-    log("[bound] per launch on the H100 at B=4096 (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
+    lanes = {}
+    if sweep is not None:
+        # paths 6 and 7: the racestep at N=12 on a planned table, B=4096 and B=1
+        S_race12 = model_structure(p, rcfg12, scfg6)
+        it["racestep_kernel n12"] = executed_iters(torch.stack(done6))
+        per_lane["racestep_kernel n12"] = (race_ops(S_race12, N_RACE, it["racestep_kernel n12"], 4, 10, win, gate=False),
+                                           race_bytes(N_RACE))
+        shared["racestep_kernel n12"] = 4 * (4 * track.n_cells + 3 * tab_g.vx.shape[0] + 16)
+        # B=1: path 7's one car
+        it["racestep_kernel n12 B=1"] = scfg7.max_iter      # no early exit: every launch runs them all
+        per_lane["racestep_kernel n12 B=1"] = (race_ops(S_race12, N_RACE, it["racestep_kernel n12 B=1"], 4, 10, win,
+                                                        gate=False), race_bytes(N_RACE))
+        shared["racestep_kernel n12 B=1"] = shared["racestep_kernel n12"]
+        lanes["racestep_kernel n12 B=1"] = 1
+    bounds = {k: bound(lanes.get(k, B_MAIN) * o, lanes.get(k, B_MAIN) * b + shared.get(k, 0))
+              for k, (o, b) in per_lane.items()}
+    log("[bound] per launch on the H100 at B=4096 unless named (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
         f"{k} {bounds[k][0]:.4f} ms ({bounds[k][1]}: {per_lane[k][0]:,.0f} operations and "
         f"{per_lane[k][1]:,} B per lane at {it[k]:.2f} executed iterations)" for k in per_lane))
 
@@ -1347,6 +1609,23 @@ def main():
                          "device_ms": obs["dev_ms"]["per-lane+eyb"], "max_abs_err": obs["err"],
                          "max_abs_err_own_carries": obs["err_own_carries"],
                          "plain_ms": obs["plain_ms"], "bound_ms": b5[0], "bound_by": b5[1]}}
+        if sweep is not None:
+            # paths 6 and 7 (N=12): launches, ms per step (CUDA events over
+            # path 6; path 7's segments' wall time per step), device ms of one
+            # launch at the path's width, the kernel-vs-plain check at N=12
+            b6, b7 = bounds["racestep_kernel n12"], bounds["racestep_kernel n12 B=1"]
+            race_rec["launches"] += sweep["launches"]["racestep"] + race7["launches"]["racestep"]
+            race_rec["paths"]["race-sweep"] = {
+                "launches": sweep["launches"]["racestep"], "ms": sweep["ms"], "device_ms": race12[B_MAIN]["device_ms"],
+                "max_abs_err": race12[B_MAIN]["max_abs_err"],
+                "max_abs_err_own_carries": race12[B_MAIN]["max_abs_err_own_carries"],
+                "plain_ms": race12[B_MAIN]["plain_ms"],
+                "bound_ms": b6[0], "bound_by": b6[1]}
+            race_rec["paths"]["race-loop"] = {
+                "launches": race7["launches"]["racestep"], "ms": race7["ms"], "device_ms": race12[1]["device_ms"],
+                "max_abs_err": race12[1]["max_abs_err"],
+                "max_abs_err_own_carries": race12[1]["max_abs_err_own_carries"], "plain_ms": race12[1]["plain_ms"],
+                "bound_ms": b7[0], "bound_by": b7[1]}
         mega_rec = next(k for k in kernels if k["name"] == "megastep_kernel")
         mega_rec["eyb"] = {"max_abs_err": mega_eyb["fixed"], "device_ms": mega_eyb["dev_ms"],
                            "box_device_ms": mega_eyb["box_dev_ms"],

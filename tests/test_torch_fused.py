@@ -257,20 +257,27 @@ def test_kinematic_stage_math_matches_jax():
 
 
 def test_fused_backend_converts_and_rejects_unported_options():
-    """The JAX "fused" backend maps to the port's; polish and the
-    certificate still raise on the fused path."""
+    """The JAX "fused" backend maps to the port's. With SolverConfig's
+    defaults (certificate on) the fused path runs and certifies nothing, as
+    the JAX fused route, which hands no assembled QP to the certificate;
+    with polish it polishes the kernel's solution on the re-assembled QP."""
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import mpc_prepare
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.solver import polish_solution
+
     _, _, _, _, (p, cfg, track, x0, x_ref, carry) = _prepared("dynamic")
     scfg = convert.solver_config(JSolverConfig(backend="fused"))
-    assert scfg.backend == "fused"
-    with pytest.raises(NotImplementedError):
-        mpc_step_batched(p, cfg, scfg, track, x0, x_ref, carry)          # certify on by default
-    with pytest.raises(NotImplementedError):
-        mpc_step_batched(p, cfg, scfg.replace(certify_infeasibility=False, polish=True), track, x0,
-                         x_ref, carry)
-    u, new, diag = mpc_step_batched(p, cfg, scfg.replace(certify_infeasibility=False), track, x0,
-                                    x_ref, carry)
+    assert scfg.backend == "fused" and scfg.certify_infeasibility and not scfg.polish
+    u, new, diag = mpc_step_batched(p, cfg, scfg, track, x0, x_ref, carry)
     assert isinstance(new, MPCCarry) and u.shape == (B, 2) and bool(torch.isfinite(u).all())
-    assert diag.iters.dtype == torch.int32
+    assert diag.iters.dtype == torch.int32 and not bool(diag.certified_infeasible.any())
+    pscfg = scfg.replace(polish=True)
+    up, _, diagp = mpc_step_batched(p, cfg, pscfg, track, x0, x_ref, carry)
+    ins = mpc_prepare_light(p, cfg, track, x0, x_ref, carry)
+    sol = polish_solution(mpc_prepare(p, cfg, track, x0, x_ref, carry)[0], pscfg,
+                          fused_mpc_solve(cfg, pscfg, p, *_fused_args(ins, carry.rho)))
+    usable = sol.converged | ((sol.r_prim < scfg.eps_fallback) & (sol.r_dual < scfg.eps_fallback))
+    assert bool(usable.all())
+    assert torch.equal(up, sol.U[:, 0]) and torch.equal(diagp.r_prim, sol.r_prim)
 
 
 @pytest.mark.parametrize("model", ["dynamic", "kinematic"])

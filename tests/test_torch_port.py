@@ -764,3 +764,67 @@ def test_group_kernels_take_any_sequence_of_horizons_on_card(cuda_device):
         torch.cuda.synchronize()
         assert (uk - up).abs().max().item() <= 5e-3, N
         assert (ck.xg - cp.xg).abs().max().item() <= 5e-3, N
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [False, True])
+@pytest.mark.parametrize("Bc", [1, 4096])
+def test_racestep_at_race_horizon_matches_plain_on_card(cuda_device, Bc, early_exit):
+    """The race presets' racestep, N=12 with Pacejka tyres, at path 6's
+    width (B=4096) and at race_loop's one car (B=1: one real lane and 127
+    padding lanes in the 128-lane vote), 5 noisy steps on a table, each step
+    from plain's carry: chip_smoke.py's bounds on every lane (5e-3 with
+    early exit). Each version on its own carry is not compared: at N=12 a
+    lane can sit at the friction RLS's excitation gate, which 1e-6 apart
+    states put on opposite sides (chip_smoke.py, section 5e)."""
+    track, _, x0, mu_b, prm = _race_case(cuda_device, Bc)
+    cfg = MPCConfig(N=12, model="dynamic", tire="pacejka")
+    scfg = SolverConfig(max_iter=40, rho_interval=0, check_termination=2, early_exit=early_exit)
+    table = initial_table(track, ds=0.05, vx0=1.5)
+    sig = torch.tensor(_SIGMA, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    cp = racestep_init(VehicleParams(), cfg, track, x0, 0.85)
+    before = racestep.launches
+    worst, n_conv = {}, Bc
+    for _ in range(5):
+        noise = sig[:, None] * torch.randn((6, Bc), generator=gen, device=cuda_device)
+        a = (cfg, scfg, track, prm, table)
+        ck, uk, dk, zk = racestep(*a, cp, noise, mu_b, _EKF_Q, _SIGMA ** 2)
+        cp_next, up, dp, zp = racestep_plain(*a, cp, noise, mu_b, _EKF_Q, _SIGMA ** 2)
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t).all()) for t in (*ck, uk, dk, zk))
+        n_conv = min(n_conv, int(((dk[2] > 0.5) & (dp[2] > 0.5)).sum()))
+        for key, x, y in (("u0", uk, up), ("z", zk, zp), ("xg", ck.xg, cp_next.xg), ("ekx", ck.ekx, cp_next.ekx),
+                          ("X_pred", ck.X_pred, cp_next.X_pred), ("fr", ck.fr, cp_next.fr)):
+            worst[key] = max(worst.get(key, 0.0), (x - y).abs().max().item())
+        cp = cp_next
+    assert racestep.launches == before + 5
+    assert n_conv >= 0.9 * Bc
+    for key, tol in (("u0", 2e-4), ("z", 5e-4), ("xg", 5e-4), ("ekx", 5e-4), ("X_pred", 5e-4), ("fr", 1e-4)):
+        assert worst[key] <= (5e-3 if early_exit else tol), key
+
+
+@pytest.mark.cuda
+def test_graphed_plan_matches_eager_on_card(cuda_device):
+    """plan_mpp on the card replays one CUDA graph per rho chunk: the same
+    plan as every launch eager (the graph replays the same kernels), the
+    graph captured once per QP shape and reused by the next plan."""
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPPConfig
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import plan_mpp
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.solver import admm as admm_mod
+
+    track = oval_track(device=cuda_device)
+    pcfg = MPPConfig.for_model("dynamic", H=64, n_sqp=2)
+    p = VehicleParams(mu=0.7)
+    tab_e, d_e = plan_mpp(p, pcfg, track, graphed=False)
+    n_graphs = len(admm_mod._CHUNK_GRAPHS)
+    tab_g, d_g = plan_mpp(p, pcfg, track)
+    assert len(admm_mod._CHUNK_GRAPHS) <= n_graphs + 1
+    tab_g2, _ = plan_mpp(p, pcfg, track, obstacles=pad_blocks(np.array([[4.0, 5.0, -0.4, 0.1]]), 8))
+    assert len(admm_mod._CHUNK_GRAPHS) <= n_graphs + 1           # moving blocks reuse the graph
+    torch.cuda.synchronize()
+    for name in ("vx", "ey", "delta"):
+        assert (getattr(tab_g, name) - getattr(tab_e, name)).abs().max().item() <= 5e-3, name
+        assert bool(torch.isfinite(getattr(tab_g2, name)).all())
+    assert d_g.converged.tolist() == d_e.converged.tolist()
+    assert abs(float(d_g.progress) - float(d_e.progress)) <= 1e-3 * abs(float(d_e.progress))
