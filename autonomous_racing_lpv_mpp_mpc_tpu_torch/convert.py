@@ -27,6 +27,7 @@ from .core.config import MPCBounds, MPCConfig, MPCWeights, MPPConfig, SolverConf
 from .core.device import resolve_device
 from .loop.estimator import EKFState
 from .loop.friction import FrictionState
+from .loop.lap_learning import LapLearnConfig
 from .loop.mpc import MPCCarry
 from .loop.race import RaceCarry
 from .ops.megastep_kernel import MegaCarry
@@ -80,6 +81,10 @@ def mpp_config(obj) -> MPPConfig:
         kw[name] = tuple(float(x) for x in kw[name])
     return MPPConfig(bounds=MPCBounds(**{k: float(v) for k, v in _floats(MPCBounds, obj.bounds).items()}),
                      **kw)
+
+
+def lap_learn_config(obj) -> LapLearnConfig:
+    return LapLearnConfig(**{f.name: float(getattr(obj, f.name)) for f in dataclasses.fields(LapLearnConfig)})
 
 
 def solver_config(obj) -> SolverConfig:

@@ -99,8 +99,8 @@ class MPCConfig(_Replace):
     dt: float = 1.0 / 30.0
     model: str = "dynamic"          # "dynamic" | "kinematic"
     tire: str = "linear"            # "linear" | "pacejka"
-    linearization: str = "lpv"      # only "lpv" is ported
-    discretization: str = "expm"    # "expm" (Van Loan) | "euler"
+    linearization: str = "lpv"      # "lpv" | "ltv" (exact Jacobians + affine term)
+    discretization: str = "expm"    # "expm" (Van Loan) | "euler" | "order2"
     kappa_speed_cap: bool = True
     a_lat_frac: float = 0.9
     weights: MPCWeights = dataclasses.field(default_factory=MPCWeights)

@@ -21,7 +21,7 @@ import torch
 
 from ..core.config import MPCConfig, VehicleParams, broadcast_params
 from ..core.device import resolve_device
-from ..models import discretize, lpv_ab, model_nx
+from ..models import discretize, lpv_ab, ltv_abc, model_nx
 from ..models.dynamics import NU, f_model
 from ..solver.admm import BoxQP
 from ..solver.riccati import LQRCost, LQRDynamics
@@ -118,14 +118,19 @@ def constraint_rows(model: str, dtype=torch.float32, device=None):
 
 
 def scheduled_stages(p, cfg, track, X_sched, U_sched):
-    """LPV stage matrices along the scheduling trajectory: (B, N, ...)."""
-    if cfg.linearization != "lpv":
-        raise NotImplementedError("only the LPV linearization is ported (ltv_abc waits)")
+    """LPV (or, with ``cfg.linearization == "ltv"``, exact-Jacobian LTV
+    with its affine term) stage matrices along the scheduling trajectory:
+    (B, N, ...)."""
     N = X_sched.shape[-2] - 1
     nx = model_nx(cfg.model)
     xk = X_sched[..., :N, :]
     kappas = curvature_at(track, xk[..., _s_index(cfg.model)])
     pb = broadcast_params(p, xk.dim() - 1)
+    if cfg.linearization == "ltv":
+        A, B, c = ltv_abc(pb, xk, U_sched, kappas, cfg.model, cfg.tire)
+        return discretize(A, B, cfg.dt, c, method=cfg.discretization)
+    if cfg.linearization != "lpv":
+        raise ValueError(f"unknown linearization: {cfg.linearization!r}")
     A, B = lpv_ab(pb, xk, U_sched, kappas, cfg.model, cfg.tire)
     Ad, Bd = discretize(A, B, cfg.dt, method=cfg.discretization)
     cd = torch.zeros(xk.shape[:-1] + (nx,), dtype=X_sched.dtype, device=X_sched.device)

@@ -17,7 +17,11 @@ Two forms of the same step:
 
 :func:`race_loop` is the flagship program: a single car racing T steps
 with the MPP planner re-planning a receding horizon every ``replan_every``
-steps from the EKF's state at the live mu-hat, its segments on either form.
+steps from the EKF's state at the live mu-hat (or, in its learning mode,
+the lap learner refining the table from the realized window), its segments
+on either form. :func:`mega_race_learn` runs B cars on the racestep, each
+following its own table, and refines every lane's table between windows at
+its own mu-hat.
 
 Obstacle corridor blocks ((n_obs, 4), ``planner.opponents``) reach the
 tracker's e_y row in both: through ``tracker_bounds`` in the module
@@ -29,9 +33,7 @@ carry's device seeded with it) or ``generator=``. The streams differ from
 ``jax.random``'s, so noisy runs agree with the JAX package in distribution,
 not sample for sample; tests hand both sides the same numpy noise.
 
-Not ported yet: ``race_loop``'s lap-learning mode (``ilc_every > 0``) and
-its ``obs_tracker_lead``, ``mega_race_learn`` (lap learning),
-``checkpointed_race_sweep`` (orbax).
+Not ported yet: ``checkpointed_race_sweep`` (orbax).
 """
 
 from __future__ import annotations
@@ -50,6 +52,16 @@ from ..track.track import Track, frenet_to_global, wrap_s
 from .estimator import DEFAULT_EKF_Q, EKFState, ekf_init, ekf_step
 from .friction import FrictionState, friction_init, friction_step
 from .global_loop import estimate_frenet, global_plant_step
+from .lap_learning import (
+    LapLearnConfig,
+    _curv_stencil,
+    _filter_wraps,
+    _memorize_obstacles,
+    initial_table,
+    lap_steps,
+    learn_from_lap,
+    per_lane_table,
+)
 from .mpc import MPCCarry, mpc_init, mpc_step_batched
 
 
@@ -287,6 +299,76 @@ def mega_race_sweep(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track:
     return BatchedRaceLog(Xg=bf(Xg), Xf=bf(Xf), U=bf(U), mu_hat=bf(mu_hat), converged=bf(conv))
 
 
+class MegaRaceLearnLog(NamedTuple):
+    tables_vx: torch.Tensor  # (n_windows + 1, B, n) per-lane vx profiles
+    mu_hat: torch.Tensor     # (n_windows, B, T_window) adaptation traces
+    lap_steps: torch.Tensor  # (n_windows, B) steps per window-lap (T_window+1: none), int64, host
+    progress: torch.Tensor   # (n_windows, B) arc length covered per window
+    Xf_last: torch.Tensor    # (B, T_window, 6) the last window's filtered states
+    converged: torch.Tensor  # (n_windows, B) share of converged steps per window
+    table: RefTable          # final per-lane tables (channels (B, n))
+
+
+def _padded_blocks(blocks, n_rows: int, device) -> torch.Tensor:
+    if isinstance(blocks, torch.Tensor):
+        blocks = blocks.detach().cpu().numpy()
+    return torch.as_tensor(pad_blocks(blocks, n_rows), device=device)
+
+
+def mega_race_learn(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
+                    x0_b: torch.Tensor, n_windows: int, T_window: int, mu_true_b, mu0: float = 1.0,
+                    noise_sigma=None, llcfg: Optional[LapLearnConfig] = None,
+                    table0: Optional[RefTable] = None, seed: int = 0,
+                    generator: Optional[torch.Generator] = None, sim_tire: str = "pacejka",
+                    n_sub: int = 10, ekf_q=None, obstacles=None) -> MegaRaceLearnLog:
+    """Per-lane lap learning in the composed sweep: B cars (``x0_b`` (B, 6)
+    true Frenet states, plant friction ``mu_true_b`` (B,)) run the whole
+    stack on the racestep (one launch per step, the kernel on CUDA
+    tensors), each following its own table, for ``n_windows`` windows of
+    ``T_window`` steps. Between windows one batched :func:`learn_from_lap`
+    refines every lane's table from its filtered window at its own mu-hat,
+    so low-grip lanes learn slower profiles than high-grip lanes from the
+    same seed ``table0``. Each window's lap steps and progress count from
+    the window's starting s (the EKF's). Static ``obstacles`` reach the
+    kernel's corridor and, padded to 8 rows, the learner."""
+    from ..ops.racestep_kernel import racestep_init
+
+    if cfg.model != "dynamic":
+        raise ValueError("the composed sweep needs the dynamic model")
+    x0_b = x0_b.to(torch.float32)
+    dev = x0_b.device
+    B = x0_b.shape[0]
+    llcfg = llcfg or LapLearnConfig()
+    one = table0 if table0 is not None else initial_table(track)
+    table_b = per_lane_table(one, B)
+    sig = np.zeros(6, np.float32) if noise_sigma is None else np.asarray(noise_sigma, np.float32)
+    mu_b = torch.as_tensor(mu_true_b, dtype=torch.float32, device=dev)
+    carry = racestep_init(p, cfg, track, x0_b, mu0)
+    run = make_racestep_scan(p.replace(mu=float(mu0)), cfg, scfg, track, None, T_window, mu_b, sig,
+                             sim_tire=sim_tire, n_sub=n_sub, ekf_q=ekf_q, obstacles=obstacles,
+                             table_arg=True)
+    wraps, curv_k = _filter_wraps(cfg, track), _curv_stencil(one)
+    pad_obs = None if obstacles is None else _padded_blocks(obstacles, 8, dev)
+    gen = _generator(dev, seed, generator)
+    bf = lambda a: a.movedim(-1, 0)              # (T, ., B) -> (B, T, .)
+    tables_vx, mu_traces, laps, progress, convs = [table_b.vx], [], [], [], []
+    Xf = None
+    for _ in range(n_windows):
+        s0_lane = carry.ekx[4]                   # (B,) the window's start s
+        carry, (_xg, Xf_bl, U_bl, mu_bl, conv_bl, _z, _it, _r) = run(carry, gen, table_b)
+        Xf, U, conv = bf(Xf_bl), bf(U_bl), bf(conv_bl)
+        mu_traces.append(bf(mu_bl))
+        laps.append(lap_steps(cfg, track, Xf, T_window, s0=s0_lane))
+        progress.append(Xf[:, -1, 4] - s0_lane)
+        convs.append(conv.mean(dim=1))
+        table_b = learn_from_lap(p.replace(mu=carry.fr[0]), cfg, llcfg, track, table_b, Xf, U,
+                                 wraps=wraps, obstacles=pad_obs, curv_k=curv_k, converged=conv)
+        tables_vx.append(table_b.vx)
+    return MegaRaceLearnLog(tables_vx=torch.stack(tables_vx), mu_hat=torch.stack(mu_traces),
+                            lap_steps=torch.stack(laps).cpu(), progress=torch.stack(progress),
+                            Xf_last=Xf, converged=torch.stack(convs), table=table_b)
+
+
 class RaceLog(NamedTuple):
     Xg: torch.Tensor           # (T, 6) true world states
     Xf: torch.Tensor           # (T, 6) filtered Frenet states fed to the MPC
@@ -332,7 +414,8 @@ def race_loop(
     max_obstacle_rows: int = 8,
     obs_tracker_lead: float = 0.0,
     mu_plan0: Optional[float] = None,   # friction for the FIRST plan only
-    ilc_every: int = 0,
+    ilc_every: int = 0,           # > 0: lap-learning refinement instead of replans
+    ilc_cfg: Optional[LapLearnConfig] = None,
     sim_tire: str = "pacejka",
     n_sub: int = 10,
     plan_scfg: Optional[SolverConfig] = None,
@@ -344,13 +427,23 @@ def race_loop(
     world-frame truth at ``mu_true`` -> noisy measurement -> EKF at mu-hat
     -> friction RLS -> tracker at mu-hat on the current table -> plant.
 
-    Replanning mode: the MPP plans first at ``mu_plan0`` (default: the
-    live mu-hat, mu0 at the start) from x0, then re-plans a receding
-    horizon every ``replan_every`` steps from the EKF's state (the raw
-    filtered state without the EKF) at the car's current mu-hat, so the
+    Replanning mode (``ilc_every=0``): the MPP plans first at ``mu_plan0``
+    (default: the live mu-hat, mu0 at the start) from x0, then re-plans a
+    receding horizon every ``replan_every`` steps from the EKF's state (the
+    raw filtered state without the EKF) at the car's current mu-hat, so the
     estimator's friction flows into the planner's speed caps;
     ``obstacles_fn(step)`` corridors reach the planner and the tracker. A
-    caller's ``table0`` replaces the first plan.
+    caller's ``table0`` replaces the first plan. With ``obs_tracker_lead >
+    0`` each plan's line is projected clear of its blocks, ramped in over
+    that many metres (the lap learner's ``_memorize_obstacles``).
+
+    Learning mode (``ilc_every > 0``): the table is planned once (or is
+    ``table0``) and then refined every ``ilc_every`` segments by
+    ``learn_from_lap`` (``ilc_cfg``) on the last ``ilc_every`` segments'
+    filtered states, controls and convergence, at the current mu-hat and
+    with the blocks visible at the next step (padded to
+    ``max_obstacle_rows``). ``replan_steps`` then holds the steps of those
+    updates.
 
     ``backend``: "plain" (the JAX "xla") runs each segment as the module
     composition (``mpc_step`` per step); "mega" runs it on the racestep,
@@ -359,16 +452,7 @@ def race_loop(
     stream is drawn from ``generator`` (or one seeded with ``seed``); the
     two backends draw differently, so noisy runs agree in distribution.
 
-    Lap learning (``ilc_every > 0``) and the ramped line lead-in
-    (``obs_tracker_lead > 0``) need the lap learner, which is not ported:
-    both raise ``NotImplementedError``.
     """
-    if ilc_every > 0:
-        raise NotImplementedError("race_loop's lap-learning mode (ilc_every > 0) needs "
-                                  "loop/lap_learning.learn_from_lap, which is not ported yet")
-    if obs_tracker_lead > 0.0:
-        raise NotImplementedError("obs_tracker_lead needs the lap learner's obstacle memory "
-                                  "(loop/lap_learning.py), which is not ported yet")
     if cfg.model != "dynamic":
         raise ValueError("race_loop composes the friction estimator; it needs the dynamic model")
     if cfg.model != pcfg.model:
@@ -416,13 +500,23 @@ def race_loop(
     def plan_now(t: int, x_state) -> RefTable:
         mu_p = first_plan_mu[0] if first_plan_mu[0] is not None else current_mu()
         first_plan_mu[0] = None
+        obs = _obstacles_at(obstacles_fn, t, max_obstacle_rows, dev)
         table, _ = plan_mpp(p.replace(mu=float(np.float32(mu_p))), pcfg, track, scfg=plan_scfg,
-                            obstacles=_obstacles_at(obstacles_fn, t, max_obstacle_rows, dev),
-                            x0_state=x_state)
+                            obstacles=obs, x0_state=x_state)
+        if obs is not None and obs_tracker_lead > 0.0:
+            # the ramped line lead-in: the plan's line projected clear of
+            # its blocks, as the lap learner memorizes them
+            ey_room = float(track.width) / 2.0 - 0.05
+            table = table.replace(ey=_memorize_obstacles(
+                p.replace(mu=float(np.float32(current_mu()))), cfg,
+                LapLearnConfig(obs_lead=obs_tracker_lead), track, table, table.ey, obs, ey_room))
         return table
 
     table = table0 if table0 is not None else plan_now(0, x0)
     replan_steps, tables_vx, tables_ey, segs = [0], [table.vx], [table.ey], []
+    ilc_cfg = ilc_cfg or LapLearnConfig()
+    wraps, curv_k = _filter_wraps(cfg, track), _curv_stencil(table)
+    window = []            # the last ilc_every segments' (Xf, U, converged)
     for i in range(-(-T // replan_every)):
         t = i * replan_every
         if use_mega:
@@ -440,6 +534,19 @@ def race_loop(
         t_next = t + replan_every
         if t_next >= T:
             break
+        if ilc_every > 0:
+            window = (window + [(outs[1], outs[3], outs[5])])[-ilc_every:]
+            if (i + 1) % ilc_every == 0:
+                Xw, Uw, Cw = (torch.cat(col, dim=0) for col in zip(*window))
+                blocks = _padded_blocks(None if obstacles_fn is None else obstacles_fn(t_next),
+                                        max_obstacle_rows, dev)
+                table = learn_from_lap(p.replace(mu=float(np.float32(current_mu()))), cfg, ilc_cfg, track,
+                                       table, Xw, Uw, wraps=wraps, obstacles=blocks, curv_k=curv_k,
+                                       converged=Cw)
+                replan_steps.append(t_next)
+                tables_vx.append(table.vx)
+                tables_ey.append(table.ey)
+            continue
         # replan from the current ESTIMATED state at the current mu-hat
         if use_mega:
             x_state = mcarry.ekx[:, 0] if use_ekf else mcarry.x_prev_f[:, 0]

@@ -40,9 +40,25 @@ def discretize_expm(A, B, dt, c=None, order: int = 6, squarings: int = 4):
     return Ad, Bd, E[..., :n, n + m]
 
 
+def discretize_order2(A, B, dt, c=None):
+    """Second-order Taylor: Ad = I + dt A + (dt A)^2 / 2, Bd = (dt I +
+    dt^2 A / 2) B (and cd likewise)."""
+    n = A.shape[-1]
+    I = torch.eye(n, dtype=A.dtype, device=A.device)
+    dA = dt * A
+    Ad = I + dA + 0.5 * dA @ dA
+    Mt = dt * I + 0.5 * dt * dA
+    Bd = Mt @ B
+    if c is None:
+        return Ad, Bd
+    return Ad, Bd, (Mt @ c[..., None])[..., 0]
+
+
 def discretize(A, B, dt, c=None, method: str = "euler"):
     if method == "euler":
         return discretize_euler(A, B, dt, c)
+    if method == "order2":
+        return discretize_order2(A, B, dt, c)
     if method == "expm":
         return discretize_expm(A, B, dt, c)
     raise ValueError(f"unknown discretization: {method!r}")

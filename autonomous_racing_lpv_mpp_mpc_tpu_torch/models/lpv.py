@@ -4,7 +4,8 @@ JAX package's ``models/lpv.py``).
 Slip angles linear in state with 1/vx scheduling, trig of delta and e_psi
 frozen at the scheduled value, the sinc embedding for e_y's dependence on
 e_psi, and — for the Pacejka tire — the secant stiffness of the magic
-formula at the scheduled slip. Leading batch dims are kept:
+formula at the scheduled slip. :func:`ltv_abc` is the successive-linearization
+alternative: exact Jacobians plus the affine residual. Leading batch dims are kept:
 x_bar (..., nx), u_bar (..., 2), kappa (...) -> A (..., nx, nx), B (..., nx, 2).
 """
 
@@ -15,7 +16,7 @@ import math
 import torch
 
 from ..core.config import VehicleParams
-from .dynamics import VX_EPS, frenet_denom
+from .dynamics import VX_EPS, f_model, frenet_denom
 from .tires import axle_loads, tire_force_pacejka
 
 
@@ -123,3 +124,27 @@ def lpv_ab(p: VehicleParams, x_bar, u_bar, kappa, model: str, tire: str = "linea
     if model == "kinematic":
         return lpv_ab_kinematic(p, x_bar, u_bar, kappa)
     raise ValueError(f"unknown model: {model!r}")
+
+
+def ltv_abc(p: VehicleParams, x_bar, u_bar, kappa, model: str, tire: str = "linear"):
+    """Exact Jacobian linearization with its affine residual (the LTV mode,
+    ``MPCConfig.linearization == "ltv"``): dx/dt ~= A x + B u + c, exact to
+    first order at (x_bar, u_bar). The columns of A and B are forward-mode
+    derivatives (``torch.func.jvp``) of the nonlinear model along each unit
+    direction, taken for every lane of the batch at once (what
+    ``jax.jacfwd`` computes per lane); ``p``'s per-lane leaves must
+    broadcast against x_bar[..., 0]."""
+    f = lambda x, u: f_model(p, x, u, kappa, model, tire)
+    nx, nu = x_bar.shape[-1], u_bar.shape[-1]
+    zx, zu = torch.zeros_like(x_bar), torch.zeros_like(u_bar)
+    unit = lambda z, j: z.index_fill(-1, torch.tensor([j], device=z.device), 1.0)
+    f0 = None
+    cols = []
+    for j in range(nx + nu):
+        tx, tu = (unit(zx, j), zu) if j < nx else (zx, unit(zu, j - nx))
+        f0, col = torch.func.jvp(f, (x_bar, u_bar), (tx, tu))
+        cols.append(col)
+    A = torch.stack(cols[:nx], dim=-1)
+    B = torch.stack(cols[nx:], dim=-1)
+    c = f0 - (A @ x_bar[..., None])[..., 0] - (B @ u_bar[..., None])[..., 0]
+    return A, B, c

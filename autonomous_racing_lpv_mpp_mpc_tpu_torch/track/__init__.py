@@ -7,6 +7,7 @@ from .track import (
     frenet_to_global,
     global_to_frenet,
     global_to_frenet_windowed,
+    track_from_centerline,
     wrap_s,
 )
 
@@ -22,5 +23,6 @@ __all__ = [
     "global_to_frenet_windowed",
     "oval_track",
     "racetrack",
+    "track_from_centerline",
     "wrap_s",
 ]

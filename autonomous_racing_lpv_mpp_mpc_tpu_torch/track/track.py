@@ -104,6 +104,43 @@ def compile_track(
     )
 
 
+def track_from_centerline(xy, width: float = 0.8, ds: float = 0.02, closed: bool = True,
+                          device=None) -> Track:
+    """Build a :class:`Track` from recorded centerline XY points (m, 2).
+
+    On the host (numpy, float64): the polyline is resampled to a uniform
+    arc-length grid, headings come from central differences and are
+    unwrapped, and the curvature is the heading's derivative, smoothed by
+    a circular [1/4, 1/2, 1/4] stencil and averaged onto the cells. The
+    table lives on ``device`` (``None``: the CUDA card)."""
+    xy = np.asarray(xy, dtype=np.float64)
+    if closed and not np.allclose(xy[0], xy[-1]):
+        xy = np.vstack([xy, xy[:1]])
+    seg = np.diff(xy, axis=0)
+    s_nodes = np.concatenate([[0.0], np.cumsum(np.hypot(seg[:, 0], seg[:, 1]))])
+    total = float(s_nodes[-1])
+    n = max(8, int(round(total / ds)))
+    s_uni = np.linspace(0.0, total, n + 1)
+    Xu = np.interp(s_uni, s_nodes, xy[:, 0])
+    Yu = np.interp(s_uni, s_nodes, xy[:, 1])
+    dx, dy = np.gradient(Xu), np.gradient(Yu)
+    if closed:
+        dx[0] = dx[-1] = (Xu[1] - Xu[-2]) / 2
+        dy[0] = dy[-1] = (Yu[1] - Yu[-2]) / 2
+    psi = np.unwrap(np.arctan2(dy, dx))
+    kap_nodes = np.gradient(psi) / (total / n)
+    kap_s = np.convolve(np.concatenate([kap_nodes[-1:], kap_nodes, kap_nodes[:1]]),
+                        np.array([0.25, 0.5, 0.25]), mode="same")[1:-1]
+    kap_cells = 0.5 * (kap_s[:-1] + kap_s[1:])
+
+    device = resolve_device(device)
+    f32 = lambda a: torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+    return Track(
+        ds=f32(total / n), length=f32(total), width=f32(width),
+        kappa=f32(kap_cells), X=f32(Xu), Y=f32(Yu), psi=f32(psi),
+    )
+
+
 def wrap_s(track: Track, s: torch.Tensor) -> torch.Tensor:
     """Wrap arc length into [0, length)."""
     return s - track.length * torch.floor(s / track.length)

@@ -8,8 +8,9 @@ Run from the repository root with no arguments:
 It builds the hand-written CUDA kernels from ``ops/csrc`` with nvcc, holds
 each against its plain PyTorch version on the card (the megastep and the
 racestep also with an obstacle corridor, the racestep with per-lane
-reference tables and at the race presets' N=12 for B=4096 and B=1), then
-drives seven main paths and the planner:
+reference tables and at the race presets' N=12 for B=4096 and B=1, the
+megastep as the lap learner runs it: N=10, Pacejka, per-lane references),
+then drives ten main paths and the planner:
 
 - the batched receding-horizon tracker of ``bench.py``: B=4096 scenarios of
   the dynamic bicycle on the racetrack, N=20, dt=1/30, constant reference
@@ -57,19 +58,43 @@ drives seven main paths and the planner:
   T=720 on the racetrack, mu_true=0.6, mu0=1.0, the planner above
   replanning every 60 steps from the EKF's state at the live mu-hat,
   N=12 Pacejka, ``max_iter=60``: one racestep launch per step at B=1; then
-  120 steps of the same program with ``backend="plain"`` (no kernel).
+  120 steps of the same program with ``backend="plain"`` (no kernel);
+- the ``race`` preset in learn mode (path 7b): ``race_loop(backend="mega")``
+  on the oval, T=900, mu_true=0.6, mu0=1.0, the ``initial_table(ds=0.05,
+  vx0=1.0)`` seed (no plan) refined every 2 segments of 60 steps by the
+  lap learner (``LapLearnConfig(gain=0.7, dv_max=0.8)``) at the live
+  mu-hat, path 7's tracker and sensor noise: one racestep launch per step
+  at B=1;
+- ``race_learn`` (path 8, ``bench/presets.py:562-630`` at the TPU run's
+  size): ``mega_race_learn``, B=1024 cars on the racetrack, 10 windows of
+  300 steps, N=12 Pacejka, ``SolverConfig(max_iter=50, rho_interval=0,
+  early_exit=True, check_termination=2)``, plant friction
+  ``linspace(0.45, 1.2)``, seed mu0=0.825, s spread over the lap, the
+  sensor noise above, each car on its own table from
+  ``initial_table(ds=0.05, vx0=1.2)``, refined between windows at its own
+  mu-hat (``LapLearnConfig(gain=0.5, dv_max=0.5)``): one racestep launch
+  per step;
+- lap learning at 4,096 cars (path 9): ``batched_lap_learning(backend=
+  "mega")`` on ``oval_track(ds=0.05)``, 6 laps of 420 steps from vx 1.0 at
+  s=0, friction ``linspace(0.5, 1.2)``, ``MPCConfig(N=10,
+  tire="pacejka")`` and a Pacejka plant, ``SolverConfig(max_iter=50,
+  early_exit=True, check_termination=2)``, ``LapLearnConfig(gain=0.7,
+  dv_max=0.8, a_lat_frac=0.78)``: one megastep launch per step with
+  per-lane references sampled on the host from per-lane tables.
 
 The new paths build their tracks, grids and references without naming a
 device: the port's default device is the card. The ``kernels`` line has
 one record per kernel instantiation (the megastep, the fused kernel and the
 solver-only kernel each for the dynamic and the kinematic model, and the
-racestep), each with its launches on
-its main path and its bound on the H100: the larger of the operations the
-algorithm needs over 67 TFLOP/s f32 and its bytes over 3.35 TB/s, counted
-at this run's shapes and executed iterations (see the counters below).
-Every record's ``ms`` is CUDA-event time around the wrapper: the main
-path's ms per step for the step kernels (megastep, racestep), one isolated
-call for the solves (admm, fused). ``device_ms`` is the kernel's own
+racestep), each with its launches on all of its main paths (the megastep:
+paths 1, 4 and 9; the racestep: paths 2, 5, 6, 7, 7b and 8) and its bound
+on the H100: the larger of the operations the algorithm needs over 67
+TFLOP/s f32 and its bytes over 3.35 TB/s, counted at this run's shapes and
+executed iterations (see the counters below). Every record's ``ms`` is
+CUDA-event time around the wrapper: the first main path's ms per step for
+the step kernels (megastep, racestep), one isolated call for the solves
+(admm, fused); the step kernels' ``paths`` key gives each other path's
+launches, times, kernel-vs-plain check and bound. ``device_ms`` is the kernel's own
 duration on one isolated call (the first step for the step kernels), from
 torch.profiler. The ``[main]`` line also gives the device time per step of
 the megastep path (the kernel's and every device operation's), so that the
@@ -84,8 +109,9 @@ first check of freshly edited kernels) and prints no result.
 script to that checkout's root and run it there with ``--ab``. It skips
 the ``[shape]`` lines (the group kernels' launch shape, which older
 checkouts lack), the solver-only kernel at na=6, the corridor and per-lane
-table phases, the fifth path, the racestep at N=12, the planner and paths
-6 and 7 (which they do not take), and runs every other phase. A one-call A/B of a change
+table phases, the fifth path, the racestep at N=12, the lap learner's
+megastep, the planner and paths 6-9 (which they do not take), and runs
+every other phase. A one-call A/B of a change
 runs the parent's copy and the change's script in turn (parent, change,
 change, parent) and compares their lines.
 """
@@ -117,9 +143,23 @@ T_SWEEP = 600          # path 6: race_sweep's steps
 T_RACE = 720           # path 7: the race preset's steps
 T_RACE_PLAIN = 120     # path 7's smoke of the module composition on the card
 REPLAN_EVERY = 60
-# the TPU run's quality numbers (PERF_TPU.md:117-133), printed beside ours
+T_RACE_LEARN = 900     # path 7b: the race preset in learn mode, on the oval
+ILC_EVERY = 2
+B_LEARN = 1024         # path 8: race_learn's cars, windows and window length
+N_WINDOWS = 10
+T_WINDOW = 300
+N_LAP = 10             # path 9: lap learning at 4,096 cars (tests/test_lap_learning.py's N and learner)
+N_LAPS = 6
+T_LAP = 420
+K_LAP_CMP = 5          # steps of the lap learner's megastep held against plain
+# the TPU run's quality numbers (PERF_TPU.md:117-133, 121-126, 548-553,
+# 585-600), printed beside ours
 TPU_SWEEP = {"corr": 0.956, "converged": 0.989, "ey_p99": 0.114}
 TPU_RACE = {"mu_hat": 0.595, "lap_s": 13.97, "ey_rms": 0.043, "converged": 0.965}
+TPU_RACE_LEARN = {"lap_s": [9.63, 8.03, 7.43], "mu_hat": 0.586, "converged": 0.981, "updates": 8}
+TPU_LEARN = {"progress_first": 12.1, "progress_last": 20.3, "corner_corr": 0.69, "corner_lo": 1.81,
+             "corner_hi": 2.09, "converged": 0.995}
+TPU_LAPS = {"completed": 1.0, "improvement": 0.399, "ey_p99": 0.25}
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, SXM, 700 W
 H100_BYTES_S = 3.35e12      # HBM3
 
@@ -1080,6 +1120,65 @@ def main():
             log(f"[race-n12] B={nb} first step, path config: {race12[nb]['device_ms']:.4f} ms kernel (device), "
                 f"{race12[nb]['plain_ms']:.3f} ms plain ({card})")
 
+    # ---- 5f. the megastep as the lap learner runs it (path 9's
+    # instantiation): N=10, Pacejka controller and plant, 10 plant
+    # sub-steps, path 9's cars (B=4096 on the oval, mu linspace(0.5, 1.2),
+    # vx 1.0 from s=0) with (N+1, nx, B) references sampled from one table
+    # per lane (vx and racing line differing by lane) along each step's
+    # schedule. K_LAP_CMP steps: the kernel from plain's carry each step,
+    # held to the megastep's bounds (u 2e-4 / x 5e-4 at a fixed count, 5e-3
+    # at path 9's early exit); each version on its own carry reported ----
+    lap = None
+    if not ab:
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop.lap_learning import (
+            batched_refs_from_tables, per_lane_table,
+        )
+
+        lcfg = MPCConfig(N=N_LAP, model="dynamic", tire="pacejka")
+        scfg9 = SolverConfig(max_iter=50, early_exit=True, check_termination=2)
+        loval = oval_track(ds=0.05)
+        mu9 = torch.linspace(0.5, 1.2, B_MAIN, device=dev)
+        p9 = p.replace(mu=mu9)
+        x09 = torch.zeros((B_MAIN, 6), device=dev)
+        x09[:, 0] = 1.0
+        prm9 = megastep_params(p9, B_MAIN)
+        tab9 = per_lane_table(initial_table(loval, ds=0.05, vx0=1.0), B_MAIN)
+        lane_w = torch.linspace(0.0, 1.0, B_MAIN, device=dev)[:, None]
+        node_w = torch.arange(tab9.vx.shape[1], device=dev) / 7.0
+        tab9 = tab9.replace(vx=tab9.vx * (1.0 + 0.8 * lane_w), ey=0.08 * lane_w * torch.sin(node_w))
+        refs9 = lambda c: batched_refs_from_tables(lcfg, tab9, torch.cat([c.x[4][None], c.X_pred[2:, 4],
+                                                                          c.X_pred[-1:, 4]]))
+        lap = {}
+        for name, sc, tol_u, tol_x in (("fixed", scfg9.replace(early_exit=False, rho_interval=0), 2e-4, 5e-4),
+                                       ("path config", scfg9, 5e-3, 5e-3)):
+            ck = cp = megastep_init(p9, lcfg, loval, x09)
+            err = dict.fromkeys(("u step", "x step", "X_pred step", "u own", "x own"), 0.0)
+            for _ in range(K_LAP_CMP):
+                ref = refs9(cp)
+                cs, us, _ = megastep(lcfg, sc, loval, prm9, ref, cp, n_sub=10)
+                ck, uk, dk = megastep(lcfg, sc, loval, prm9, refs9(ck), ck, n_sub=10)
+                cp, up, dp = megastep_plain(lcfg, sc, loval, prm9, ref, cp, n_sub=10)
+                torch.cuda.synchronize()
+                for key, a, b in (("u step", us, up), ("x step", cs.x, cp.x), ("X_pred step", cs.X_pred, cp.X_pred),
+                                  ("u own", uk, up), ("x own", ck.x, cp.x)):
+                    err[key] = max(err[key], (a - b).abs().max().item())
+            log(f"[mega-lap] N={N_LAP} Pacejka, per-lane table refs, B={B_MAIN} {name}: every lane one step from "
+                f"plain's carry max|du|={err['u step']:.3e} max|dx|={err['x step']:.3e} "
+                f"|dX_pred|={err['X_pred step']:.3e}; each on its own carry max|du|={err['u own']:.3e} "
+                f"max|dx|={err['x own']:.3e}; done-at kernel {dk[4].mean().item():.3f} plain {dp[4].mean().item():.3f}")
+            check(all(bool(torch.isfinite(t).all()) for t in (*ck, uk, *cs, us)), f"megastep N=10 {name}: not finite")
+            check(err["u step"] <= tol_u and err["x step"] <= tol_x,
+                  f"megastep N=10 Pacejka {name}: beyond ({tol_u}, {tol_x}) of plain one step from its carry")
+            lap[name] = max(err["u step"], err["x step"])
+        c9 = megastep_init(p9, lcfg, loval, x09)
+        r9 = refs9(c9)
+        megastep(lcfg, scfg9, loval, prm9, r9, c9, n_sub=10)                 # warm-up
+        lap["device_ms"] = kernel_ms(lambda: megastep(lcfg, scfg9, loval, prm9, r9, c9, n_sub=10), 10,
+                                     "megastep_kernel")
+        lap["plain_ms"] = cuda_time_ms(lambda: megastep_plain(lcfg, scfg9, loval, prm9, r9, c9, n_sub=10), 3)
+        log(f"[mega-lap] first step, path config: {lap['device_ms']:.4f} ms kernel (device), "
+            f"{lap['plain_ms']:.3f} ms plain ({card})")
+
     if quick:
         log("[quick] kernel checks passed; stopping before the main path")
         return
@@ -1348,7 +1447,7 @@ def main():
     # card (eager, then from its CUDA graphs: the first graphed plan captures
     # them) against the same plan by the port on the CPU; then BASELINE
     # config 3's default MPPConfig (H=512, n_sqp=4) ----
-    plan = sweep = race7 = None
+    plan = sweep = race7 = race7b = learn8 = lap9 = None
     if not ab:
         from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPPConfig
         from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import mega_race_sweep, race_loop
@@ -1500,6 +1599,217 @@ def main():
         check(all(bool(torch.isfinite(getattr(log7p, f)).all()) for f in ("Xg", "Xf", "U", "mu_hat")),
               "[race-loop] the plain backend's output is not finite")
 
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import LapLearnConfig, mega_race_learn
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import lap_learning as ll_mod
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import megastep_kernel as mk_mod
+
+        def timed(fn, into):
+            """fn, with the wall time of each call (synchronized on both
+            sides) appended to `into`."""
+            def call(*a, **k):
+                out, ms = wall_ms(lambda: fn(*a, **k))
+                into.append(ms)
+                return out
+            return call
+
+        def recording(launcher, into):
+            """A kernel launcher that appends each launch's done-at row."""
+            def call(*a, **k):
+                out = launcher(*a, **k)
+                into.append(out[2][4])
+                return out
+            return call
+
+        # ---- 12b. main path 7b: the race preset in learn mode on the oval:
+        # race_loop on the racestep at B=1 from the table0 seed (no plan),
+        # the lap learner refining the table every ILC_EVERY segments ----
+        oval7 = oval_track()
+        upd7b, plans7b = [], []
+        race_mod.learn_from_lap = timed(race_mod.learn_from_lap, upd7b)
+        race_mod.plan_mpp = timed(plan_mpp, plans7b)
+        try:
+            reset_launches()
+            log7b, wall7b = wall_ms(lambda: race_loop(
+                p, rcfg12, scfg7, pcfg, oval7, x07, T=T_RACE_LEARN, mu_true=0.6, mu0=1.0,
+                replan_every=REPLAN_EVERY, noise_sigma=SIGMA, seed=71, ilc_every=ILC_EVERY,
+                ilc_cfg=LapLearnConfig(gain=0.7, dv_max=0.8), table0=initial_table(oval7, ds=0.05, vx0=1.0),
+                backend="mega"))
+            race7b = {"launches": read_launches("race-loop-learn", {"racestep": T_RACE_LEARN}), "wall_ms": wall7b}
+        finally:
+            race_mod.learn_from_lap = ll_mod.learn_from_lap
+            race_mod.plan_mpp = plan_mpp
+        check(not plans7b, "[race-loop-learn] planned, though the table0 seed replaces the plan")
+        steps7b = log7b.lap_steps.tolist()
+        ey7b = log7b.Xf[:, 5]
+        race7b.update(
+            lap_s=[round((b - a) * rcfg12.dt, 3) for a, b in zip([0] + steps7b[:-1], steps7b)],
+            mu_hat=log7b.mu_hat[-1].item(), converged=log7b.converged.mean().item(),
+            updates=log7b.replan_steps.numel() - 1, update_ms=float(np.mean(upd7b)),
+            ey_rms=ey7b.pow(2).mean().sqrt().item(), ey_max=ey7b.abs().max().item(),
+            finite=all(bool(torch.isfinite(getattr(log7b, f)).all())
+                       for f in ("Xg", "Xf", "U", "mu_hat", "tables_vx", "tables_ey")))
+        race7b["ms"] = (wall7b - sum(upd7b)) / T_RACE_LEARN
+        log(f"[race-loop-learn] T={T_RACE_LEARN} B=1 N={N_RACE} mega, oval, learn mode: lap times "
+            f"{race7b['lap_s']} s (TPU run {TPU_RACE_LEARN['lap_s']} s), mu-hat final {race7b['mu_hat']:.4f} (TPU "
+            f"run {TPU_RACE_LEARN['mu_hat']}), converged {race7b['converged']:.4f} (TPU run "
+            f"{TPU_RACE_LEARN['converged']}), table updates {race7b['updates']} at steps "
+            f"{log7b.replan_steps.tolist()[1:]} (TPU run {TPU_RACE_LEARN['updates']}), e_y rms "
+            f"{race7b['ey_rms']:.4f} max {race7b['ey_max']:.4f}, finite={race7b['finite']}")
+        log(f"[race-loop-learn] wall {wall7b:.1f} ms: {len(upd7b)} table updates {sum(upd7b):.1f} ms "
+            f"({race7b['update_ms']:.2f} ms each), segments {race7b['ms']:.4f} ms/step ({card})")
+        check(race7b["finite"], "[race-loop-learn] non-finite output")
+        check(len(race7b["lap_s"]) >= 2, f"[race-loop-learn] {len(race7b['lap_s'])} laps < 2")
+        check(len(race7b["lap_s"]) >= 2 and race7b["lap_s"][-1] < race7b["lap_s"][0],
+              "[race-loop-learn] the last lap is not faster than the first")
+        check(race7b["ey_max"] < 0.45, f"[race-loop-learn] |e_y| max {race7b['ey_max']:.4f} >= 0.45")
+
+        # ---- 13. main path 8: race_learn (bench/presets.py:562-630) at the
+        # TPU run's size: B_LEARN cars on the racetrack, each following its
+        # own table on the racestep, the learner refining every lane's table
+        # between windows at its own mu-hat ----
+        scfg8 = SolverConfig(max_iter=50, rho_interval=0, early_exit=True, check_termination=2)
+        mu8 = torch.linspace(0.45, 1.2, B_LEARN, device=dev)
+        x08 = torch.zeros((B_LEARN, 6), device=dev)
+        x08[:, 0] = 1.0
+        x08[:, 4] = torch.arange(B_LEARN, device=dev, dtype=torch.float32) * (float(track.length) / B_LEARN)
+        upd8, win8, done8 = [], [], []
+        scan = race_mod.make_racestep_scan
+
+        def timed_scan(*a, **k):
+            return timed(scan(*a, **k), win8)
+
+        launch_race = rk_mod._racestep_cuda
+        race_mod.learn_from_lap = timed(race_mod.learn_from_lap, upd8)
+        race_mod.make_racestep_scan = timed_scan
+        rk_mod._racestep_cuda = recording(launch_race, done8)
+        try:
+            reset_launches()
+            log8, wall8 = wall_ms(lambda: mega_race_learn(
+                p, rcfg12, scfg8, track, x08, n_windows=N_WINDOWS, T_window=T_WINDOW, mu_true_b=mu8, mu0=0.825,
+                noise_sigma=SIGMA, llcfg=LapLearnConfig(gain=0.5, dv_max=0.5),
+                table0=initial_table(track, ds=0.05, vx0=1.2), seed=8))
+            learn8 = {"launches": read_launches("race-learn", {"racestep": N_WINDOWS * T_WINDOW}), "wall_ms": wall8}
+        finally:
+            race_mod.learn_from_lap = ll_mod.learn_from_lap
+            race_mod.make_racestep_scan = scan
+            rk_mod._racestep_cuda = launch_race
+        mu_true8 = mu8.cpu().numpy()
+        mu_fin8 = log8.mu_hat[-1, :, -1].cpu().numpy()
+        kap8 = track.kappa.abs().cpu().numpy()
+        n8 = log8.tables_vx.shape[-1]
+        node_kap = kap8[np.clip(((np.arange(n8) * float(log8.table.ds[0])) / float(track.ds)).astype(int), 0,
+                                kap8.size - 1)]
+        corner = torch.as_tensor(node_kap > 0.5 * kap8.max(), device=dev)
+        cv = log8.tables_vx[-1][:, corner].mean(dim=1).cpu().numpy()
+        prog8 = log8.progress.cpu().numpy()
+        learn8.update(
+            ms=sum(win8) / (N_WINDOWS * T_WINDOW), update_ms=float(np.mean(upd8)),
+            mu_corr=float(np.corrcoef(mu_fin8, mu_true8)[0, 1]), corner_corr=float(np.corrcoef(cv, mu_true8)[0, 1]),
+            corner_lo=float(cv[:B_LEARN // 4].mean()), corner_hi=float(cv[-B_LEARN // 4:].mean()),
+            progress_first=float(np.median(prog8[0])), progress_last=float(np.median(prog8[-1])),
+            converged=log8.converged.mean().item(),
+            finite=all(bool(torch.isfinite(t).all()) for t in (log8.tables_vx, log8.mu_hat, log8.progress,
+                                                               log8.Xf_last, log8.converged)))
+        log(f"[race-learn] B={B_LEARN} {N_WINDOWS} windows of {T_WINDOW} N={N_RACE} racetrack: "
+            f"{learn8['ms']:.4f} ms/composed step ({B_LEARN / learn8['ms'] * 1e3:.0f} composed solves/s), "
+            f"{learn8['update_ms']:.2f} ms per ILC update of {B_LEARN} tables ({card}); wall {wall8:.1f} ms")
+        log(f"[race-learn] median window progress first {learn8['progress_first']:.2f} m last "
+            f"{learn8['progress_last']:.2f} m (TPU run {TPU_LEARN['progress_first']} -> {TPU_LEARN['progress_last']}), "
+            f"mu-hat/mu-true corr {learn8['mu_corr']:.4f}, corner vx vs mu corr {learn8['corner_corr']:.4f} (TPU run "
+            f"{TPU_LEARN['corner_corr']}), corner vx low / high quartile {learn8['corner_lo']:.3f} / "
+            f"{learn8['corner_hi']:.3f} (TPU run {TPU_LEARN['corner_lo']} / {TPU_LEARN['corner_hi']}), converged "
+            f"{learn8['converged']:.4f} (TPU run {TPU_LEARN['converged']}), finite={learn8['finite']}")
+        # the path's instantiation (N=12, per-lane tables: the learned ones,
+        # B_LEARN cars) against plain, every lane one step from plain's
+        # carry: the racestep's bounds, tight at a fixed count and 5e-3 at
+        # the path's early exit
+        prm8 = megastep_params(p.replace(mu=0.825), B_LEARN)
+        err8 = {}
+        for name, sc, bnd in (("fixed", scfg8.replace(early_exit=False), tight), ("path config", scfg8, loose)):
+            cp8 = racestep_init(p, rcfg12, track, x08, 0.825)
+            e8 = dict.fromkeys(bnd, 0.0)
+            for k in range(K_RACE_CMP):
+                a = (rcfg12, sc, track, prm8, log8.table)
+                nz = noises[k][:, :B_LEARN].contiguous()
+                cs, us, _, zs = racestep(*a, cp8, nz, mu8, ekq, ekr)
+                cp8, up, _, zp = racestep_plain(*a, cp8, nz, mu8, ekq, ekr)
+                torch.cuda.synchronize()
+                for key, x, y in (("u0", us, up), ("z", zs, zp)) + tuple(
+                        (f, getattr(cs, f), getattr(cp8, f)) for f in ("xg", "ekx", "fr", "X_pred")):
+                    e8[key] = max(e8[key], (x - y).abs().max().item())
+            log(f"[race-learn] racestep N={N_RACE} per-lane learned tables B={B_LEARN} {name}, every lane one step "
+                f"from plain's carry: " + " ".join(f"max|d{key}|={v:.3e}" for key, v in e8.items()))
+            for key, tol in bnd.items():
+                check(e8[key] <= tol, f"[race-learn] racestep {name}: |d{key}| {e8[key]:.3e} beyond {tol} of plain")
+            err8[name] = max(e8.values())
+        args8 = (rcfg12, scfg8, track, prm8, log8.table, racestep_init(p, rcfg12, track, x08, 0.825),
+                 noises[0][:, :B_LEARN].contiguous(), mu8, ekq, ekr)
+        racestep(*args8)                                                # warm-up
+        learn8.update(err=err8, device_ms=kernel_ms(lambda: racestep(*args8), 10, "racestep_kernel"),
+                      plain_ms=cuda_time_ms(lambda: racestep_plain(*args8), 3))
+        log(f"[race-learn] first step, path config: {learn8['device_ms']:.4f} ms kernel (device), "
+            f"{learn8['plain_ms']:.3f} ms plain ({card})")
+        check(learn8["finite"], "[race-learn] non-finite output")
+        check(learn8["converged"] >= 0.95, f"[race-learn] converged {learn8['converged']:.4f} < 0.95")
+        check(learn8["progress_last"] > learn8["progress_first"],
+              "[race-learn] the last window's median progress is not above the first's")
+
+        # ---- 14. main path 9: lap learning at 4,096 cars
+        # (PERF_TPU.md:585-600; its N and learner from
+        # tests/test_lap_learning.py:112-136): batched_lap_learning on the
+        # megastep, one launch per step, per-lane tables sampled on the host ----
+        upd9, lap_ms9, done9 = [], [], []
+        rollout = ll_mod.mega_lap_rollout
+        learn_fn = ll_mod.learn_from_lap
+        launch_mega = mk_mod._megastep_cuda
+
+        def timed_rollout(*a, **k):
+            return timed(rollout(*a, **k), lap_ms9)
+
+        ll_mod.mega_lap_rollout = timed_rollout
+        ll_mod.learn_from_lap = timed(learn_fn, upd9)
+        mk_mod._megastep_cuda = recording(launch_mega, done9)
+        try:
+            reset_launches()
+            log9, wall9 = wall_ms(lambda: ll_mod.batched_lap_learning(
+                p9, lcfg, scfg9, loval, x09, N_LAPS, T_LAP,
+                llcfg=LapLearnConfig(gain=0.7, dv_max=0.8, a_lat_frac=0.78),
+                table0=initial_table(loval, ds=0.05, vx0=1.0), sim_tire="pacejka", backend="mega"))
+            lap9 = {"launches": read_launches("lap-learn", {"megastep": N_LAPS * T_LAP}), "wall_ms": wall9}
+        finally:
+            ll_mod.mega_lap_rollout = rollout
+            ll_mod.learn_from_lap = learn_fn
+            mk_mod._megastep_cuda = launch_mega
+        # the device's time per step: 20 steps of the rollout on the learned tables
+        run20 = rollout(p9, lcfg, scfg9, loval, 20, sim_tire="pacejka")
+        dev_kernel, dev_all = step_device_ms(lambda: run20(x09, log9.table), 1, "megastep_kernel")
+        laps9 = log9.lap_steps.numpy()
+        done_last = laps9[-1] <= T_LAP
+        impr = 1.0 - laps9[-1] / laps9[0]
+        ey9 = log9.last_log.X[..., 5].abs().flatten().cpu().numpy()
+        lap9.update(
+            ms=sum(lap_ms9) / (N_LAPS * T_LAP), device_ms_step=dev_all / 20, kernel_ms_step=dev_kernel,
+            update_ms=float(np.mean(upd9)),
+            completed=float((laps9 <= T_LAP).mean()), completed_last=float(done_last.mean()),
+            improvement=float(np.median(impr)), ey_p99=float(np.percentile(ey9, 99)),
+            lap_s_first=float(np.median(laps9[0])) * lcfg.dt, lap_s_last=float(np.median(laps9[-1])) * lcfg.dt,
+            converged=log9.last_log.converged.mean().item(),
+            finite=all(bool(torch.isfinite(t).all()) for t in (log9.tables_vx, *log9.last_log)))
+        lap9["host_share"] = 1.0 - lap9["device_ms_step"] / lap9["ms"]
+        log(f"[lap-learn] B={B_MAIN} {N_LAPS} laps of {T_LAP} N={N_LAP} Pacejka oval: {lap9['ms']:.4f} ms/step events "
+            f"({B_MAIN / lap9['ms'] * 1e3:.0f} solves/s), device {lap9['device_ms_step']:.4f} ms/step of which the "
+            f"megastep {lap9['kernel_ms_step']:.4f} (host share {lap9['host_share']:.2f}), {lap9['update_ms']:.2f} ms "
+            f"per update of {B_MAIN} tables ({card}); wall "
+            f"{wall9:.1f} ms")
+        log(f"[lap-learn] laps completed {lap9['completed']:.4f} (last lap {lap9['completed_last']:.4f}; TPU run "
+            f"{TPU_LAPS['completed']}), median lap {lap9['lap_s_first']:.3f} -> {lap9['lap_s_last']:.3f} s, median "
+            f"improvement {lap9['improvement']:.4f} (TPU run {TPU_LAPS['improvement']}), |e_y| p99 {lap9['ey_p99']:.4f} "
+            f"(TPU run {TPU_LAPS['ey_p99']}), converged (last lap) {lap9['converged']:.4f}, finite={lap9['finite']}")
+        check(lap9["finite"], "[lap-learn] non-finite output")
+        check(lap9["completed_last"] >= 0.99, f"[lap-learn] last lap completed on {lap9['completed_last']:.4f} < 0.99")
+        check(lap9["improvement"] > 0.25, f"[lap-learn] median improvement {lap9['improvement']:.4f} <= 0.25")
+        check(lap9["ey_p99"] < 0.4, f"[lap-learn] |e_y| p99 {lap9['ey_p99']:.4f} >= 0.4")
+
     # ---- bounds: this run's shapes, data and iteration counts ----
     # the admm kernel's stage matrices are its inputs: their patterns are
     # read from this run's QPs (A = Aa, B = Ba there)
@@ -1563,6 +1873,28 @@ def main():
                                                         gate=False), race_bytes(N_RACE))
         shared["racestep_kernel n12 B=1"] = shared["racestep_kernel n12"]
         lanes["racestep_kernel n12 B=1"] = 1
+    if lap9 is not None:
+        # path 7b: path 7's instantiation on the oval (its measurement window)
+        win7b = min(2 * _win_cells(oval7, 3.0) + 1, oval7.n_cells)
+        it["racestep_kernel n12 B=1 oval"] = scfg7.max_iter
+        per_lane["racestep_kernel n12 B=1 oval"] = (race_ops(S_race12, N_RACE, scfg7.max_iter, 4, 10, win7b,
+                                                             gate=False), race_bytes(N_RACE))
+        shared["racestep_kernel n12 B=1 oval"] = 4 * (4 * oval7.n_cells + 3 * log7b.tables_vx.shape[-1] + 16)
+        lanes["racestep_kernel n12 B=1 oval"] = 1
+        # path 8: the racestep at N=12 with per-lane tables, B_LEARN cars
+        it["racestep_kernel n12 per-lane"] = executed_iters(torch.stack(done8))
+        per_lane["racestep_kernel n12 per-lane"] = (
+            race_ops(S_race12, N_RACE, it["racestep_kernel n12 per-lane"], 4, 10, win, gate=False),
+            race_bytes(N_RACE, per_lane=True))
+        shared["racestep_kernel n12 per-lane"] = 4 * (4 * track.n_cells + 16)
+        lanes["racestep_kernel n12 per-lane"] = B_LEARN
+        # path 9: the megastep at N=10 with the Pacejka tyre, 10 plant
+        # sub-steps, per-lane references
+        S_lap = model_structure(p, lcfg, scfg9)
+        it["megastep_kernel pacejka n10"] = executed_iters(torch.stack(done9))
+        per_lane["megastep_kernel pacejka n10"] = (core_ops(S_lap, lcfg.tire, N_LAP, it["megastep_kernel pacejka n10"])
+                                                   + plant_ops(S_lap, lcfg.tire, 10), mega_bytes(6, N_LAP))
+        shared["megastep_kernel pacejka n10"] = 4 * loval.n_cells
     bounds = {k: bound(lanes.get(k, B_MAIN) * o, lanes.get(k, B_MAIN) * b + shared.get(k, 0))
               for k, (o, b) in per_lane.items()}
     log("[bound] per launch on the H100 at B=4096 unless named (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
@@ -1627,6 +1959,27 @@ def main():
                 "max_abs_err_own_carries": race12[1]["max_abs_err_own_carries"], "plain_ms": race12[1]["plain_ms"],
                 "bound_ms": b7[0], "bound_by": b7[1]}
         mega_rec = next(k for k in kernels if k["name"] == "megastep_kernel")
+        if lap9 is not None:
+            # paths 7b and 8 run the racestep, path 9 the megastep: their
+            # launches join the records, their numbers the records' paths
+            b7b, b8 = bounds["racestep_kernel n12 B=1 oval"], bounds["racestep_kernel n12 per-lane"]
+            b9 = bounds["megastep_kernel pacejka n10"]
+            race_rec["launches"] += race7b["launches"]["racestep"] + learn8["launches"]["racestep"]
+            race_rec["paths"]["race-loop-learn"] = {
+                "launches": race7b["launches"]["racestep"], "ms": race7b["ms"], "device_ms": race12[1]["device_ms"],
+                "max_abs_err": race12[1]["max_abs_err"], "plain_ms": race12[1]["plain_ms"],
+                "bound_ms": b7b[0], "bound_by": b7b[1]}
+            race_rec["paths"]["race-learn"] = {
+                "launches": learn8["launches"]["racestep"], "ms": learn8["ms"], "device_ms": learn8["device_ms"],
+                "max_abs_err": learn8["err"]["fixed"], "max_abs_err_path_config": learn8["err"]["path config"],
+                "plain_ms": learn8["plain_ms"], "bound_ms": b8[0], "bound_by": b8[1]}
+            mega_rec["launches"] += lap9["launches"]["megastep"]
+            mega_rec["paths"] = {
+                "main": {"launches": launches["megastep"], "ms": mega_ms, "device_ms": mega_dev_ms},
+                "lap-learn": {"launches": lap9["launches"]["megastep"], "ms": lap9["ms"],
+                              "device_ms": lap["device_ms"], "device_ms_per_step": lap9["device_ms_step"],
+                              "max_abs_err": lap["fixed"], "max_abs_err_path_config": lap["path config"],
+                              "plain_ms": lap["plain_ms"], "bound_ms": b9[0], "bound_by": b9[1]}}
         mega_rec["eyb"] = {"max_abs_err": mega_eyb["fixed"], "device_ms": mega_eyb["dev_ms"],
                            "box_device_ms": mega_eyb["box_dev_ms"],
                            "bound_ms": bounds["megastep_kernel+eyb"][0]}

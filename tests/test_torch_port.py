@@ -268,12 +268,27 @@ _RACE_BLOCKS = [[3.0, 4.2, -0.25, 0.1], [8.0, 9.0, -0.1, 0.3], [20.0, 21.5, -0.4
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("refs", ["constant", "pacejka-per-lane"])
 @pytest.mark.parametrize("eyb", [False, True])
 @pytest.mark.parametrize("early_exit,tol_u,tol_x", [(False, 2e-4, 5e-4), (True, 5e-3, 5e-3)])
-def test_megastep_kernel_matches_plain_on_card(cuda_device, early_exit, tol_u, tol_x, eyb):
+def test_megastep_kernel_matches_plain_on_card(cuda_device, early_exit, tol_u, tol_x, eyb, refs):
     """5 steps, with and without an e_y corridor (each step's made once
-    from the plain carry and handed to both)."""
-    p, cfg, track, scen, x_ref = _small_case(cuda_device, N=20, n_ey=20, n_mu=15)
+    from the plain carry and handed to both); "pacejka-per-lane" is the lap
+    learner's instantiation: N=10, Pacejka controller and plant, and (N+1,
+    nx, B) references sampled from one table per lane along the plain
+    carry's schedule (``batched_refs_from_tables``)."""
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop.lap_learning import (
+        batched_refs_from_tables, per_lane_table,
+    )
+
+    lap = refs == "pacejka-per-lane"
+    p, cfg, track, scen, x_ref = _small_case(cuda_device, N=10 if lap else 20, n_ey=20, n_mu=15)
+    if lap:
+        cfg = cfg.replace(tire="pacejka")
+        tab = per_lane_table(initial_table(track, ds=0.05, vx0=1.0), scen.batch)
+        lane = torch.linspace(0.0, 1.0, scen.batch, device=cuda_device)[:, None]
+        node = torch.arange(tab.vx.shape[1], device=cuda_device) / 7.0
+        tab = tab.replace(vx=tab.vx * (1.0 + 0.8 * lane), ey=0.08 * lane * torch.sin(node))
     scfg = SolverConfig(max_iter=20, rho_interval=0, early_exit=early_exit, check_termination=2)
     prm = megastep_params(scen.params, scen.batch, device=cuda_device)
     ck = cp = megastep_init(scen.params, cfg, track, scen.x0)
@@ -281,6 +296,9 @@ def test_megastep_kernel_matches_plain_on_card(cuda_device, early_exit, tol_u, t
     before = megastep.launches
     for _ in range(5):
         e = eyb_of(cp.x[4], cp.X_pred[:, 4]) if eyb else None
+        if lap:
+            x_ref = batched_refs_from_tables(cfg, tab, torch.cat([cp.x[4][None], cp.X_pred[2:, 4],
+                                                                  cp.X_pred[-1:, 4]]))
         ck, uk, _ = megastep(cfg, scfg, track, prm, x_ref, ck, eyb=e)
         cp, up, _ = megastep_plain(cfg, scfg, track, prm, x_ref, cp, eyb=e)
         torch.cuda.synchronize()

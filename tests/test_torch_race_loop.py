@@ -39,7 +39,7 @@ from autonomous_racing_lpv_mpp_mpc_tpu.track import oval_track as joval
 
 from autonomous_racing_lpv_mpp_mpc_tpu_torch import convert
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import VehicleParams
-from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import race_loop
+from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import initial_table, race_loop
 
 P = JVehicleParams()
 PCFG = JMPPConfig.for_model("dynamic", H=64, n_sqp=2)
@@ -79,10 +79,15 @@ def test_race_loop_matches_jax(backend):
 
 
 def test_race_loop_unported_modes_raise():
+    """The learning mode (``ilc_every > 0``) and the line lead-in are
+    ported (tests/test_torch_race_learn.py) and no longer raise; an unknown
+    backend and the kinematic model still do."""
     args = _args(joval(), "plain")
-    with pytest.raises(NotImplementedError, match="ilc_every"):
-        race_loop(*args, T=10, mu_true=0.6, ilc_every=2)
-    with pytest.raises(NotImplementedError, match="obs_tracker_lead"):
-        race_loop(*args, T=10, mu_true=0.6, obs_tracker_lead=0.5)
+    table0 = initial_table(args[4], ds=0.05, vx0=1.0)
+    log = race_loop(*args, T=15, mu_true=0.6, replan_every=5, ilc_every=2, table0=table0)
+    assert log.replan_steps.tolist() == [0, 10] and log.tables_ey.shape == (2, table0.vx.shape[0])
     with pytest.raises(ValueError, match="backend"):
         race_loop(*args, T=10, mu_true=0.6, backend="xla")
+    kin = convert.mpc_config(JMPCConfig(N=10, model="kinematic"))
+    with pytest.raises(ValueError, match="dynamic model"):
+        race_loop(args[0], kin, *args[2:], T=10, mu_true=0.6)
