@@ -30,7 +30,7 @@ from .loop.friction import FrictionState
 from .loop.lap_learning import LapLearnConfig
 from .loop.mpc import MPCCarry
 from .loop.race import RaceCarry
-from .ops.megastep_kernel import MegaCarry
+from .ops.megastep_kernel import MegaCache, MegaCarry
 from .ops.racestep_kernel import RaceMegaCarry
 from .planner.opponents import OpponentSet
 from .planner.reftable import RefTable
@@ -109,6 +109,16 @@ def mega_carry(obj, device=None) -> MegaCarry:
     return MegaCarry(*(tensor(getattr(obj, n), device) for n in MegaCarry._fields))
 
 
+def mega_cache(obj, device=None) -> MegaCache:
+    """A JAX ``MegaCache``: its augmented stages (N, na, na, B) and (N, na,
+    NU, B) become their discrete (nx, nx) and (nx, NU) top blocks, the rest
+    is taken as it is. ``to_numpy`` gives the port's fields back."""
+    nx = np.asarray(obj.Xs).shape[1]
+    return MegaCache(A=tensor(np.asarray(obj.A)[:, :nx, :nx], device),
+                     B=tensor(np.asarray(obj.B)[:, :nx], device),
+                     **{n: tensor(getattr(obj, n), device) for n in ("Xs", "Us", "kap", "age")})
+
+
 def race_mega_carry(obj, device=None) -> RaceMegaCarry:
     return RaceMegaCarry(*(tensor(getattr(obj, n), device) for n in RaceMegaCarry._fields))
 
@@ -163,7 +173,7 @@ def boxqp(obj, device=None) -> BoxQP:
 
 
 def to_numpy(carry) -> dict:
-    """A port carry (MPCCarry, MegaCarry, RaceMegaCarry, EKFState,
+    """A port carry (MPCCarry, MegaCarry, MegaCache, RaceMegaCarry, EKFState,
     FrictionState, RaceCarry), OpponentSet or RefTable as a dict of numpy
     arrays; nested carries become nested dicts and RaceCarry's generator is
     left out."""

@@ -115,8 +115,8 @@ class SolverConfig(_Replace):
     for the ``backend`` names. ``riccati`` is "scan" (sequential) or
     "assoc" (parallel in the horizon); ``equilibrate``, ``polish`` and
     ``certify_infeasibility`` are the production pipeline's stages
-    (``solver.production``). ``cache_build`` is not ported: the megastep
-    raises for it.
+    (``solver.production``). ``cache_build`` switches the megastep's
+    discretization cache on (``ops.megastep_kernel.MegaCache``).
     """
 
     rho: float = 0.1

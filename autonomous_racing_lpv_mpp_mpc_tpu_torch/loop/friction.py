@@ -8,6 +8,9 @@ against the magic-formula prediction. The sensitivity dFy/dmu is
 ``torch.func.grad`` of the port's ``tire_force_pacejka`` (the JAX version
 uses ``jax.value_and_grad``). Updates are gated on |dFy/dmu| >=
 ``min_sensitivity`` * Fz, so straight-line driving leaves mu-hat alone.
+
+:func:`adaptive_closed_loop` closes the loop with model mismatch: the
+plant runs at the true friction, the controller on mu-hat.
 """
 
 from __future__ import annotations
@@ -16,10 +19,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.config import VehicleParams
+from ..core.config import MPCConfig, SolverConfig, VehicleParams
 from ..core.device import resolve_device
 from ..models.dynamics import VX_EPS
 from ..models.tires import tire_force_pacejka
+from ..track.track import Track
 
 MU_MIN = 0.1
 MU_MAX = 1.5
@@ -85,3 +89,45 @@ def friction_step(p: VehicleParams, st: FrictionState, x_prev, x_next, u, dt: fl
         P2 = (P - K * J * P) / forgetting
         mu, P = torch.where(gate, mu2, mu), torch.where(gate, P2, P)
     return FrictionState(mu=mu, P=P)
+
+
+class AdaptiveLog(NamedTuple):
+    X: torch.Tensor          # (T, nx) plant states (T, B, nx) for a batch
+    U: torch.Tensor          # (T, nu)
+    mu_hat: torch.Tensor     # (T,) friction estimate after each step
+    converged: torch.Tensor  # (T,)
+
+
+def adaptive_closed_loop(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
+                         x0: torch.Tensor, x_ref, T: int, mu_true: float, mu0: float = 1.0,
+                         sim_tire: str = "pacejka", n_sub: int = 10, forgetting: float = 0.995,
+                         adapt: bool = True) -> AdaptiveLog:
+    """Closed loop with model mismatch: the plant runs at ``mu_true`` while
+    the controller starts at ``mu0`` and, with ``adapt=True``, schedules its
+    LPV stages and friction-circle speed caps on the RLS mu-hat every step.
+    ``adapt=False`` is the ablation: the same loop with the estimate logged
+    but not used. ``x0`` is one car's state (nx,) as in the JAX package, or
+    a batch (B, nx); the log has the same leading dims."""
+    from .closed_loop import plant_step
+    from .mpc import mpc_init, mpc_step_batched
+
+    if cfg.model != "dynamic":
+        raise ValueError("friction adaptation needs the dynamic model "
+                         "(kinematic has no lateral-force channel)")
+    single = x0.dim() == 1
+    x = x0[None] if single else x0
+    B = x.shape[0]
+    mu0 = float(torch.tensor(mu0, dtype=torch.float32))      # the JAX package's f32 mu0
+    p_plant = p.replace(mu=float(torch.tensor(mu_true, dtype=torch.float32)))
+    carry = mpc_init(p.replace(mu=mu0), cfg, track, x)
+    fst = friction_init(mu0, batch=(B,), device=x.device)
+    outs = []
+    for _ in range(T):
+        p_hat = p.replace(mu=fst.mu) if adapt else p.replace(mu=mu0)
+        u, carry, diag = mpc_step_batched(p_hat, cfg, scfg, track, x, x_ref, carry)
+        x_next = plant_step(p_plant, cfg, track, x, u, n_sub=n_sub, sim_tire=sim_tire)
+        fst = friction_step(p, fst, x, x_next, u, cfg.dt, forgetting=forgetting)
+        x = x_next
+        outs.append((x, u, fst.mu, diag.converged))
+    log = AdaptiveLog(*(torch.stack(col) for col in zip(*outs)))
+    return AdaptiveLog(*(t[:, 0] for t in log)) if single else log

@@ -6,17 +6,20 @@ kernel for CUDA tensors, counting launches in ``<wrapper>.launches``."""
 from .admm_kernel import admm_kernel_solve, admm_solve_plain
 from .fused_kernel import fused_mpc_solve, fused_solve_plain
 from .megastep_kernel import (
+    MegaCache,
     MegaCarry,
     megastep,
     megastep_init,
     megastep_params,
     megastep_plain,
+    megacache_init,
     megastep_refs,
     mpc_core_plain,
 )
 from .racestep_kernel import RaceMegaCarry, racestep, racestep_init, racestep_plain
 
 __all__ = [
+    "MegaCache",
     "MegaCarry",
     "RaceMegaCarry",
     "admm_kernel_solve",
@@ -27,6 +30,7 @@ __all__ = [
     "megastep_init",
     "megastep_params",
     "megastep_plain",
+    "megacache_init",
     "megastep_refs",
     "mpc_core_plain",
     "racestep",

@@ -325,8 +325,15 @@ __device__ __forceinline__ void f_kinematic(const VehParams& pv, const float (&x
 // augmented width na = nx + NU, the indices of s and e_y in the state, the
 // LPV stage build and the plant ODE. The plain version selects the same by
 // MPCConfig.model (ops/stage_math.py::model_dims, model_s_ey).
+//
+// cache_scale(i) is state channel i's drift scale in the megastep's
+// discretization-cache signature (JAX ops/megastep_kernel.py::_mpc_core,
+// x_scl), 0 for s, which the signature leaves out.
 struct Dynamic {
   static constexpr int NX = arl::NX, NA = arl::NA, S = 4, EY = 5;
+  static __device__ __forceinline__ float cache_scale(int i) {
+    return i == 0 ? 1.0f : i == 2 ? 2.0f : i == S ? 0.0f : 0.5f;
+  }
   static __device__ __forceinline__ void ab_cont(const float (&x)[NX], const float (&u)[NU],
                                                  float kap, const VehParams& pv, int tire,
                                                  float (&A)[NX][NX], float (&B)[NX][NU]) {
@@ -341,6 +348,9 @@ struct Dynamic {
 
 struct Kinematic {
   static constexpr int NX = KIN_NX, NA = KIN_NA, S = 2, EY = 3;
+  static __device__ __forceinline__ float cache_scale(int i) {
+    return i == 0 ? 1.0f : i == S ? 0.0f : 0.5f;
+  }
   static __device__ __forceinline__ void ab_cont(const float (&x)[NX], const float (&u)[NU],
                                                  float kap, const VehParams& pv, int /*tire*/,
                                                  float (&A)[NX][NX], float (&B)[NX][NU]) {

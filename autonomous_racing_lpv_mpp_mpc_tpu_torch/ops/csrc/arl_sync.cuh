@@ -1,7 +1,8 @@
 // Cooperation primitives of the group-cooperative kernels (megastep,
 // racestep, fused and solver-only kernels): the G threads that own one lane,
 // the lane's slice of dynamic shared memory, the 128-lane early-exit vote
-// held across a thread block cluster, and the (clustered) launch.
+// and the 128-lane maximum (the megastep's cache decision) held across a
+// thread block cluster, and the (clustered) launch.
 //
 // Launch shape: a lane is LANE_THREADS adjacent threads of one warp; a
 // block holds BLOCK_LANES lanes; a cluster of CLUSTER blocks holds the 128
@@ -70,6 +71,36 @@ __device__ __forceinline__ bool vote_all(bool mine) {
   for (unsigned r = 0; r < n; ++r) all &= *cl.map_shared_rank(&flag, r);
   cl.sync();   // no block writes its next flag before every block has read this one
   return all != 0;
+}
+
+// The largest `mine` over every thread of the cluster, on every thread of
+// it: a warp max by shuffles, a block max through shared memory, then each
+// block's maximum read across the cluster (distributed shared memory)
+// between two cluster barriers, as in vote_all. A max is exact, so every
+// thread returns the same float. Every thread of every block of the
+// cluster calls it the same number of times, with every lane of its warp.
+__device__ __forceinline__ float max_all(float mine) {
+  namespace cg = cooperative_groups;
+  __shared__ float warp_max[32];
+  __shared__ float blk_max;
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) mine = fmaxf(mine, __shfl_xor_sync(0xffffffffu, mine, m));
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = mine;
+  __syncthreads();
+  float blk = warp_max[0];
+  for (unsigned w = 1; w < (blockDim.x + 31) / 32; ++w) blk = fmaxf(blk, warp_max[w]);
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned n = cl.num_blocks();
+  if (n == 1) {
+    __syncthreads();   // no warp writes its next maximum before every thread has read this one
+    return blk;
+  }
+  if (threadIdx.x == 0) blk_max = blk;
+  cl.sync();
+  float all = blk;
+  for (unsigned r = 0; r < n; ++r) all = fmaxf(all, *cl.map_shared_rank(&blk_max, r));
+  cl.sync();   // no block writes its next maximum before every block has read this one
+  return all;
 }
 
 // Launch `kern` on `grid` blocks of `threads` threads in clusters of

@@ -27,6 +27,8 @@
 // by N (ops/fused_kernel.py::launch_shape).
 #pragma once
 
+#include <type_traits>
+
 #include "arl_sync.cuh"
 #include "mpc_core.cuh"
 
@@ -156,6 +158,20 @@ __device__ __forceinline__ Resid group_max(const Grp<G>& gr, const Resid& a) {
   return Resid{gr.max(a.r_p), gr.max(a.dual_ds), gr.max(a.g_max), gr.max(a.s_max),
                gr.max(a.dual_lam)};
 }
+
+// The megastep's discretization cache (SolverConfig.cache_build; JAX
+// ops/megastep_kernel.py::_mpc_core, cache_in / cache_out), batch-last:
+// the stage matrices Ad (N, nx, nx, B) and Bd (N, nx, NU, B), the schedule
+// each stage was built at, Xs (N, nx, B), Us (N, NU, B) and kap (N, B), and
+// the steps since the last full build, age (1, B). The kernel reads the
+// *_in arrays and writes the *_out ones: the shift reads stage k + 1 where
+// another thread of the group writes stage k.
+struct CacheIO {
+  const float *A, *B, *Xs, *Us, *kap, *age;
+  float *A_out, *B_out, *Xs_out, *Us_out, *kap_out, *age_out;
+  float tol;     // cache_drift_tol
+  int max_age;   // cache_max_age
+};
 
 // The iteration's per-lane arrays in device memory: linear cost q0
 // (N+1, nx), bounds lb/ub (N+1, NC), the split s and dual lam (N+1, NC).
@@ -589,11 +605,16 @@ __device__ __forceinline__ void admm_start_g(const CoreParams<M>& P, const Sel<M
 // Sections 1-4, stage k on thread k mod G: the shifted schedule, curvature
 // and bounds (the e_y row from the corridor where one is given), stage
 // matrices, linear cost, warm start. The group barrier at the end publishes
-// the workspace rows.
-template <class M, int G, class O>
+// the workspace rows. With the cache (CACHE) the stage matrices wait for
+// the group's decision (cache_stages_g); instead this thread's part of the
+// drift of the new schedule from the cached one goes into `drift`: over its
+// stages k < N-1 the largest |xk - Xs_in[k+1]|, |uk - Us_in[k+1]| and
+// |kap - kap_in[k+1]|, each channel over its scale (s left out).
+template <bool CACHE, class M, int G, class O>
 __device__ void prepare_g(const CoreParams<M>& P, int b, const WsLayout<M>& W, const Lane& ws,
                           const O& op, const VehParams& pv, const float (&x)[M::NX],
-                          const Lane& xref, const Grp<G>& gr) {
+                          const Lane& xref, const Grp<G>& gr, const CacheIO* cio,
+                          float& drift) {
   constexpr int NX = M::NX;
   const int N = P.N, S = P.B;
   const Lane Xp = lane_of(P.Xp, b, S), Up = lane_of(P.Up, b, S);
@@ -646,7 +667,23 @@ __device__ void prepare_g(const CoreParams<M>& P, int b, const WsLayout<M>& W, c
       lam[k * NC + c] = lamw[kk * NC + c];
     }
     // 3. stage matrices and the linear cost (vx reference clamped to the cap)
-    if (k < N) build_stage<M>(op, k, xk, uk, kap, pv, P.tire, P.dt);
+    if constexpr (CACHE) {
+      if (k < N - 1) {
+        const Lane cx = lane_of(cio->Xs, b, S), cu = lane_of(cio->Us, b, S);
+        const float u_scale[NU] = {0.3f, 2.0f};
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+          if (i != M::S)
+            drift = fmaxf(drift, __fdiv_rn(fabsf(__fsub_rn(xk[i], cx[(k + 1) * NX + i])),
+                                           M::cache_scale(i)));
+#pragma unroll
+        for (int i = 0; i < NU; ++i)
+          drift = fmaxf(drift, __fdiv_rn(fabsf(__fsub_rn(uk[i], cu[(k + 1) * NU + i])), u_scale[i]));
+        drift = fmaxf(drift, __fdiv_rn(fabsf(__fsub_rn(kap, cio->kap[(size_t)(k + 1) * S + b])), 0.5f));
+      }
+    } else if (k < N) {
+      build_stage<M>(op, k, xk, uk, kap, pv, P.tire, P.dt);
+    }
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       float xr = xref[k * NX + i];
@@ -657,15 +694,75 @@ __device__ void prepare_g(const CoreParams<M>& P, int b, const WsLayout<M>& W, c
   gr.sync();
 }
 
+// Section 3 of a step with the discretization cache, stage k on thread
+// k mod G (the stages prepare_g scheduled on it): on a rebuild every stage
+// is built at the new schedule, which becomes its signature; otherwise
+// stage k < N-1 takes the cached stage k + 1 with its signature and only
+// stage N-1 is built. The stages go to the operand slots and to the new
+// cache; the age to 0 on a rebuild, else one more. Ends with a group
+// barrier.
+template <class M, int G, class O>
+__device__ void cache_stages_g(const CoreParams<M>& P, int b, const WsLayout<M>& W,
+                               const Lane& ws, const O& op, const VehParams& pv,
+                               const CacheIO& cio, bool rebuild, const Grp<G>& gr) {
+  constexpr int NX = M::NX;
+  const int N = P.N, S = P.B;
+  const Lane A_in = lane_of(cio.A, b, S), B_in = lane_of(cio.B, b, S);
+  const Lane Xs_in = lane_of(cio.Xs, b, S), Us_in = lane_of(cio.Us, b, S);
+  const Lane A_out = lane_of(cio.A_out, b, S), B_out = lane_of(cio.B_out, b, S);
+  const Lane Xs_out = lane_of(cio.Xs_out, b, S), Us_out = lane_of(cio.Us_out, b, S);
+  const Lane kap_out = lane_of(cio.kap_out, b, S);
+  for (int k = gr.g; k < N; k += G) {
+    const int oA = op.Ad + k * NX * NX, oB = op.Bd + k * NX * NU;
+    if (rebuild || k == N - 1) {
+      float xk[NX], uk[NU];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xk[i] = ws[W.Xs + k * NX + i];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) uk[i] = ws[W.Us + k * NU + i];
+      const float kap = ws[W.kap + k];
+      build_stage<M>(op, k, xk, uk, kap, pv, P.tire, P.dt);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) Xs_out[k * NX + i] = xk[i];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) Us_out[k * NU + i] = uk[i];
+      kap_out[k] = kap;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NX * NX; ++i) op[oA + i] = A_in[(k + 1) * NX * NX + i];
+#pragma unroll
+      for (int i = 0; i < NX * NU; ++i) op[oB + i] = B_in[(k + 1) * NX * NU + i];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) Xs_out[k * NX + i] = Xs_in[(k + 1) * NX + i];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) Us_out[k * NU + i] = Us_in[(k + 1) * NU + i];
+      kap_out[k] = cio.kap[(size_t)(k + 1) * S + b];
+    }
+#pragma unroll
+    for (int i = 0; i < NX * NX; ++i) A_out[k * NX * NX + i] = op[oA + i];
+#pragma unroll
+    for (int i = 0; i < NX * NU; ++i) B_out[k * NX * NU + i] = op[oB + i];
+  }
+  if (gr.g == 0) cio.age_out[b] = rebuild ? 0.0f : cio.age[b] + 1.0f;
+  gr.sync();
+}
+
 // Sections 1-8 of the tracker core for lane b on its group: writes the
 // new warm start, u0 and stats rows 0-4 and returns u0 on every thread of
 // the group. It holds the 128-lane early-exit vote (vote_all), so every
 // thread of the cluster calls it; groups past B (active false) vote "done"
-// and touch no memory.
-template <class M, int G, class O>
+// and touch no memory. With the discretization cache (the megastep only:
+// `cio` its arrays, the tag std::true_type) section 3 takes one branch per
+// 128-lane group:
+// every stage rebuilt when the group's largest drift exceeds the tolerance
+// or its largest age reaches cache_max_age (max_all over the cluster;
+// groups past B add 0 to both), else the shift.
+template <class M, int G, class O, bool CACHE = false>
 __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool active,
                            const float (&x0)[M::NX], const VehParams& pv, const Lane& xref,
-                           const Lane& ws, const O& op, const Grp<G>& gr, float (&u0)[NU]) {
+                           const Lane& ws, const O& op, const Grp<G>& gr, float (&u0)[NU],
+                           const CacheIO* cio = nullptr,
+                           std::bool_constant<CACHE> = std::bool_constant<false>{}) {
   constexpr int NX = M::NX, NA = M::NA, RA = (NA + G - 1) / G;
   const int SB = P.B, N = P.N, g = gr.g;
   const WsLayout<M> W(N);
@@ -675,10 +772,19 @@ __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool 
   float x0a[NA] = {};
   Resid acc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 
+  float drift = 0.0f;
   if (active) {
     rho = P.rho[b];
     rinv = 1.0f / rho;
-    prepare_g(P, b, W, ws, op, pv, x0, xref, gr);
+    prepare_g<CACHE>(P, b, W, ws, op, pv, x0, xref, gr, cio, drift);
+  }
+  if constexpr (CACHE) {
+    const float d = max_all(drift);
+    const float age = max_all(active ? cio->age[b] : 0.0f);
+    const bool rebuild = d > cio->tol || age >= (float)cio->max_age;
+    if (active) cache_stages_g(P, b, W, ws, op, pv, *cio, rebuild, gr);
+  }
+  if (active) {
     factor_g(P, op, rho, gr);
     const Lane up = lane_of(P.uprev, b, SB);
 #pragma unroll

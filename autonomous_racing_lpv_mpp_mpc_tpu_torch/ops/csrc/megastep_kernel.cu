@@ -17,7 +17,15 @@
 // Frenet plant, on the group's first thread. An optional (N+1, 2, B) e_y
 // corridor (obstacle blocks evaluated on the host along the scheduled s)
 // replaces row 1's box in section 2; its pointer is null otherwise, and
-// the ADMM loop never reads it. With early exit the cluster
+// the ADMM loop never reads it. With the discretization cache
+// (SolverConfig.cache_build, its own instantiation: CACHE) the group core
+// takes the JAX kernel's shift-reuse branch per 128-lane cluster: the
+// drift of the new schedule from the cached one and the age, each a
+// cluster-wide maximum (max_all), decide between building every stage and
+// taking stage k + 1 of the old cache as stage k with only stage N-1 built
+// (group_core.cuh::cache_stages_g); the kernel reads the old cache and
+// writes a new one. The cache's pointers are null without it and the
+// uncached instantiation is the kernel as it was. With early exit the cluster
 // votes after each chunk (vote_all) and stops when all its 128 lanes have a
 // done-at: the 128-lane grouping of the TPU kernel. Lanes past B vote
 // "done" and touch no memory. The stage operands, iterate and linear terms
@@ -41,15 +49,16 @@ struct MegaParams {
   const float *x, *xref, *prm;   // (nx, B), (N+1, nx, B), (10, B)
   float *x_out, *ws;             // (nx, B), (ws_rows, B) per-lane workspace
   int n_sub, sim_tire, ws_rows;
+  CacheIO cache;                 // null pointers without the cache
 };
 
-constexpr int MEGA_PTRS = 20;
-constexpr int MEGA_INTS = 14;
+constexpr int MEGA_PTRS = 32;
+constexpr int MEGA_INTS = 15;
 
 // At most 168 registers, so that three blocks of 128 threads fit on an SM
 // where the shared memory allows it (the kinematic model at N=10); the
 // dynamic model fits in them without spills.
-template <class M, bool SM>
+template <class M, bool SM, bool CACHE>
 __global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid_constant__ MegaParams<M> P) {
   constexpr int NX = M::NX;
   const Grp<LANE_THREADS> gr;
@@ -69,7 +78,8 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid
     for (int i = 0; i < NX; ++i) x[i] = xl[i];
   }
   float u0[NU];
-  mpc_core_g(P.C, P.S, b, active, x, pv, lane_of(P.xref, bb, S), ws, op, gr, u0);
+  mpc_core_g(P.C, P.S, b, active, x, pv, lane_of(P.xref, bb, S), ws, op, gr, u0, &P.cache,
+             std::bool_constant<CACHE>{});
   if (!active || gr.g != 0) return;
   const Lane st = lane_of(P.C.stats, b, S);
   st[5] = 0.0f;
@@ -90,24 +100,59 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid
   for (int i = 0; i < NX; ++i) x_out[i] = x[i];
 }
 
+// The cached instantiations are compiled in their own translation unit
+// (megastep_cache_kernel.cu, which includes this file with
+// ARL_MEGASTEP_CACHED_TU defined), so that their nvcc runs beside this
+// one's and the build's wall time does not grow by theirs.
+template <class M, bool SM>
+int launch_megastep_cached(const MegaParams<M>& P, int grid, int smem, void* stream);
+
+#ifdef ARL_MEGASTEP_CACHED_TU
+template <class M, bool SM>
+int launch_megastep_cached(const MegaParams<M>& P, int grid, int smem, void* stream) {
+  return launch_clustered(megastep_kernel<M, SM, true>, P, grid, smem, stream);
+}
+
+template int launch_megastep_cached<Dynamic, true>(const MegaParams<Dynamic>&, int, int, void*);
+template int launch_megastep_cached<Dynamic, false>(const MegaParams<Dynamic>&, int, int, void*);
+template int launch_megastep_cached<Kinematic, true>(const MegaParams<Kinematic>&, int, int, void*);
+template int launch_megastep_cached<Kinematic, false>(const MegaParams<Kinematic>&, int, int, void*);
+
+}  // namespace arl
+#else
+template <class M, bool SM>
+int launch_megastep_as(const MegaParams<M>& P, int grid, int smem, void* stream) {
+  return P.cache.A ? launch_megastep_cached<M, SM>(P, grid, smem, stream)
+                   : launch_clustered(megastep_kernel<M, SM, false>, P, grid, smem, stream);
+}
+
 template <class M>
 int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int device,
                     void* stream) {
-  if (n_f != core_floats<M>()) return -1;
+  if (n_f != core_floats<M>() + 1) return -1;
   MegaParams<M> P{};
   CoreParams<M>& C = P.C;
+  CacheIO& K = P.cache;
   const float** in[] = {&P.x, &C.Xp, &C.Up, &C.sw, &C.lamw, &C.uprev, &C.rho, &P.xref,
                         &P.prm, &C.kappa, &C.taux, &C.eyb};
   float** out[] = {&P.x_out, &C.Xp_out, &C.Up_out, &C.s_out, &C.lam_out, &C.u0_out,
                    &C.stats, &P.ws};
+  const float** cache_in[] = {&K.A, &K.B, &K.Xs, &K.Us, &K.kap, &K.age};
+  float** cache_out[] = {&K.A_out, &K.B_out, &K.Xs_out, &K.Us_out, &K.kap_out, &K.age_out};
   int p = 0;
   for (auto q : in) *q = static_cast<const float*>(ptrs[p++]);
   for (auto q : out) *q = static_cast<float*>(ptrs[p++]);
+  int n_null = 0;
+  for (auto q : cache_in) n_null += (*q = static_cast<const float*>(ptrs[p++])) == nullptr;
+  for (auto q : cache_out) n_null += (*q = static_cast<float*>(ptrs[p++])) == nullptr;
+  if (n_null != 0 && n_null != 12) return -1;   // the whole cache or none of it
   int ops_smem = 0, smem = 0;
   int* ints[] = {&C.B, &C.N, &C.n_cells, &P.n_sub, &C.max_iter, &C.check, &C.early_exit,
-                 &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows, &ops_smem, &smem};
+                 &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows, &ops_smem, &smem,
+                 &K.max_age};
   for (int i = 0; i < MEGA_INTS - 1; ++i) *ints[i] = iv[i];
   read_core_floats(C, fv);
+  K.tol = fv[core_floats<M>()];
   if (!make_sel(C, P.S)) return -1;
   if (P.ws_rows != WsLayout<M>(C.N).total) return -2;
   if (smem != (ops_smem ? BLOCK_LANES * OpsLayout<M>(C.N).total * 4 : 0)) return -2;
@@ -115,16 +160,18 @@ int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int de
     return -3;
   cudaSetDevice(device);
   const int grid = (C.B + BLOCK - 1) / BLOCK * CLUSTER;
-  return ops_smem ? launch_clustered(megastep_kernel<M, true>, P, grid, smem, stream)
-                  : launch_clustered(megastep_kernel<M, false>, P, grid, smem, stream);
+  return ops_smem ? launch_megastep_as<M, true>(P, grid, smem, stream)
+                  : launch_megastep_as<M, false>(P, grid, smem, stream);
 }
 
 }  // namespace arl
 
-// C entry: device pointers (the corridor, the last input, may be null),
-// float and int parameters in the order of
-// ops/megastep_kernel.py::_megastep_cuda (the last three ints: operands in
-// shared memory, its bytes per block, the model: 0 dynamic, 1 kinematic).
+// C entry: device pointers (the corridor, the last input, may be null;
+// then the cache's six inputs and six outputs, all null without the
+// cache), float and int parameters in the order of
+// ops/megastep_kernel.py::_megastep_cuda (the floats end with
+// cache_drift_tol; the last four ints: operands in shared memory, its bytes
+// per block, cache_max_age, the model: 0 dynamic, 1 kinematic).
 // Returns -1 on an operand-count mismatch, -2 on a workspace- or
 // shared-memory-size mismatch, -3 on a bad size or model, -4 if the card
 // cannot hold one cluster of the shape, else the CUDA error of the launch.
@@ -138,3 +185,4 @@ extern "C" int arl_megastep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
     default: return -3;
   }
 }
+#endif  // ARL_MEGASTEP_CACHED_TU

@@ -1,5 +1,6 @@
 """Megastep: the whole receding-horizon control step for every scenario in
-one kernel launch (kernel 2; CUDA source ``csrc/megastep_kernel.cu``).
+one kernel launch (kernel 2; CUDA source ``csrc/megastep_kernel.cu``, whose
+cached instantiations ``csrc/megastep_cache_kernel.cu`` builds).
 
 Replaces the JAX package's ``ops/megastep_kernel.py::_megastep_kernel``
 (Pallas, launched by ``megastep``). Per lane, in the kernel's sections:
@@ -28,6 +29,19 @@ terminal disables: obstacles on the fast path. On the card the kernel runs
 the group-cooperative tracker core of the fused kernel and the racestep, in
 their launch shape (``fused_kernel.launch_shape``).
 
+Discretization cache (``SolverConfig.cache_build``, the JAX kernel's
+shift-reuse branch): the schedule shifts one stage per step, so stage k's
+matrices can be last step's stage k+1 and only stage N-1 is built anew. A
+:class:`MegaCache` (``megacache_init``) holds the stages, the schedule
+each was built at and the steps since the last full build; a 128-lane
+group rebuilds all N stages when the drift of its new schedule from the
+cached one (:func:`cache_drift_plain`) exceeds ``cache_drift_tol`` or its
+age reaches ``cache_max_age``, and shifts otherwise. The decision takes
+the maxima over the group's lanes below B only; the JAX kernel's last
+block also sees lane 0 through its padding copies, so at a B that is no
+multiple of 128 and above it, the two can decide the last group
+differently.
+
 :func:`megastep_plain` is the plain PyTorch version (batch-last); the
 wrapper :func:`megastep` takes it for CPU tensors and launches the kernel
 for CUDA tensors. The carry stays batch-last across steps.
@@ -47,6 +61,7 @@ from ..solver.admm import _RHO_MAX, _RHO_MIN, _RHO_TOL
 from ..track.track import Track
 from . import _cuda
 from .fused_kernel import (
+    GROUP,
     MODELS,
     TIRES,
     MegaConsts,
@@ -83,6 +98,102 @@ class MegaCarry(NamedTuple):
     rho: torch.Tensor      # (B,)
 
 
+class MegaCache(NamedTuple):
+    """Discretization cache (``SolverConfig.cache_build``), batch-last: the
+    discrete stage matrices, the schedule each stage was built at, and the
+    steps since the group's last full build. The JAX package's cache holds
+    the augmented stages (N, na, na, B) and (N, na, NU, B); their (nx, nx)
+    and (nx, NU) top blocks are these (``convert.mega_cache``)."""
+
+    A: torch.Tensor      # (N, nx, nx, B) Ad of each stage
+    B: torch.Tensor      # (N, nx, NU, B) Bd
+    Xs: torch.Tensor     # (N, nx, B) the scheduled states each stage was built at
+    Us: torch.Tensor     # (N, NU, B)
+    kap: torch.Tensor    # (N, B)
+    age: torch.Tensor    # (1, B) steps since the last full build
+
+
+# drift scales of the cache signature (the JAX kernel's x_scl / u_scl):
+# one per state channel, None for s (the stages see s only through kappa,
+# which has its own term), then the inputs and kappa
+_CACHE_X_SCALE = {"dynamic": (1.0, 0.5, 2.0, 0.5, None, 0.5), "kinematic": (1.0, 0.5, None, 0.5)}
+_CACHE_U_SCALE = (0.3, 2.0)
+_CACHE_KAP_SCALE = 0.5
+
+
+def megacache_init(cfg: MPCConfig, scfg: SolverConfig, B: int, device=None) -> MegaCache:
+    """Empty cache on ``device`` (``None``: the CUDA card): the zero
+    signature and the saturated age make the first step build every stage."""
+    kw = dict(dtype=torch.float32, device=resolve_device(device))
+    nx, _ = model_dims(cfg.model)
+    N = cfg.N
+    return MegaCache(A=torch.zeros((N, nx, nx, B), **kw), B=torch.zeros((N, nx, NU, B), **kw),
+                     Xs=torch.zeros((N, nx, B), **kw), Us=torch.zeros((N, NU, B), **kw),
+                     kap=torch.zeros((N, B), **kw),
+                     age=torch.full((1, B), float(scfg.cache_max_age), **kw))
+
+
+def _group_max(v: torch.Tensor) -> torch.Tensor:
+    """(B,) of non-negative values -> each lane's maximum over its 128-lane
+    group (lanes past B take no part)."""
+    B = v.shape[0]
+    n_g = -(-B // GROUP)
+    pad = v.new_zeros(n_g * GROUP)
+    pad[:B] = v
+    return pad.reshape(n_g, GROUP).amax(dim=1).repeat_interleave(GROUP)[:B]
+
+
+def cache_drift_plain(cfg: MPCConfig, Xs: torch.Tensor, Us: torch.Tensor, kap: torch.Tensor,
+                      cache: MegaCache) -> torch.Tensor:
+    """(B,) drift of each lane's 128-lane group: over the stages k < N-1,
+    the largest |Xs[k] - cache.Xs[k+1]|, |Us[k] - cache.Us[k+1]| and
+    |kap[k] - cache.kap[k+1]|, each channel divided by its scale.
+    Xs (>= N, nx, B), Us (N, NU, B), kap (>= N, B): this step's schedule."""
+    N = cfg.N
+    xc = [c for c, sc in enumerate(_CACHE_X_SCALE[cfg.model]) if sc is not None]
+    diff = torch.cat([(Xs[:N - 1, xc] - cache.Xs[1:, xc]).abs(), (Us[:N - 1] - cache.Us[1:]).abs(),
+                      (kap[:N - 1] - cache.kap[1:]).abs()[:, None]], dim=1)     # (N-1, terms, B)
+    # a true division by a tensor: a Python-scalar divisor may become a
+    # product with its reciprocal on the card, one rounding off the kernel's
+    scale = torch.tensor([_CACHE_X_SCALE[cfg.model][c] for c in xc] + list(_CACHE_U_SCALE)
+                         + [_CACHE_KAP_SCALE], dtype=torch.float32, device=Xs.device)
+    lane = (diff / scale[:, None]).amax(dim=(0, 1)) if N > 1 else torch.zeros_like(kap[0])
+    return _group_max(lane)
+
+
+def _shifted_schedule(x_now: torch.Tensor, carry):
+    """This step's schedule: Xs = [x, X_pred[2:N], X_pred[N]] (N+1, nx, B),
+    Us = [U_pred[1:N-1], U_pred[N-1]] (N, NU, B)."""
+    Xs = torch.cat([x_now[None], carry.X_pred[2:], carry.X_pred[-1:]], dim=0)
+    Us = torch.cat([carry.U_pred[1:], carry.U_pred[-1:]], dim=0)
+    return Xs, Us
+
+
+def _megacache_drift(cfg: MPCConfig, track: Track, carry: MegaCarry, cache: MegaCache) -> torch.Tensor:
+    """(B,) the drift that the megastep's next step from ``carry`` sees in
+    each lane's 128-lane group (:func:`cache_drift_plain` on its schedule):
+    the group rebuilds where it exceeds ``cache_drift_tol``."""
+    Xs, Us = _shifted_schedule(carry.x, carry)
+    s_idx, _ = model_s_ey(cfg.model)
+    return cache_drift_plain(cfg, Xs, Us, _kap_lookup(track, carry.x.device)(Xs[:, s_idx]), cache)
+
+
+def _cache_stages(cfg: MPCConfig, scfg: SolverConfig, Xs, Us, kap, Ad, Bd, cache: MegaCache):
+    """The cache's branch per 128-lane group: every stage from this step's
+    build (Ad, Bd (N, nx, ., B)) where the group rebuilds, else the cached
+    stages shifted one back with stage N-1 from the build. Returns (Ad, Bd,
+    new_cache)."""
+    N = cfg.N
+    drift = cache_drift_plain(cfg, Xs, Us, kap, cache)
+    rebuild = (drift > scfg.cache_drift_tol) | (_group_max(cache.age[0]) >= float(scfg.cache_max_age))
+    shift = lambda old, new: torch.cat([old[1:], new[N - 1:N]], dim=0)
+    pick = lambda old, new: torch.where(rebuild, new, shift(old, new))
+    sig = (Ad, Bd, Xs[:N], Us, kap[:N])
+    Ad, Bd, Xc, Uc, kc = (pick(o, n) for o, n in zip(cache[:5], sig))
+    age = torch.where(rebuild, torch.zeros_like(cache.age), cache.age + 1.0)
+    return Ad, Bd, MegaCache(A=Ad, B=Bd, Xs=Xc, Us=Uc, kap=kc, age=age)
+
+
 def _check_supported(cfg: MPCConfig, scfg: SolverConfig, cache, eyb=None, B: int = 0):
     if eyb is not None and tuple(eyb.shape) != (cfg.N + 1, 2, B):
         raise ValueError(f"eyb has shape {tuple(eyb.shape)}, expected ({cfg.N + 1}, 2, {B})")
@@ -90,8 +201,18 @@ def _check_supported(cfg: MPCConfig, scfg: SolverConfig, cache, eyb=None, B: int
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.linearization != "lpv" or cfg.discretization != "expm":
         raise NotImplementedError("the megastep builds LPV stages with the Van Loan expm")
-    if cache is not None or scfg.cache_build:
-        raise NotImplementedError("discretization caching (cache_build) is not ported")
+    if bool(scfg.cache_build) != (cache is not None):
+        raise ValueError("megastep: scfg.cache_build needs a MegaCache (megacache_init) threaded "
+                         "through the steps, and a MegaCache needs scfg.cache_build")
+    if cache is not None:
+        nx, _ = model_dims(cfg.model)
+        N = cfg.N
+        want = {"A": (N, nx, nx, B), "B": (N, nx, NU, B), "Xs": (N, nx, B), "Us": (N, NU, B),
+                "kap": (N, B), "age": (1, B)}
+        for name, shape in want.items():
+            if tuple(getattr(cache, name).shape) != shape:
+                raise ValueError(f"megastep: cache.{name} has shape "
+                                 f"{tuple(getattr(cache, name).shape)}, expected {shape}")
     if scfg.max_iter < 1:
         raise ValueError("megastep: max_iter must be >= 1")
 
@@ -147,7 +268,7 @@ def _kap_lookup(track: Track, device):
 
 
 def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: dict, kap_at,
-                   carry, xref: torch.Tensor, k: MegaConsts, eyb=None):
+                   carry, xref: torch.Tensor, k: MegaConsts, eyb=None, cache=None):
     """The tracker step of the kernels, sections 1-8, in plain PyTorch:
     schedule shift, curvature + bounds, LPV + Van Loan, warm start, Riccati
     factor, ADMM (with the 128-lane early exit), residuals / rho, accept or
@@ -157,9 +278,11 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
     ``x_now`` (nx, B) is the state the step starts from, ``pv`` the
     per-lane parameter rows (mu may be an estimate), ``carry`` anything
     with the warm-start fields of :class:`MegaCarry`, ``xref`` (N+1, nx, B),
-    ``eyb`` an optional (N+1, 2, B) e_y corridor for row 1. Returns (X_pred,
-    U_pred, s, lam, u0 (NU, B), diag (5, B): r_prim, r_dual, converged,
-    rho_next, iters)."""
+    ``eyb`` an optional (N+1, 2, B) e_y corridor for row 1, ``cache`` a
+    :class:`MegaCache` (then section 3 takes the cache's branch). Returns
+    (X_pred, U_pred, s, lam, u0 (NU, B), diag (5, B): r_prim, r_dual,
+    converged, rho_next, iters), and the new cache after them when one is
+    given."""
     N, dt = cfg.N, float(cfg.dt)
     nx, _ = model_dims(cfg.model)
     s_idx, ey_idx = model_s_ey(cfg.model)
@@ -170,8 +293,7 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
     rho = carry.rho
 
     # 1. shift schedule
-    Xs = torch.cat([x_now[None], carry.X_pred[2:], carry.X_pred[-1:]], dim=0)   # (N+1, nx, B)
-    Us = torch.cat([carry.U_pred[1:], carry.U_pred[-1:]], dim=0)              # (N, NU, B)
+    Xs, Us = _shifted_schedule(x_now, carry)                                   # (N+1, nx, B), (N, NU, B)
 
     # 2. curvature + bounds per stage
     kap = kap_at(Xs[:, s_idx])                                                 # (N+1, B)
@@ -198,6 +320,12 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
                           dt=dt, tire=cfg.tire, model=cfg.model)
     A_s = Aa.permute(2, 0, 1, 3)                                               # (N, na, na, B)
     B_s = Ba.permute(2, 0, 1, 3)                                               # (N, na, NU, B)
+    if cache is not None:
+        Ad, Bd, new_cache = _cache_stages(cfg, scfg, Xs, Us, kap, A_s[:, :nx, :nx], B_s[:, :nx],
+                                          cache)
+        A_s = torch.zeros_like(A_s)
+        A_s[:, :nx, :nx] = Ad
+        B_s = torch.cat([Bd, B_s[:, nx:]], dim=1)
     xr = xref.clone()
     xr[:, 0] = torch.minimum(xr[:, 0], ub[:, 0])
     q0 = torch.cat([-(k.qw[None, :, None] * xr), torch.zeros((N + 1, NU, B), **f32)], dim=1)
@@ -236,6 +364,8 @@ def mpc_core_plain(cfg: MPCConfig, scfg: SolverConfig, x_now: torch.Tensor, pv: 
     X_pred = torch.where(usable, Xsol[:, :nx], Xs)
     U_pred = torch.where(usable, Usol, Us)
     diag = torch.stack([r_prim, r_dual, converged.to(torch.float32), rho_next, iters])
+    if cache is not None:
+        return X_pred, U_pred, s_f, lam_f, u0, diag, new_cache
     return X_pred, U_pred, s_f, lam_f, u0, diag
 
 
@@ -244,17 +374,18 @@ def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
                    eyb=None, cache=None):
     """Plain PyTorch version of the megastep kernel (any device): the
     shared tracker core, then ``n_sub`` Euler sub-steps of the Frenet plant
-    of ``cfg.model``; ``eyb`` an optional (N+1, 2, B) e_y corridor.
+    of ``cfg.model``; ``eyb`` an optional (N+1, 2, B) e_y corridor,
+    ``cache`` the :class:`MegaCache` that ``scfg.cache_build`` needs.
 
     Returns (new_carry, u0 (NU, B), diag (5, B): r_prim, r_dual, converged,
-    rho_next, iters)."""
+    rho_next, iters), and the new cache after them with ``cache_build``."""
     _check_supported(cfg, scfg, cache, eyb, carry.x.shape[-1])
     dev = carry.x.device
     pv = unpack_params(prm)
     kap_at = _kap_lookup(track, dev)
-    X_pred, U_pred, s_f, lam_f, u0, diag = mpc_core_plain(
-        cfg, scfg, carry.x, pv, kap_at, carry, megastep_refs(cfg, x_ref, carry),
-        _make_consts(cfg, scfg, dev), eyb)
+    core = mpc_core_plain(cfg, scfg, carry.x, pv, kap_at, carry, megastep_refs(cfg, x_ref, carry),
+                          _make_consts(cfg, scfg, dev), eyb, cache)
+    X_pred, U_pred, s_f, lam_f, u0, diag = core[:6]
 
     # 9. plant: fine Euler sub-steps
     s_idx, _ = model_s_ey(cfg.model)
@@ -264,7 +395,7 @@ def megastep_plain(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.
         x = x + h * f_model_bl(cfg.model, pv, x, u0, kap_at(x[s_idx]), sim_tire or cfg.tire)
 
     new = MegaCarry(x=x, X_pred=X_pred, U_pred=U_pred, s=s_f, lam=lam_f, u_prev=u0, rho=diag[3])
-    return new, u0, diag
+    return (new, u0, diag) + core[6:]
 
 
 _TRACK_INPUTS = weakref.WeakKeyDictionary()   # Track -> {device: (kappa, [length, 1/ds])}
@@ -301,8 +432,10 @@ def megastep(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.Tensor
     tensors, one CUDA kernel launch for CUDA tensors.
 
     ``eyb`` (N+1, 2, B), optional, replaces the e_y row's bounds per stage.
+    With ``scfg.cache_build`` pass (and thread) a :class:`MegaCache`.
     Returns (new_carry, u0 (NU, B), diag (5, B): r_prim, r_dual,
-    converged, rho_next, iters — the done-at iteration)."""
+    converged, rho_next, iters — the done-at iteration), and the new cache
+    after them with ``cache_build``."""
     dev = carry.x.device
     if dev.type == "cpu":
         return megastep_plain(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, cache)
@@ -337,18 +470,27 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
     stats = torch.empty((8, B), **kw)
     ws_rows = core_workspace(N, cfg.model)
     ws = torch.empty((ws_rows, B), **kw)
+    # the cache's pointers are null without one; with one the kernel reads
+    # the old cache and writes a new one (the shift reads stage k+1 where
+    # another thread writes stage k, so the two never alias)
+    cache_out = None if cache is None else MegaCache(*(torch.empty(t.shape, **kw) for t in cache))
+    cache_ptrs = [None] * 12 if cache is None else [t.contiguous() for t in cache] + list(cache_out)
     _cuda.launch(
         "arl_megastep",
         [t if t is None else t.contiguous() for t in ins]
-        + [out.x, out.X_pred, out.U_pred, out.s, out.lam, out.u_prev, stats, ws],
-        core_floats(cfg, scfg),
+        + [out.x, out.X_pred, out.U_pred, out.s, out.lam, out.u_prev, stats, ws] + cache_ptrs,
+        core_floats(cfg, scfg) + (float(scfg.cache_drift_tol),),
         [B, N, track.n_cells, n_sub, scfg.max_iter, max(1, scfg.check_termination),
          int(scfg.early_exit), TIRES[cfg.tire], TIRES[sim_tire], int(cfg.kappa_speed_cap),
-         ws_rows, *launch_shape(N, cfg.model).ints(), MODELS[cfg.model]],
+         ws_rows, *launch_shape(N, cfg.model).ints(), int(scfg.cache_max_age), MODELS[cfg.model]],
     )
-    megastep.launches += 1
+    if cache is None:
+        megastep.launches += 1
+    else:
+        megastep.cached_launches += 1
     new = out._replace(rho=stats[3])
-    return new, out.u_prev, stats[:5]
+    return (new, out.u_prev, stats[:5]) + (() if cache is None else (cache_out,))
 
 
-megastep.launches = 0   # kernel launches (CPU calls never count)
+megastep.launches = 0          # kernel launches without a cache (CPU calls never count)
+megastep.cached_launches = 0   # launches of the cached instantiation

@@ -166,6 +166,9 @@ def _check_race_supported(cfg: MPCConfig, scfg: SolverConfig, x_ref, eyb, B: int
         raise NotImplementedError("the composed step needs the dynamic model")
     if isinstance(x_ref, RefTable) and x_ref.vx.dim() == 2 and x_ref.vx.shape[0] != B:
         raise ValueError(f"racestep: per-lane tables have {x_ref.vx.shape[0]} lanes, the carry {B}")
+    if scfg.cache_build:
+        raise NotImplementedError("the racestep builds every stage: it has no discretization cache "
+                                  "(cache_build is the megastep's)")
     _check_supported(cfg, scfg, None, eyb, B)
 
 

@@ -10,7 +10,8 @@ each against its plain PyTorch version on the card (the megastep and the
 racestep also with an obstacle corridor, the racestep with per-lane
 reference tables and at the race presets' N=12 for B=4096 and B=1, the
 megastep as the lap learner runs it: N=10, Pacejka, per-lane references),
-then drives ten main paths and the planner:
+then drives ten main paths, the planner, the cached megastep and the
+experiment command line:
 
 - the batched receding-horizon tracker of ``bench.py``: B=4096 scenarios of
   the dynamic bicycle on the racetrack, N=20, dt=1/30, constant reference
@@ -80,14 +81,31 @@ then drives ten main paths and the planner:
   tire="pacejka")`` and a Pacejka plant, ``SolverConfig(max_iter=50,
   early_exit=True, check_termination=2)``, ``LapLearnConfig(gain=0.7,
   dv_max=0.8, a_lat_frac=0.78)``: one megastep launch per step with
-  per-lane references sampled on the host from per-lane tables.
+  per-lane references sampled on the host from per-lane tables;
+- ``[mega-cache]``: the first path with the megastep's discretization
+  cache (``cache_build`` at its defaults, tolerance 0.3 and age 8), K=500
+  launches of the cached instantiation: its first step bitwise the
+  uncached kernel's, the kernel one step (fixed count) from plain's carry
+  and cache at six points of the run and on BASELINE config 1's kinematic
+  grid (u 2e-4, x 5e-4, equal ages: the same branch in every group), the
+  reuse share, |du| against the uncached kernel forked from the same
+  carry, and the device time split into forced rebuilds and shifts;
+- ``[cli]``: the experiment command line in-process (``cli.main``): ``list``
+  names the JAX package's 12 presets, and the presets run on their routes
+  on the card (config1, config1_planner, config2, config3, adaptive and
+  learn on the fused kernel, config4 fused and on the solver-only kernel,
+  latency fused, race_sweep, race_learn and ``race`` (T=240) on the
+  racestep, ``race`` (T=30) and config1 (T=30) on the plain route), each
+  gated on its healthy numbers and on its kernels' launches.
 
 The new paths build their tracks, grids and references without naming a
 device: the port's default device is the card. The ``kernels`` line has
 one record per kernel instantiation (the megastep, the fused kernel and the
-solver-only kernel each for the dynamic and the kinematic model, and the
-racestep), each with its launches on all of its main paths (the megastep:
-paths 1, 4 and 9; the racestep: paths 2, 5, 6, 7, 7b and 8) and its bound
+solver-only kernel each for the dynamic and the kinematic model, the
+racestep, and the megastep with the discretization cache), each with its
+launches on all of its main paths (the megastep: paths 1, 4 and 9; the
+cached megastep: ``[mega-cache]``; the racestep: paths 2, 5, 6, 7, 7b and
+8) and its bound
 on the H100: the larger of the operations the algorithm needs over 67
 TFLOP/s f32 and its bytes over 3.35 TB/s, counted at this run's shapes and
 executed iterations (see the counters below). Every record's ``ms`` is
@@ -110,8 +128,8 @@ script to that checkout's root and run it there with ``--ab``. It skips
 the ``[shape]`` lines (the group kernels' launch shape, which older
 checkouts lack), the solver-only kernel at na=6, the corridor and per-lane
 table phases, the fifth path, the racestep at N=12, the lap learner's
-megastep, the planner and paths 6-9 (which they do not take), and runs
-every other phase. A one-call A/B of a change
+megastep, the planner, paths 6-9, ``[mega-cache]`` and ``[cli]`` (which
+they do not take), and runs every other phase. A one-call A/B of a change
 runs the parent's copy and the change's script in turn (parent, change,
 change, parent) and compares their lines.
 """
@@ -134,6 +152,7 @@ K_MAIN = 500
 K_ADMM_ROUTE = 5
 K_RACE_CMP = 5
 K_FUSED_WARM = 50
+WITNESS_B, WITNESS_K = 256, 40   # [mega-cache]'s slice of the CPU witness (tests/test_torch_cache.py)
 K_OBS_CMP = 3          # racestep steps held against plain with eyb and per-lane tables
 OBS_SEGMENT = 60       # steps between block refreshes on main path 5
 K_OBS_SEGMENTS = 9
@@ -336,14 +355,16 @@ def iteration_ops(S, N, c=None):
     return N * (back + fwd + aff) + back_n + z_n + SCALAR_OPS["converged"]
 
 
-def core_ops(S, tire, N, iters):
+def core_ops(S, tire, N, iters, builds=None):
     """group_core.cuh::mpc_core_g: per stage the curvature, friction cap,
-    reference clamp, linear cost and warm-start clip; N stage builds; the
-    folded cost; N factor stages; `iters` iterations; residuals and rho.
-    The limp-home branch, which no converged lane takes, is not counted."""
+    reference clamp, linear cost and warm-start clip; `builds` stage builds
+    (N; fewer with the discretization cache); the folded cost; N factor
+    stages; `iters` iterations; residuals and rho. The limp-home branch,
+    which no converged lane takes, is not counted."""
     nx = S.A.shape[0]
     per_stage = SCALAR_OPS["kap_at"] + SCALAR_OPS["stage_cap"] + nx + 2 * NC
-    return (N * stage_build_ops(S, tire) + (N + 1) * per_stage + fold_ops(S)
+    builds = N if builds is None else builds
+    return (builds * stage_build_ops(S, tire) + (N + 1) * per_stage + fold_ops(S)
             + N * factor_ops(S.Aa, S.Ba) + iters * iteration_ops(S, N) + SCALAR_OPS["core_tail"])
 
 
@@ -406,6 +427,27 @@ def mega_bytes(nx, N, eyb=False):
     curvature table is added per call)."""
     carry = nx + (N + 1) * nx + 2 * N + 2 * 6 * (N + 1) + 2
     return 4 * (2 * carry + 1 + (N + 1) * nx + 10 + 8 + (2 * (N + 1) if eyb else 0))
+
+
+def cache_floats(nx, N):
+    """The megastep's discretization cache per lane, as the kernel writes
+    it: Ad, Bd, the signature (Xs, Us, kappa) of N stages and the age."""
+    return N * (nx * nx + nx * NU + nx + NU + 1) + 1
+
+
+def cache_read_floats(nx, N, reuse):
+    """What the cached kernel needs of the old cache per lane
+    (group_core.cuh): the age and the signature of stages 1..N-1 but s for
+    the drift, on every lane; stages 1..N-1 of Ad, Bd and s for the shift,
+    on the reuse share of lanes. Stage 0 is never read."""
+    return (N - 1) * ((nx - 1) + NU + 1) + 1 + reuse * (N - 1) * (nx * nx + nx * NU + 1)
+
+
+def cache_drift_ops(nx, N):
+    """group_core.cuh::prepare_g's drift over the stages k < N-1: per term
+    (nx - 1 states, NU inputs, kappa) a subtraction, an absolute value, a
+    division and a maximum; then the group's two maxima and the decision."""
+    return (N - 1) * (nx + NU) * 4 + 3
 
 
 def race_bytes(N, eyb=False, per_lane=False):
@@ -580,6 +622,7 @@ def ptxas_usage(build_log, *parts):
 
 
 def main():
+    t_script = time.perf_counter()
     quick = "--quick" in sys.argv[1:]
     ab = "--ab" in sys.argv[1:]
     try:
@@ -1190,11 +1233,14 @@ def main():
     def reset_launches():
         for w in wrappers.values():
             w.launches = 0
+        megastep.cached_launches = 0
 
     def read_launches(label, expected):
-        """Each wrapper's count since the reset; fails unless the path's
+        """Each wrapper's count since the reset (the megastep's cached
+        instantiation as "megastep cached"); fails unless the path's
         kernels launched as `expected` and every other kernel not at all."""
         got = {k: w.launches for k, w in wrappers.items()}
+        got["megastep cached"] = megastep.cached_launches
         log(f"[{label}] launches {got}")
         for k, n in got.items():
             check(n == expected.get(k, 0), f"{label}: {k} launched {n} times, expected {expected.get(k, 0)}")
@@ -1265,6 +1311,162 @@ def main():
     check(conv_last >= 0.99, f"converged fraction over the last 100 steps {conv_last:.4f} < 0.99")
     check(min(conv_admm) >= 0.99, "admm route did not converge")
     check(progress > 0.0, "the cars did not advance")
+
+    # ---- 6b. [mega-cache]: main path 1 with the megastep's discretization
+    # cache (cache_build at its defaults: drift tolerance 0.3, max age 8) ----
+    mega_cache = None
+    if not ab:
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.megastep_kernel import (
+            _megacache_drift, megacache_init,
+        )
+
+        t_phase = time.perf_counter()
+        scfg_c = scfg.replace(cache_build=True)
+        scfg_cf = scfg_c.replace(early_exit=False)        # the fixed count of the comparisons
+        c0m = megastep_init(scen.params, cfg, track, scen.x0)
+        # the first step: the saturated age forces a rebuild, bitwise the uncached step
+        cu, uu, _ = megastep(cfg, scfg, track, prm, x_ref, c0m, n_sub=4)
+        cc, uc, _, k1 = megastep(cfg, scfg_c, track, prm, x_ref, c0m, n_sub=4,
+                                 cache=megacache_init(cfg, scfg_c, B))
+        torch.cuda.synchronize()
+        first_bitwise = torch.equal(uu, uc) and torch.equal(cu.x, cc.x)
+        log(f"[mega-cache] first step: u and x bitwise equal to the uncached kernel: {first_bitwise}, "
+            f"ages {sorted(set(k1.age.flatten().tolist()))}")
+        check(first_bitwise and bool((k1.age == 0).all()), "[mega-cache] first step differs from the uncached kernel")
+
+        # the path: K_MAIN cached steps of the bench protocol
+        snap_steps = (1, 2, 3, 50, 250, K_MAIN - 1)
+        snaps = {}
+        reset_launches()
+        carc, kc = c0m, megacache_init(cfg, scfg_c, B)
+        conv_c = torch.empty(K_MAIN, device=dev)
+        done_c = torch.empty((K_MAIN, B), device=dev)
+        reuse_c = torch.empty(K_MAIN, device=dev)
+        for k in range(K_MAIN):
+            if k in snap_steps:
+                snaps[k] = (carc, kc)
+            if k == 1:
+                start.record()
+            carc, _, dgc, kc = megastep(cfg, scfg_c, track, prm, x_ref, carc, n_sub=4, cache=kc)
+            conv_c[k] = dgc[2].mean()
+            done_c[k] = dgc[4]
+            reuse_c[k] = (kc.age > 0).float().mean()
+        end.record()
+        torch.cuda.synchronize()
+        cache_ms = start.elapsed_time(end) / (K_MAIN - 1)
+        cache_launches = read_launches("mega-cache", {"megastep cached": K_MAIN})
+        held_c = [carc, kc]
+
+        def cache_step():
+            held_c[0], _, _, held_c[1] = megastep(cfg, scfg_c, track, prm, x_ref, held_c[0], n_sub=4,
+                                                  cache=held_c[1])
+
+        cache_dev_ms, cache_all_ms = step_device_ms(cache_step, 20, "megastep_kernel")
+        snap = snaps[250]
+        cache_plain_ms = cuda_time_ms(lambda: megastep_plain(cfg, scfg_c, track, prm, x_ref, snap[0], n_sub=4,
+                                                             cache=snap[1]), 3)
+        # where the time goes: one launch from step 250's carry and cache,
+        # uncached, cached, and cached with every group forced to rebuild
+        # (tolerance below 0) or to shift (no tolerance, no age limit)
+        forced = {"uncached": (scfg, None), "cached": (scfg_c, snap[1]),
+                  "rebuild": (scfg_c.replace(cache_drift_tol=-1.0), snap[1]),
+                  "shift": (scfg_c.replace(cache_drift_tol=float("inf"), cache_max_age=1 << 30), snap[1])}
+        split_ms = {name: kernel_ms(lambda: megastep(cfg, sc, track, prm, x_ref, snap[0], n_sub=4, cache=kk), 10,
+                                    "megastep_kernel")
+                    for name, (sc, kk) in forced.items()}
+
+        def one_step_checks(mcfg, mtrack, mprm, mref, states, label):
+            """The cached kernel and the plain version one step (fixed
+            count) from the same carry and cache, on every lane: (max |du|,
+            max |dx|, ages equal everywhere, smallest |drift - tol|)."""
+            du = dx = 0.0
+            same_age, margin = True, float("inf")
+            for k, (c_s, k_s) in states:
+                ck, uk, _, kk = megastep(mcfg, scfg_cf, mtrack, mprm, mref, c_s, n_sub=4, cache=k_s)
+                cp, up, _, kp = megastep_plain(mcfg, scfg_cf, mtrack, mprm, mref, c_s, n_sub=4, cache=k_s)
+                drift = _megacache_drift(mcfg, mtrack, c_s, k_s)
+                torch.cuda.synchronize()
+                du_k, dx_k = (uk - up).abs().max().item(), (ck.x - cp.x).abs().max().item()
+                eq = torch.equal(kk.age, kp.age)
+                m_k = (drift - scfg_c.cache_drift_tol).abs().min().item()
+                log(f"[mega-cache] {label} step {k}: max|du|={du_k:.3e} max|dx|={dx_k:.3e} ages equal {eq}, "
+                    f"groups rebuilding {(kp.age == 0).float().mean().item():.4f}, min |drift - tol| {m_k:.3e}")
+                du, dx, same_age, margin = max(du, du_k), max(dx, dx_k), same_age and eq, min(margin, m_k)
+            return du, dx, same_age, margin
+
+        du_c, dx_c, ages_c, margin_c = one_step_checks(cfg, track, prm, x_ref, sorted(snaps.items()), "dynamic")
+        check(du_c <= 2e-4 and dx_c <= 5e-4, f"[mega-cache] kernel beyond (2e-4, 5e-4) of plain: {du_c:.3e}, {dx_c:.3e}")
+        check(ages_c, "[mega-cache] kernel and plain took different branches")
+
+        # the kinematic model on BASELINE config 1's batched configuration
+        kfirst = megastep(kcfg, scfg, oval, kprm, kref, megastep_init(kscen.params, kcfg, oval, kscen.x0), n_sub=4)
+        kc_car = megastep_init(kscen.params, kcfg, oval, kscen.x0)
+        kc_cache = megacache_init(kcfg, scfg_c, B_MAIN)
+        ksnaps = []
+        for k in range(20):
+            if k in (1, 2, 5, 10, 19):
+                ksnaps.append((k, (kc_car, kc_cache)))
+            kc_car, ku, _, kc_cache = megastep(kcfg, scfg_c, oval, kprm, kref, kc_car, n_sub=4, cache=kc_cache)
+            if k == 0:
+                torch.cuda.synchronize()
+                kin_bitwise = torch.equal(ku, kfirst[1]) and torch.equal(kc_car.x, kfirst[0].x)
+        du_k, dx_k, ages_k, margin_k = one_step_checks(kcfg, oval, kprm, kref, ksnaps, "kinematic")
+        log(f"[mega-cache] kinematic: first step bitwise {kin_bitwise}, reuse share over 20 steps "
+            f"{(kc_cache.age > 0).float().mean().item():.4f} at the last")
+        check(kin_bitwise, "[mega-cache] kinematic first step differs from the uncached kernel")
+        check(du_k <= 2e-4 and dx_k <= 5e-4, f"[mega-cache] kinematic kernel beyond (2e-4, 5e-4) of plain")
+        check(ages_k, "[mega-cache] kinematic kernel and plain took different branches")
+
+        # per-step |du| against the uncached kernel forked from the same
+        # carry (the uncached carry threaded, the cache along with it)
+        car_f, k_f = c0m, megacache_init(cfg, scfg_c, B)
+        du_f = torch.empty((K_MAIN, B), device=dev)
+        reuse_slice = torch.empty(K_MAIN, device=dev)
+        for k in range(K_MAIN):
+            car_n, u_a, _ = megastep(cfg, scfg, track, prm, x_ref, car_f, n_sub=4)
+            _, u_b, _, k_f = megastep(cfg, scfg_c, track, prm, x_ref, car_f, n_sub=4, cache=k_f)
+            du_f[k] = (u_a - u_b).abs().amax(dim=0)
+            reuse_slice[k] = (k_f.age[0, :WITNESS_B] > 0).float().mean()
+            car_f = car_n
+        torch.cuda.synchronize()
+        du_step = du_f.amax(dim=1)
+        # the slice that tests/test_torch_cache.py::test_cache_quality_matches_jax
+        # computes on the CPU with the JAX kernel and the plain version:
+        # lanes 0-255 (groups 0 and 1), steps 1-40 of the fork
+        du_w = du_f[:WITNESS_K, :WITNESS_B]
+        reuse_w = reuse_slice[:WITNESS_K].mean().item()
+        q = lambda t, v: torch.quantile(t.flatten().float(), v).item()
+        conv_c_last = conv_c[-100:].mean().item()
+        reuse = reuse_c.mean().item()
+        finite_c = all(bool(torch.isfinite(t).all()) for t in (*carc, *kc))
+        mega_cache = {
+            "launches": cache_launches["megastep cached"], "ms": cache_ms, "device_ms": cache_dev_ms,
+            "device_ms_all": cache_all_ms, "plain_ms": cache_plain_ms, "max_abs_err": max(du_c, dx_c),
+            "kinematic_max_abs_err": max(du_k, dx_k), "reuse": reuse, "drift_margin": min(margin_c, margin_k),
+            "du_median": q(du_f, 0.5), "du_p95": q(du_f, 0.95), "du_max": du_f.max().item(),
+            "du_step_median": q(du_step, 0.5), "iters": executed_iters(done_c), "split_device_ms": split_ms,
+            "witness": {"reuse": reuse_w, "du_median": q(du_w, 0.5), "du_p95": q(du_w, 0.95),
+                        "du_max": du_w.max().item()}}
+        log(f"[mega-cache] K={K_MAIN} B={B} N={N_MAIN}: {cache_ms:.4f} ms/step events, device per step: megastep "
+            f"{cache_dev_ms:.4f} ms, every device operation {cache_all_ms:.4f} ms; uncached [main] {mega_ms:.4f} "
+            f"ms/step events, {main_dev_ms:.4f} ms device; plain {cache_plain_ms:.3f} ms/step ({card})")
+        log("[mega-cache] device ms per launch from step 250's carry: " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in split_ms.items()) + f" ({card})")
+        log(f"[mega-cache] reuse share {reuse:.4f}, converged {conv_c.mean().item():.4f} (last 100: "
+            f"{conv_c_last:.4f}), mean done-at {done_c.mean().item():.3f}/20, finite={finite_c}")
+        log(f"[mega-cache] per lane-step |du| against the uncached kernel forked from the same carry over "
+            f"{K_MAIN} steps: median {mega_cache['du_median']:.3e}, p95 {mega_cache['du_p95']:.3e}, max "
+            f"{mega_cache['du_max']:.3e} (per-step maxima: median {mega_cache['du_step_median']:.3e}); the TPU "
+            f"run's ~1e-6 / ~3e-3 / 1.7e-2 (PERF_TPU.md:276-281)")
+        w = mega_cache["witness"]
+        log(f"[mega-cache] lanes 0-{WITNESS_B - 1}, fork steps 1-{WITNESS_K} (the CPU witness's slice, "
+            f"tests/test_torch_cache.py): reuse {w['reuse']:.4f}, |du| median {w['du_median']:.3e}, p95 "
+            f"{w['du_p95']:.3e}, max {w['du_max']:.3e}")
+        log(f"[mega-cache] kernel vs plain: max|du,dx| {mega_cache['max_abs_err']:.3e} dynamic, "
+            f"{mega_cache['kinematic_max_abs_err']:.3e} kinematic, smallest |drift - tol| seen "
+            f"{mega_cache['drift_margin']:.3e}; phase wall {time.perf_counter() - t_phase:.1f} s")
+        check(finite_c, "[mega-cache] non-finite carry or cache")
+        check(conv_c_last >= 0.99, f"[mega-cache] converged (last 100) {conv_c_last:.4f} < 0.99")
 
     # ---- 7. main path 2: the composed deployment step ----
     run = make_racestep_scan(p_nom, rcfg, scfg, track, table, K_MAIN, mu_b, SIGMA)
@@ -1810,6 +2012,87 @@ def main():
         check(lap9["improvement"] > 0.25, f"[lap-learn] median improvement {lap9['improvement']:.4f} <= 0.25")
         check(lap9["ey_p99"] < 0.4, f"[lap-learn] |e_y| p99 {lap9['ey_p99']:.4f} >= 0.4")
 
+    # ---- 15. [cli]: the experiment command line (python -m ... run <preset>)
+    # in-process through cli.main, each result parsed from its JSON; each
+    # run's kernel launches counted like a main path's ----
+    if not ab:
+        import contextlib
+        import io
+
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch import cli
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.bench import run_preset
+
+        t_phase = time.perf_counter()
+
+        def cli_out(*argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(list(argv))
+            check(rc == 0, f"[cli] {' '.join(argv)} returned {rc}")
+            return buf.getvalue()
+
+        def cli_run(label, expected, *argv, fn=None):
+            """One preset run (the CLI's, or `fn`): its result, its wall time
+            and its launches, which must be `expected`."""
+            reset_launches()
+            t_run = time.perf_counter()
+            res = fn() if fn is not None else json.loads(cli_out("run", *argv))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            read_launches(f"cli {label}", expected)
+            log(f"[cli] {label} ({' '.join(argv) if argv else 'run_preset'}): {wall:.1f} s wall; "
+                + json.dumps({k: v for k, v in res.items() if k != "preset"}))
+            return res
+
+        names = sorted(line.split(":")[0] for line in cli_out("list").strip().splitlines())
+        jax_names = ["adaptive", "config1", "config1_planner", "config2", "config3", "config4", "config5",
+                     "latency", "learn", "race", "race_learn", "race_sweep"]
+        log(f"[cli] list: {names}")
+        check(names == jax_names, "[cli] list does not name the JAX package's 12 presets")
+
+        r = cli_run("config1 fused", {"fused": 400}, "config1", "backend=fused")
+        check(r["laps"] >= 1 and r["ey_max_m"] < 0.4 and r["converged_frac"] > 0.9,
+              "[cli] config1 fused: not a healthy lap (laps >= 1, |e_y| max < 0.4, converged > 0.9)")
+        r = cli_run("config2 fused", {"fused": 700}, "config2", "backend=fused")
+        check(r["laps"] >= 1 and r["ey_max_m"] < 0.4, "[cli] config2 fused: not a healthy lap")
+        r = cli_run("config3 fused", {"fused": 800}, "config3", "backend=fused")
+        lap_err = abs(r["lap_times_s"][0] / r["planner_lap_time_s"] - 1.0) if r["lap_times_s"] else float("inf")
+        log(f"[cli] config3: first lap {r['lap_times_s'][:1]} s against the plan's {r['planner_lap_time_s']} s "
+            f"({lap_err:.3f} off)")
+        check(r["planner_sqp_converged"] and lap_err < 0.15,
+              "[cli] config3 fused: the planner did not converge or the lap is not within 15% of the plan")
+        r = cli_run("config1_planner fused", {"fused": 500}, "config1_planner", "backend=fused")
+        lap_err = abs(r["lap_times_s"][-1] / r["planner_lap_time_s"] - 1.0) if r["lap_times_s"] else float("inf")
+        check(r["planner_sqp_converged"] and lap_err < 0.15 and r["ey_max_m"] < 0.4 and r["converged_frac"] > 0.9,
+              "[cli] config1_planner fused: the plan did not converge, the last lap is not within 15% of it, "
+              "|e_y| max >= 0.4 or converged <= 0.9")
+        r = cli_run("adaptive fused", {"fused": 800}, "adaptive", "backend=fused")
+        check(abs(r["mu_hat_final"] - 0.5) < 0.05 and r["ey_rms_adapted_m"] < r["ey_rms_frozen_m"],
+              "[cli] adaptive fused: mu-hat not within 0.05 of 0.5 or no gain over the frozen arm")
+        t_lap = int(1.4 * float(oval_track(ds=0.05).length) / (1.0 * MPCConfig(N=12).dt))
+        r = cli_run("learn fused", {"fused": 6 * t_lap}, "learn", "backend=fused")
+        check(r["improvement_pct"] > 3 and r["ey_max_m"] < 0.4, "[cli] learn fused: no improvement or |e_y| >= 0.4")
+        for route, kernel in (("fused", "fused"), ("admm", "admm")):
+            r = cli_run(f"config4 {route}", {kernel: 20}, "config4", f"backend={route}")
+            check(r["converged_frac"] >= 0.99, f"[cli] config4 {route}: converged {r['converged_frac']} < 0.99")
+        r = cli_run("latency fused", {"fused": 71}, "latency", "backend=fused")
+        check(0 < r["p50_ms"] <= r["p99_ms"] and r["on_device_step_ms"] > 0, "[cli] latency: bad times")
+        r = cli_run("race_sweep", {"racestep": 600}, "race_sweep")
+        check(r["converged_frac"] >= 0.95, f"[cli] race_sweep: converged {r['converged_frac']} < 0.95")
+        r = cli_run("race_learn", {"racestep": 8 * 300}, "race_learn")
+        check(r["converged_frac"] >= 0.95 and r["progress_m_last_window"] > r["progress_m_first_window"],
+              "[cli] race_learn: converged < 0.95 or no progress gained over the windows")
+        r = cli_run("race mega", {"racestep": 240}, fn=lambda: run_preset("race", backend="mega", T=240))
+        check(np.isfinite(r["mu_hat_final"]) and r["ey_max_m"] < 0.45,
+              "[cli] race mega: non-finite, or |e_y| max >= 0.45 (tests/test_race.py:47)")
+        r = cli_run("race plain", {}, "race", "T=30")
+        check(np.isfinite(r["mu_hat_final"]) and r["ey_max_m"] < 0.45,
+              "[cli] race on the plain route: non-finite, or |e_y| max >= 0.45 (tests/test_race.py:47)")
+        r = cli_run("config1 plain", {}, "config1", "T=30")
+        check(r["converged_frac"] > 0.9 and r["ey_max_m"] < 0.4, "[cli] config1 on the plain route: unhealthy")
+        cli_wall = time.perf_counter() - t_phase
+        log(f"[cli] phase wall {cli_wall:.1f} s ({card})")
+
     # ---- bounds: this run's shapes, data and iteration counts ----
     # the admm kernel's stage matrices are its inputs: their patterns are
     # read from this run's QPs (A = Aa, B = Ba there)
@@ -1859,6 +2142,18 @@ def main():
         it["megastep_kernel+eyb"] = it["megastep_kernel"]
         per_lane["megastep_kernel+eyb"] = (per_lane["megastep_kernel"][0], mega_bytes(6, N_MAIN, eyb=True))
         shared["megastep_kernel+eyb"] = shared["megastep_kernel"]
+    if mega_cache is not None:
+        # [mega-cache]: the cached instantiation at the measured reuse share
+        # (a reusing group builds one stage of N), the drift, what it needs
+        # of the old cache at that share, and the new cache written
+        it["megastep_kernel cached"] = mega_cache["iters"]
+        builds = N_MAIN * (1.0 - mega_cache["reuse"]) + mega_cache["reuse"]
+        per_lane["megastep_kernel cached"] = (
+            core_ops(S_dyn, cfg.tire, N_MAIN, it["megastep_kernel cached"], builds=builds)
+            + cache_drift_ops(6, N_MAIN) + plant_ops(S_dyn, cfg.tire, 4),
+            mega_bytes(6, N_MAIN) + 4 * (cache_read_floats(6, N_MAIN, mega_cache["reuse"])
+                                         + cache_floats(6, N_MAIN)))
+        shared["megastep_kernel cached"] = shared["megastep_kernel"]
     lanes = {}
     if sweep is not None:
         # paths 6 and 7: the racestep at N=12 on a planned table, B=4096 and B=1
@@ -1899,7 +2194,7 @@ def main():
               for k, (o, b) in per_lane.items()}
     log("[bound] per launch on the H100 at B=4096 unless named (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
         f"{k} {bounds[k][0]:.4f} ms ({bounds[k][1]}: {per_lane[k][0]:,.0f} operations and "
-        f"{per_lane[k][1]:,} B per lane at {it[k]:.2f} executed iterations)" for k in per_lane))
+        f"{per_lane[k][1]:,.0f} B per lane at {it[k]:.2f} executed iterations)" for k in per_lane))
 
     src = f"{PKG}/ops/csrc"
     ref_pkg = "autonomous_racing_lpv_mpp_mpc_tpu/ops"
@@ -1922,7 +2217,12 @@ def main():
          fused_bench["launches"]["fused"], fused_err["dynamic", "fixed"], *fused_iso["dynamic"]),
         ("fused_kernel_kinematic", f"{src}/fused_kernel.cu + {gcore}", "fused_kernel.py:429",
          fused_cfg1["launches"]["fused"], fused_err["kinematic", "fixed"], *fused_iso["kinematic"]),
-    ]
+    ] + ([] if mega_cache is None else [
+        ("megastep_kernel cached", f"{src}/megastep_cache_kernel.cu + {src}/megastep_kernel.cu + {gcore}",
+         "megastep_kernel.py:1081",
+         mega_cache["launches"], mega_cache["max_abs_err"], mega_cache["ms"], mega_cache["device_ms"],
+         mega_cache["plain_ms"]),
+    ])
     # no single PyTorch call computes a batched Riccati / ADMM solve: library_ms is null
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": f"{ref_pkg}/{tpu}", "launches": n,
@@ -1983,6 +2283,12 @@ def main():
         mega_rec["eyb"] = {"max_abs_err": mega_eyb["fixed"], "device_ms": mega_eyb["dev_ms"],
                            "box_device_ms": mega_eyb["box_dev_ms"],
                            "bound_ms": bounds["megastep_kernel+eyb"][0]}
+    log(f"[total] chip_smoke.py wall {time.perf_counter() - t_script:.1f} s, the kernels' build included")
+    if mega_cache is not None:
+        # the cached instantiation's path figures beside its record's
+        next(k for k in kernels if k["name"] == "megastep_kernel cached").update(
+            {key: mega_cache[key] for key in ("reuse", "kinematic_max_abs_err", "drift_margin", "du_median",
+                                             "du_p95", "du_max", "split_device_ms")})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

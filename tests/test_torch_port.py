@@ -88,8 +88,13 @@ def test_wrappers_route_by_device():
         admm_kernel_solve(qp._replace(x0=meta(qp.x0)), scfg)
     with pytest.raises(ValueError, match="expected cpu or cuda"):
         megastep(cfg, scfg, track, prm, x_ref, MegaCarry(*(meta(t) for t in mc)))
-    with pytest.raises(NotImplementedError):
-        megastep(cfg, scfg.replace(cache_build=True), track, prm, x_ref, mc)
+    # the discretization cache: cache_build without a MegaCache raises; with
+    # one the CPU call returns the new cache and counts no launch
+    scfg_c = scfg.replace(cache_build=True)
+    with pytest.raises(ValueError, match="MegaCache"):
+        megastep(cfg, scfg_c, track, prm, x_ref, mc)
+    out = megastep(cfg, scfg_c, track, prm, x_ref, mc, cache=mk.megacache_init(cfg, scfg_c, scen.batch, "cpu"))
+    assert len(out) == 4 and isinstance(out[3], mk.MegaCache) and megastep.cached_launches == 0
     # the e_y corridor operand: the box's own bounds change nothing, a
     # narrower corridor does, and a misshapen one raises
     box = torch.tensor([-cfg.bounds.ey_max, cfg.bounds.ey_max]).reshape(1, 2, 1)
