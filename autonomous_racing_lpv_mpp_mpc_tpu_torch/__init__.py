@@ -10,11 +10,14 @@ an obvious counterpart:
 - ``engine``   — horizon scheduling and block-structured QP assembly.
 - ``solver``   — Riccati factor/solve, batched OSQP-semantics ADMM and
                  its production pipeline (equilibrate, polish, certificate).
-- ``loop``     — receding-horizon controller, closed loop, EKF, friction
-                 RLS, world-frame plant and the composed race loop.
+- ``loop``     — receding-horizon controller, closed loop, EKF, MHE,
+                 friction RLS, the world-frame loop and the composed race
+                 loop.
 - ``planner``  — the MPP planner, online replanning, reference tables
                  and opponents.
-- ``parallel`` — scenario grids.
+- ``parallel`` — scenario grids and sweeps over a rank mesh
+                 (``torch.distributed``: one rank per card), the
+                 collectives, the horizon-sharded Riccati and ADMM.
 - ``ops``      — hand-written CUDA kernels (``ops/csrc``) with their plain
                  PyTorch versions beside them.
 - ``convert``  — hand JAX-package objects (as numpy arrays) to the port and
@@ -22,7 +25,9 @@ an obvious counterpart:
 
 Everything is float32. Where JAX ``vmap``s, the batch is a written-out
 dimension; where JAX ``lax.scan``s, this package loops in Python or runs a
-kernel. The package imports ``torch`` and numpy only.
+kernel; where JAX ``shard_map``s over a device mesh, each rank of a
+process group runs its shard. The package imports ``torch`` and numpy
+only.
 """
 
 import torch as _torch

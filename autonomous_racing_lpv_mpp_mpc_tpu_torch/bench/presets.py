@@ -17,8 +17,8 @@ plain versions on the CPU. What runs on the card depends on the route:
   PyTorch composition launched eagerly on the card, some 0.3 s a step for
   one car.
 
-``config5`` needs the sharded sweep and its multi-process harness, which
-the port does not have yet: it raises.
+``config5`` runs ``parallel.sharded_closed_loop`` on every rank of the
+process group: one process alone, or each rank of a ``torchrun`` launch.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from ..planner import plan_mpp
 from ..track import oval_track, racetrack
 from ..utils.metrics import as_numpy as _np
 from ..utils.metrics import lap_stats
+from ..utils.tree import tree_map
 
 # the race presets' own ``backend`` names, the JAX package's included
 _RACE_BACKENDS = {"xla": "plain", "plain": "plain", "mega": "mega"}
@@ -185,13 +186,86 @@ def config4(p: VehicleParams, scfg: SolverConfig, batch: int = 4096, steps: int 
 
 def config5(p: VehicleParams, scfg: SolverConfig, per_device: int = 128, T: int = 30,
             trials: int = 1, device=None, **kw) -> Dict:
-    """Mesh-wide sweep with collective metric reduction (all devices).
+    """Mesh-wide sweep with collective metric reduction (all ranks).
 
-    Not ported yet: it needs ``parallel``'s sharded closed loop and the
-    multi-process harness (ROADMAP Queue 1 #10)."""
-    raise NotImplementedError("config5 needs the sharded sweep (parallel.sharded_closed_loop) and "
-                              "its multi-process harness, which the port does not have yet "
-                              "(ROADMAP Queue 1 #10)")
+    ``per_device`` scenarios per rank (one rank per card) on the racetrack,
+    ``MPCConfig(N=14)``, a Pacejka plant, through
+    ``parallel.sharded_closed_loop`` on ``scfg.backend``: one process at
+    world size 1, or every rank of a ``torchrun`` launch. Each rank builds
+    the same global grid and runs its contiguous slice.
+
+    On more than one rank the weak-scaling efficiency is reported too: each
+    rank also times its own slice with no cross-rank collective, on a mesh
+    of itself alone, concurrently with the other ranks (so that contention
+    is matched); efficiency = max over ranks of t_local / max of t_global.
+    With ``trials > 1`` the local and global legs interleave and each leg's
+    minimum is taken (contention only adds time)."""
+    from ..parallel import make_mesh
+
+    _warn_unused("config5", kw)
+    dev = resolve_device(device)
+    own_group = not torch.distributed.is_initialized()
+    mesh = make_mesh(device=dev)
+    try:
+        return _config5_run(p, scfg, mesh, dev, per_device, T, trials)
+    finally:
+        if own_group:       # the group this call started ends with it
+            torch.distributed.destroy_process_group()
+
+
+def _config5_run(p, scfg, mesh, dev, per_device, T, trials) -> Dict:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel import scenario_sharding, sharded_closed_loop
+    from ..parallel.collectives import barrier, pmax_scalar
+
+    n_dev = mesh.size()
+    cfg = MPCConfig(N=14, model="dynamic")
+    track = racetrack(device=dev)
+    B = per_device * n_dev
+    scen = make_scenario_grid(p, cfg, n_ey=min(64, B), n_mu=max(1, B // 64), vx0=1.5, device=dev)
+    Bm = (scen.batch // n_dev) * n_dev      # a multiple of the mesh
+    scen = tree_map(lambda a: a[:Bm], scen)
+    local = scenario_sharding(mesh, scen)
+    x_ref = constant_refs(cfg, 1.8, device=dev)
+
+    def timed_run(mesh_):
+        sharded_closed_loop(mesh_, local, cfg, scfg, track, x_ref, T=T, sim_tire="pacejka")   # warm
+        _sync(dev)
+        barrier()                                            # lockstep start
+        t0 = time.perf_counter()
+        _log, m = sharded_closed_loop(mesh_, local, cfg, scfg, track, x_ref, T=T, sim_tire="pacejka")
+        _sync(dev)
+        return m, time.perf_counter() - t0
+
+    # every rank's wall: the slowest rank's is the figure
+    wall_max = lambda t: float(pmax_scalar(torch.tensor(t, dtype=torch.float64, device=dev)))
+    metrics, dt_wall = timed_run(mesh)
+    out = {
+        "devices": n_dev,
+        "processes": n_dev,
+        "batch": Bm,
+        "total_solves": Bm * T,
+        "solves_per_s": round(Bm * T / dt_wall, 1),
+        "ey_rms_m": round(float(metrics.ey_rms), 4),
+        "converged_frac": round(float(metrics.converged_frac), 3),
+        "mean_progress_m": round(float(metrics.mean_progress), 2),
+    }
+    if n_dev > 1:
+        # one single-rank group per rank, made by every rank in the same order
+        solo = [torch.distributed.new_group([r]) for r in range(n_dev)]
+        mesh_loc = DeviceMesh.from_group(solo[mesh.get_rank()], dev.type, mesh_dim_names=("scenarios",))
+        loc_walls, glb_walls = [wall_max(timed_run(mesh_loc)[1])], [wall_max(dt_wall)]
+        for _ in range(trials - 1):
+            glb_walls.append(wall_max(timed_run(mesh)[1]))
+            loc_walls.append(wall_max(timed_run(mesh_loc)[1]))
+        dt_loc, dt_glb = min(loc_walls), min(glb_walls)
+        out["solves_per_s"] = round(Bm * T / dt_glb, 1)
+        out["solves_per_s_local"] = round(local.batch * T / dt_loc, 1)
+        out["local_wall_s_max"] = round(dt_loc, 4)
+        out["trials"] = trials
+        out["scaling_efficiency"] = round(dt_loc / dt_glb, 3)
+    return out
 
 
 def latency(p: VehicleParams, scfg: SolverConfig, batch: int = 128, reps: int = 20,

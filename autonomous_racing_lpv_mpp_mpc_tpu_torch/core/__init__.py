@@ -2,6 +2,7 @@ from .config import (
     MPCBounds,
     MPCConfig,
     MPCWeights,
+    MeshConfig,
     MPPConfig,
     SolverConfig,
     VehicleParams,
@@ -13,6 +14,7 @@ __all__ = [
     "MPCBounds",
     "MPCConfig",
     "MPCWeights",
+    "MeshConfig",
     "MPPConfig",
     "SolverConfig",
     "VehicleParams",

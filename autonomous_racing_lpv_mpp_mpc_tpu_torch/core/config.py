@@ -174,3 +174,15 @@ class MPPConfig(_Replace):
         if model == "kinematic":   # (vx, e_psi, s, e_y)
             return cls(model="kinematic", q_trust=(0.0, 5.0, 0.0, 5.0), **kw)
         raise ValueError(model)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig(_Replace):
+    """Rank-mesh layout for scenario-parallel / horizon-parallel runs:
+    dim "scenarios" splits the scenario batch, dim "horizon" the horizon's
+    stage blocks (``parallel.mesh.from_config``)."""
+
+    scenario_axis: str = "scenarios"
+    horizon_axis: str = "horizon"
+    n_scenario: int = 1
+    n_horizon: int = 1

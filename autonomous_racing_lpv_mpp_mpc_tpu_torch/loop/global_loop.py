@@ -1,17 +1,33 @@
 """World-frame plant and Frenet estimation (the JAX package's
 ``loop/global_loop.py``): the plant lives in (vx, vy, wz, X, Y, psi) and
-the controller's Frenet state is recovered from it each step. States are
-the last axis, any leading batch dims; vehicle parameters are floats or
-tensors that broadcast against the leading shape."""
+the controller's Frenet state is recovered from it each step, as the
+reference recovers it with ``getLocalPosition``; optionally the measured
+state is corrupted with Gaussian noise and filtered by the EKF before it
+reaches the MPC. States are the last axis, any leading batch dims; vehicle
+parameters are floats or tensors that broadcast against the leading shape.
+
+The Frenet-native loop (``closed_loop.py``) is the fast path; this one is
+the fidelity path."""
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
-from ..core.config import MPCConfig, VehicleParams
+from ..core.config import MPCConfig, SolverConfig, VehicleParams
 from ..models.dynamics import VX_EPS
 from ..models.tires import axle_loads, tire_force
-from ..track.track import Track, global_to_frenet, global_to_frenet_windowed
+from ..track.track import Track, frenet_to_global, global_to_frenet, global_to_frenet_windowed
+from .estimator import ekf_init, ekf_step
+from .mpc import mpc_init, mpc_step_batched
+
+
+class GlobalLog(NamedTuple):
+    Xg: torch.Tensor         # (T, B, 6) world plant states (vx, vy, wz, X, Y, psi)
+    Xf: torch.Tensor         # (T, B, 6) the Frenet states fed to the MPC
+    U: torch.Tensor          # (T, B, 2)
+    converged: torch.Tensor  # (T, B)
 
 
 def f_global(p: VehicleParams, xg, u, tire: str = "linear"):
@@ -55,3 +71,56 @@ def estimate_frenet(track: Track, xg, s_hint=None):
     else:
         s, ey, epsi = global_to_frenet(track, xg[..., 3], xg[..., 4], xg[..., 5])
     return torch.stack([xg[..., 0], xg[..., 1], xg[..., 2], epsi, s, ey], dim=-1)
+
+
+def closed_loop_global(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,
+                       x0_frenet: torch.Tensor, x_ref, T: int, n_sub: int = 10,
+                       sim_tire: Optional[str] = None, noise_sigma=None,
+                       generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None,
+                       use_ekf: bool = False) -> GlobalLog:
+    """World-frame plant, Frenet estimate, optional noisy measurement and
+    EKF, then the tracker, for T steps of B cars x0_frenet (B, 6), or of
+    one car (6,) (the JAX package's form: no batch dim in the log).
+
+    Each step: the Frenet estimate of the world state (windowed around the
+    last step's s), plus ``noise_sigma`` (6,) times a standard normal draw;
+    the EKF (``use_ekf``) with Q = 1e-4 I and R = diag(sigma^2) (1e-4 I
+    without noise); ``mpc_step_batched`` on ``scfg.backend`` (the fused
+    kernel for "fused" on the card); the world plant at ``n_sub`` Euler
+    sub-steps. The draws come from ``generator`` (a ``torch.Generator``
+    on the states' device), or from ``noise`` (T, B, 6) (or (T, 6) for one
+    car) when given: standard normal draws made elsewhere."""
+    if cfg.model != "dynamic":
+        raise ValueError("the world-frame loop runs the dynamic model")
+    if x0_frenet.dim() == 1:
+        log = closed_loop_global(p, cfg, scfg, track, x0_frenet[None], x_ref, T, n_sub, sim_tire,
+                                 noise_sigma, generator, None if noise is None else noise[:, None], use_ekf)
+        return GlobalLog(*(t[:, 0] for t in log))
+    x0 = x0_frenet.to(torch.float32)
+    kw = dict(dtype=torch.float32, device=x0.device)
+    B, nx = x0.shape
+    Xw, Yw, psiw = frenet_to_global(track, x0[:, 4], x0[:, 5], x0[:, 3])
+    xg = torch.stack([x0[:, 0], x0[:, 1], x0[:, 2], Xw, Yw, psiw], dim=-1)
+    carry = mpc_init(p, cfg, track, x0)
+    ekf = ekf_init(x0)
+    sigma = None if noise_sigma is None else torch.as_tensor(noise_sigma, **kw)
+    Qn = 1e-4 * torch.eye(nx, **kw)
+    Rn = torch.diag(sigma ** 2) if sigma is not None else 1e-4 * torch.eye(nx, **kw)
+    u_prev = torch.zeros((B, 2), **kw)
+    s_prev = x0[:, 4]
+    outs = []
+    for t in range(T):
+        z = estimate_frenet(track, xg, s_hint=s_prev)
+        if sigma is not None:
+            draw = noise[t].to(**kw) if noise is not None else torch.randn(z.shape, generator=generator, **kw)
+            z = z + sigma * draw
+        if use_ekf:
+            ekf = ekf_step(p, cfg, track, ekf, u_prev, z, Qn, Rn)
+            xf = ekf.x
+        else:
+            xf = z
+        u, carry, diag = mpc_step_batched(p, cfg, scfg, track, xf, x_ref, carry)
+        xg = global_plant_step(p, cfg, xg, u, n_sub=n_sub, sim_tire=sim_tire)
+        u_prev, s_prev = u, xf[:, 4]
+        outs.append((xg, xf, u, diag.converged))
+    return GlobalLog(*(torch.stack(col) for col in zip(*outs)))

@@ -33,7 +33,9 @@ carry's device seeded with it) or ``generator=``. The streams differ from
 ``jax.random``'s, so noisy runs agree with the JAX package in distribution,
 not sample for sample; tests hand both sides the same numpy noise.
 
-Not ported yet: ``checkpointed_race_sweep`` (orbax).
+:func:`checkpointed_race_sweep` runs the racestep sweep in chunks and saves
+its state after each (``utils.record.SweepCheckpoint``, ``torch.save`` in
+place of orbax), the noise generator's state among it.
 """
 
 from __future__ import annotations
@@ -297,6 +299,45 @@ def mega_race_sweep(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track:
     _, (Xg, Xf, U, mu_hat, conv, _z, _it, _r) = run(carry0, _generator(dev, seed, generator))
     bf = lambda a: a.movedim(-1, 0)            # (T, ., B) -> (B, T, .)
     return BatchedRaceLog(Xg=bf(Xg), Xf=bf(Xf), U=bf(U), mu_hat=bf(mu_hat), converged=bf(conv))
+
+
+def checkpointed_race_sweep(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track, table: RefTable,
+                            x0_b: torch.Tensor, T: int, mu_true_b, checkpoint_dir: str, save_every: int = 50,
+                            mu0: float = 1.0, noise_sigma=None, seed: int = 0):
+    """The resumable composed sweep on the racestep: ``T`` steps of
+    :func:`mega_race_sweep`'s protocol in chunks of ``save_every``. After
+    each chunk the sweep state (the batch-last carry: truth, EKF mean and
+    covariance, RLS state, tracker warm start; the noise generator's state;
+    the running sums) is saved; a call on a directory that holds a step
+    resumes from the latest, and ends on the state of an uninterrupted run
+    bit for bit. Returns (metrics dict, steps run by this call)."""
+    from ..ops.racestep_kernel import RaceMegaCarry, racestep_init
+    from ..utils.record import SweepCheckpoint
+
+    x0_b = x0_b.to(torch.float32)
+    dev = x0_b.device
+    B = x0_b.shape[0]
+    sig = np.zeros(6, np.float32) if noise_sigma is None else np.asarray(noise_sigma, np.float32)
+    mu_b = torch.as_tensor(mu_true_b, dtype=torch.float32, device=dev)
+    run = make_racestep_scan(p.replace(mu=float(mu0)), cfg, scfg, track, table, save_every, mu_b, sig)
+    gen = _generator(dev, seed, None)
+    zeros = torch.zeros((B,), dtype=torch.float32, device=dev)
+
+    def chunk(state):
+        gen.set_state(state["rng"])
+        carry, (_Xg, Xf, _U, _mu, conv, _z, _it, _r) = run(RaceMegaCarry(**state["carry"]), gen)
+        acc = state["acc"]
+        return {"carry": carry._asdict(), "rng": gen.get_state(),
+                "acc": {"conv": acc["conv"] + conv.sum(dim=0), "ey_sq": acc["ey_sq"] + Xf[:, 5].pow(2).sum(dim=0)}}
+
+    state0 = {"carry": racestep_init(p, cfg, track, x0_b, mu0)._asdict(), "rng": gen.get_state(),
+              "acc": {"conv": zeros, "ey_sq": zeros}}
+    state, steps = SweepCheckpoint(checkpoint_dir).run(state0, chunk, T, save_every)
+    carry = RaceMegaCarry(**state["carry"])
+    metrics = {"n_scenarios": float(B), "converged_frac": float(state["acc"]["conv"].mean()) / T,
+               "ey_rms": float(torch.sqrt(state["acc"]["ey_sq"] / T).mean()),
+               "mu_hat_mean": float(carry.fr[0].mean()), "mean_progress": float(carry.ekx[4].mean())}
+    return metrics, steps
 
 
 class MegaRaceLearnLog(NamedTuple):

@@ -109,44 +109,59 @@ def _reverse_scan(combine, elems):
     return elems
 
 
+def value_elements(dyn: LQRDynamics, cost: LQRCost):
+    """The stages' value-composition elements (A, C, J) with the cross
+    terms M removed by completing the square (u = w - R^{-1} M' x), each
+    (..., N, nx, nx): stage k maps P -> J + A'(P^{-1} + C)^{-1} A. The
+    terminal row of ``cost.Q`` is not used."""
+    Rinv = torch.linalg.inv_ex(_sym(cost.R))[0]
+    MRinv = cost.M @ Rinv
+    F = dyn.A - dyn.B @ Rinv @ _t(cost.M)
+    Xq = _sym(cost.Q[..., :-1, :, :] - MRinv @ _t(cost.M))
+    C = dyn.B @ Rinv @ _t(dyn.B)
+    return F, C, Xq
+
+
+def combine_value(e_later, e_earlier):
+    """Compose two value-composition elements (A, C, J), the later in time
+    first; broadcasts over leading dims."""
+    Ai, Ci, Ji = e_earlier
+    Aj, Cj, Jj = e_later
+    nx = Ai.shape[-1]
+    I = torch.eye(nx, dtype=Ai.dtype, device=Ai.device)
+    # (I + Ci Jj)^{-1} [Ai, Ci] in one solve, (I + Jj Ci)^{-1} Jj
+    M1C = torch.linalg.solve_ex(I + Ci @ Jj, torch.cat([Ai, Ci], dim=-1))[0]
+    M1, MC = M1C[..., :nx], M1C[..., nx:]
+    M2 = torch.linalg.solve_ex(I + Jj @ Ci, Jj)[0]
+    return (Aj @ M1, _sym(Aj @ MC @ _t(Aj) + Cj), _sym(_t(Ai) @ M2 @ Ai + Ji))
+
+
+def factors_from_value(dyn: LQRDynamics, cost: LQRCost, V_next) -> RiccatiFactors:
+    """The stage gains from each stage's next value Hessian V_{k+1}
+    (..., N, nx, nx)."""
+    Huu = cost.R + _t(dyn.B) @ V_next @ dyn.B
+    Hux = _t(cost.M) + _t(dyn.B) @ (V_next @ dyn.A)
+    Huu_inv = torch.linalg.inv_ex(_sym(Huu))[0]
+    K = -(Huu_inv @ Hux)
+    return _factors(K, Huu_inv, Hux, _mv(V_next, dyn.c), dyn)
+
+
 def riccati_factor_assoc(dyn: LQRDynamics, cost: LQRCost) -> RiccatiFactors:
     """Parallel-in-horizon factorization (parallel dynamic programming,
     Sarkka & Garcia-Fernandez): each stage is the map
 
         P -> J + A'(P^{-1} + C)^{-1} A
 
-    on the value Hessian, stored as its (A, C, J); the reverse scan of
-    their compositions gives every suffix value Hessian V_{k+1} at once.
-    The cross terms M are removed first by completing the square
-    (u = w - R^{-1} M' x); the gains are then formed stage by stage, as in
-    the JAX package."""
-    nx = dyn.A.shape[-1]
-    kw = dict(dtype=dyn.A.dtype, device=dyn.A.device)
-    Rinv = torch.linalg.inv_ex(_sym(cost.R))[0]
-    MRinv = cost.M @ Rinv
-    F = dyn.A - dyn.B @ Rinv @ _t(cost.M)
-    Xq = _sym(cost.Q[..., :-1, :, :] - MRinv @ _t(cost.M))
-    C = dyn.B @ Rinv @ _t(dyn.B)
+    on the value Hessian, stored as its (A, C, J) (:func:`value_elements`);
+    the reverse scan of their compositions (:func:`combine_value`) gives
+    every suffix value Hessian V_{k+1} at once. The gains are then formed
+    stage by stage, as in the JAX package."""
+    F, C, Xq = value_elements(dyn, cost)
     zero = torch.zeros_like(F[..., :1, :, :])
     elems = (torch.cat([F, zero], dim=-3), torch.cat([C, zero], dim=-3),
              torch.cat([Xq, cost.Q[..., -1:, :, :]], dim=-3))
-    I = torch.eye(nx, **kw)
-
-    def combine(e_later, e_earlier):
-        Ai, Ci, Ji = e_earlier
-        Aj, Cj, Jj = e_later
-        # (I + Ci Jj)^{-1} [Ai, Ci] in one solve, (I + Jj Ci)^{-1} Jj
-        M1C = torch.linalg.solve_ex(I + Ci @ Jj, torch.cat([Ai, Ci], dim=-1))[0]
-        M1, MC = M1C[..., :nx], M1C[..., nx:]
-        M2 = torch.linalg.solve_ex(I + Jj @ Ci, Jj)[0]
-        return (Aj @ M1, _sym(Aj @ MC @ _t(Aj) + Cj), _sym(_t(Ai) @ M2 @ Ai + Ji))
-
-    V_next = _reverse_scan(combine, elems)[2][..., 1:, :, :]
-    Huu = cost.R + _t(dyn.B) @ V_next @ dyn.B
-    Hux = _t(cost.M) + _t(dyn.B) @ (V_next @ dyn.A)
-    Huu_inv = torch.linalg.inv_ex(_sym(Huu))[0]
-    K = -(Huu_inv @ Hux)
-    return _factors(K, Huu_inv, Hux, _mv(V_next, dyn.c), dyn)
+    V_next = _reverse_scan(combine_value, elems)[2][..., 1:, :, :]
+    return factors_from_value(dyn, cost, V_next)
 
 
 def riccati_factor(dyn: LQRDynamics, cost: LQRCost, method: str = "scan") -> RiccatiFactors:

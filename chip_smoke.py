@@ -10,8 +10,8 @@ each against its plain PyTorch version on the card (the megastep and the
 racestep also with an obstacle corridor, the racestep with per-lane
 reference tables and at the race presets' N=12 for B=4096 and B=1, the
 megastep as the lap learner runs it: N=10, Pacejka, per-lane references),
-then drives ten main paths, the planner, the cached megastep and the
-experiment command line:
+then drives ten main paths, the planner, the cached megastep, the
+experiment command line and the parallel layer:
 
 - the batched receding-horizon tracker of ``bench.py``: B=4096 scenarios of
   the dynamic bicycle on the racetrack, N=20, dt=1/30, constant reference
@@ -96,16 +96,40 @@ experiment command line:
   learn on the fused kernel, config4 fused and on the solver-only kernel,
   latency fused, race_sweep, race_learn and ``race`` (T=240) on the
   racestep, ``race`` (T=30) and config1 (T=30) on the plain route), each
-  gated on its healthy numbers and on its kernels' launches.
+  gated on its healthy numbers and on its kernels' launches;
+- the parallel layer, on a mesh of one NCCL rank: ``[config5]`` BASELINE
+  config 5 at its own scale, 131,072 scenarios (``make_scenario_grid(64,
+  2048, vx0=1.5)``, N=14, the racetrack, a Pacejka plant, T=30, the CLI's
+  ``SolverConfig(max_iter=60)``) through ``sharded_closed_loop`` on the
+  fused route and through ``sharded_mega_loop``, lanes 0-4095 bitwise an
+  unsharded run of the same lanes (the megastep's every lane and metrics
+  also bitwise an unsharded run of all lanes), the fused kernel and the
+  megastep each held against its plain version one step from the sweep's
+  own carry at 131,072 lanes, the peak device memory, and the
+  ``config5`` preset through the command line; ``[sharded]``
+  ``sharded_race_sweep`` (path 2's protocol, T=100) against
+  ``mega_race_sweep``, ``sharded_solve_step`` on the solver-only kernel
+  against ``mpc_step_batched`` and ``horizon_sharded_solve`` (one horizon
+  rank, N=20) against ``admm_solve``; ``[ckpt]`` ``checkpointed_sweep``
+  (B=4096, T=100, chunks of 50, the fused protocol) killed after its first
+  chunk and resumed, against an uninterrupted run, bit for bit;
+  ``[global]`` ``closed_loop_global`` (B=4096 cars on the oval, the fused
+  route, the EKF, sensor noise, T=250) gated on a lap, |e_y| < 0.2 and
+  converged > 0.9 on every lane, the fused kernel at its N=16 held against
+  its plain version from the loop's carry halfway; ``[mhe]`` ``mhe_step`` over 4,096 noisy
+  trajectories (W=8, 2 Gauss-Newton passes, T=90) gated on beating 0.6 x
+  the sensor's rmse, lanes 0-15 again on the CPU.
 
 The new paths build their tracks, grids and references without naming a
 device: the port's default device is the card. The ``kernels`` line has
 one record per kernel instantiation (the megastep, the fused kernel and the
 solver-only kernel each for the dynamic and the kinematic model, the
 racestep, and the megastep with the discretization cache), each with its
-launches on all of its main paths (the megastep: paths 1, 4 and 9; the
-cached megastep: ``[mega-cache]``; the racestep: paths 2, 5, 6, 7, 7b and
-8) and its bound
+launches on all of its main paths (the megastep: paths 1, 4 and 9 and
+``[config5]``; the cached megastep: ``[mega-cache]``; the racestep: paths
+2, 5, 6, 7, 7b and 8 and ``[sharded]``; the fused kernel: paths 3 and 4,
+``[config5]``, ``[ckpt]`` and ``[global]``; the solver-only kernel: the
+admm steps and ``[sharded]``) and its bound
 on the H100: the larger of the operations the algorithm needs over 67
 TFLOP/s f32 and its bytes over 3.35 TB/s, counted at this run's shapes and
 executed iterations (see the counters below). Every record's ``ms`` is
@@ -128,8 +152,9 @@ script to that checkout's root and run it there with ``--ab``. It skips
 the ``[shape]`` lines (the group kernels' launch shape, which older
 checkouts lack), the solver-only kernel at na=6, the corridor and per-lane
 table phases, the fifth path, the racestep at N=12, the lap learner's
-megastep, the planner, paths 6-9, ``[mega-cache]`` and ``[cli]`` (which
-they do not take), and runs every other phase. A one-call A/B of a change
+megastep, the planner, paths 6-9, ``[mega-cache]``, ``[cli]`` and the
+parallel layer's phases (which they do not take), and runs every other
+phase. A one-call A/B of a change
 runs the parent's copy and the change's script in turn (parent, change,
 change, parent) and compares their lines.
 """
@@ -171,6 +196,17 @@ N_LAP = 10             # path 9: lap learning at 4,096 cars (tests/test_lap_lear
 N_LAPS = 6
 T_LAP = 420
 K_LAP_CMP = 5          # steps of the lap learner's megastep held against plain
+B_CONFIG5 = 131072     # [config5]: BASELINE config 5's scale on one card (bench/presets.py::config5)
+T_CONFIG5 = 30
+CHUNK5 = 5             # steps of the checkpointed sweep's chunk measured at that scale
+T_SHARD = 100          # [sharded]: the composed protocol through sharded_race_sweep
+T_CKPT, CKPT_EVERY = 100, 50   # [ckpt]: checkpointed_sweep
+CKPT_SAVES = 3                 # saves of its last state timed
+T_GLOBAL = 250         # [global]: closed_loop_global (tests/test_global_loop.py's protocol)
+GLOBAL_SIGMA = (0.02, 0.01, 0.02, 0.01, 0.01, 0.005)
+T_MHE = 90             # [mhe]: tests/test_mhe.py's noisy protocol, W=8, n_gn=2
+MHE_SIGMA = (0.05, 0.02, 0.05, 0.02, 0.02, 0.02)
+MHE_CPU_LANES = 16
 # the TPU run's quality numbers (PERF_TPU.md:117-133, 121-126, 548-553,
 # 585-600), printed beside ours
 TPU_SWEEP = {"corr": 0.956, "converged": 0.989, "ey_p99": 0.114}
@@ -2093,6 +2129,351 @@ def main():
         cli_wall = time.perf_counter() - t_phase
         log(f"[cli] phase wall {cli_wall:.1f} s ({card})")
 
+    # ---- 16. the parallel layer, the world-frame loop and MHE,
+    # each path driven with the counts set to 0 just before it and read just
+    # after: [config5] BASELINE config 5 at its scale on the one card (world
+    # size 1, NCCL), [sharded] the sharded entry points against their
+    # unsharded paths, [ckpt] the checkpointed sweep killed and resumed,
+    # [global] the world-frame loop, [mhe] the moving-horizon estimator ----
+    par = None
+    if not ab:
+        import tempfile
+
+        import torch.distributed as dist
+
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.engine import build_boxqp, initial_schedule
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
+            MHEConfig, closed_loop, closed_loop_global, mega_race_sweep, mhe_init, mhe_step,
+        )
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.parallel import (
+            make_mesh, scenario_sharding, sharded_closed_loop, sharded_mega_loop, sharded_race_sweep,
+            sharded_solve_step,
+        )
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.parallel.horizon import horizon_sharded_solve
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.parallel.scenarios import (
+            _finalize, _local_metrics, checkpointed_sweep, initial_sweep_state, sweep_chunk_fn,
+        )
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.solver import admm_solve
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils.record import SweepCheckpoint
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils.tree import tree_map
+
+        t_par = time.perf_counter()
+        par = {}
+
+        def driven(label, fn, expected):
+            """fn() as a main path: counts reset before, read after; its wall
+            seconds and its peak device memory (the peak allocated during
+            it, less what earlier phases held when it started)."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return out, {"launches": read_launches(label, expected), "wall_s": wall,
+                         "peak_bytes": torch.cuda.max_memory_allocated() - held, "held_bytes": held}
+
+        def fused_held(tag, fcfg, fscfg, fargs):
+            """The fused kernel against fused_solve_plain on one prepared step
+            from a path's own carry, at the path's shapes; section 5b's
+            gates at a fixed count: 2e-4 on lanes converged on both sides,
+            5e-3 on every lane, done-at within one iteration."""
+            sk = fused_mpc_solve(fcfg, fscfg, *fargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp = fused_solve_plain(fcfg, fscfg, *fargs)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            lane = torch.maximum((sk.U - sp.U).abs().amax(dim=(1, 2)), (sk.X - sp.X).abs().amax(dim=(1, 2)))
+            both = sk.converged & sp.converged
+            r = {"lanes": lane.numel(), "both": int(both.sum()),
+                 "e_conv": lane[both].max().item() if bool(both.any()) else 0.0, "max_abs_err": lane.max().item(),
+                 "dda": int((sk.iters - sp.iters).abs().max().item()), "plain_ms": plain_ms,
+                 "solve_ms": cuda_time_ms(lambda: fused_mpc_solve(fcfg, fscfg, *fargs), 3)}
+            log(f"[{tag}] fused kernel vs plain, one step from the path's carry, B={r['lanes']} N={fcfg.N} "
+                f"max_iter={fscfg.max_iter} fixed: converged both {r['both']}/{r['lanes']}: max|dU,dX| "
+                f"{r['e_conv']:.3e}; all lanes {r['max_abs_err']:.3e}; done-at max diff {r['dda']}; "
+                f"{r['solve_ms']:.3f} ms/solve kernel, {plain_ms:.1f} ms plain ({card})")
+            check(not fscfg.early_exit, f"[{tag}] the fused check runs a fixed count")
+            check(r["e_conv"] <= 2e-4, f"[{tag}] fused: {r['e_conv']:.3e} beyond 2e-4 of plain (converged lanes)")
+            check(r["max_abs_err"] <= 5e-3, f"[{tag}] fused: {r['max_abs_err']:.3e} beyond 5e-3 of plain")
+            check(r["dda"] <= 1, f"[{tag}] fused: done-at differs by {r['dda']}")
+            return r
+
+        def mega_held(tag, mcfg, mscfg, mtrack, prm, ref, carry, **kw):
+            """The megastep against megastep_plain one step from a path's own
+            carry, at the path's shapes: u 2e-4 / x 5e-4 (the megastep's
+            fixed-count bounds) on lanes converged on both sides, 5e-3 on
+            every lane."""
+            ck, uk, dk = megastep(mcfg, mscfg, mtrack, prm, ref, carry, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cp, up, dp = megastep_plain(mcfg, mscfg, mtrack, prm, ref, carry, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            eu, ex = (uk - up).abs().amax(dim=0), (ck.x - cp.x).abs().amax(dim=0)
+            both = (dk[2] > 0.5) & (dp[2] > 0.5)
+            r = {"lanes": eu.numel(), "both": int(both.sum()),
+                 "du_conv": eu[both].max().item() if bool(both.any()) else 0.0,
+                 "dx_conv": ex[both].max().item() if bool(both.any()) else 0.0,
+                 "max_abs_err": max(eu.max().item(), ex.max().item()),
+                 "dX_pred": (ck.X_pred - cp.X_pred).abs().max().item(),
+                 "dda": (dk[4] - dp[4]).abs().max().item(), "plain_ms": plain_ms,
+                 "finite": all(bool(torch.isfinite(t).all()) for t in (*ck, uk)),
+                 "step_ms": cuda_time_ms(lambda: megastep(mcfg, mscfg, mtrack, prm, ref, carry, **kw), 3)}
+            log(f"[{tag}] megastep vs plain, one step from the path's carry, B={r['lanes']} N={mcfg.N}: converged "
+                f"both {r['both']}/{r['lanes']}: max|du| {r['du_conv']:.3e} max|dx| {r['dx_conv']:.3e}; all lanes "
+                f"{r['max_abs_err']:.3e}; |dX_pred| {r['dX_pred']:.3e}; done-at max diff {r['dda']:.0f}; "
+                f"{r['step_ms']:.3f} ms/step kernel, {plain_ms:.1f} ms plain ({card})")
+            check(r["finite"], f"[{tag}] megastep: not finite")
+            check(r["du_conv"] <= 2e-4 and r["dx_conv"] <= 5e-4,
+                  f"[{tag}] megastep: beyond (2e-4, 5e-4) of plain on converged lanes")
+            check(r["max_abs_err"] <= 5e-3, f"[{tag}] megastep: {r['max_abs_err']:.3e} beyond 5e-3 of plain")
+            return r
+
+        mesh = make_mesh()                  # one rank on the card
+        check(dist.get_backend() == "nccl" and mesh.size() == 1,
+              f"[config5] the mesh is {dist.get_backend()} over {mesh.size()} ranks, expected NCCL over 1")
+
+        # [config5]: bench/presets.py::config5's sweep at per_device=131072:
+        # N=14, the racetrack, a Pacejka plant, the CLI's solver config on
+        # the fused route; (b) the same scenarios on the megastep. Gates:
+        # lanes 0-4095 bitwise an unsharded run of those lanes alone; each
+        # kernel against its plain version one step from the sweep's own
+        # carry after CHUNK5 steps, at the full width
+        cfg5 = MPCConfig(N=14, model="dynamic")
+        scfg5 = SolverConfig(max_iter=60, backend="fused")
+        ref5 = constant_refs(cfg5, 1.8)
+        scen5 = scenario_sharding(mesh, make_scenario_grid(p, cfg5, n_ey=64, n_mu=B_CONFIG5 // 64, vx0=1.5))
+        check(scen5.batch == B_CONFIG5, f"[config5] {scen5.batch} lanes")
+        sub5 = tree_map(lambda t: t[:B_MAIN], scen5)
+        (log5, m5), run5 = driven("config5-fused", lambda: sharded_closed_loop(
+            mesh, scen5, cfg5, scfg5, track, ref5, T=T_CONFIG5, sim_tire="pacejka"), {"fused": T_CONFIG5})
+        ref_log = closed_loop(sub5.params, cfg5, scfg5, track, sub5.x0, ref5, T_CONFIG5, sim_tire="pacejka")
+        run5.update(ms=run5["wall_s"] / T_CONFIG5 * 1e3, solves_per_s=B_CONFIG5 * T_CONFIG5 / run5["wall_s"],
+                    converged=float(m5.converged_frac), ey_rms=float(m5.ey_rms), progress=float(m5.mean_progress),
+                    mean_iters=float(m5.mean_iters),
+                    bitwise=all(torch.equal(a[:B_MAIN], b.movedim(0, 1)) for a, b in zip(log5, ref_log)),
+                    finite=all(bool(torch.isfinite(t.float()).all()) for t in log5))
+        # the sweep's carry after CHUNK5 steps: its tracker steps replayed
+        # on the logged states, each control equal to the logged one
+        car5, x5, replay = mpc_init(scen5.params, cfg5, track, scen5.x0), scen5.x0, True
+        for t in range(CHUNK5):
+            u5, car5, _ = mpc_step_batched(scen5.params, cfg5, scfg5, track, x5, ref5, car5)
+            replay = replay and torch.equal(u5, log5.U[:, t])
+            x5 = log5.X[:, t].contiguous()
+        check(replay, "[config5] the replayed tracker steps differ from the sweep's")
+        Xs, Us, kap, xr, lb, ub, x0a, warm = mpc_prepare_light(scen5.params, cfg5, track, x5, ref5, car5)
+        run5["held"] = fused_held("config5", cfg5, scfg5,
+                                  (scen5.params, Xs, Us, kap, xr, lb, ub, x0a, warm[0], warm[1], car5.rho))
+        del Xs, Us, kap, xr, lb, ub, x0a, warm, car5
+        par["config5"] = run5
+        (X5m, m5m), run5m = driven("config5-mega", lambda: sharded_mega_loop(
+            mesh, scen5, cfg5, scfg5, track, ref5, T=T_CONFIG5, sim_tire="pacejka"), {"megastep": T_CONFIG5})
+
+        def mega_sweep(scn):
+            """The megastep sweep unsharded: X (b, T, 6), converged and
+            done-at (b, T), the params operand and the carry after CHUNK5 steps."""
+            c = megastep_init(scn.params, cfg5, track, scn.x0)
+            prm = megastep_params(scn.params, scn.batch)
+            xs, cv, it, snap = [], [], [], None
+            for t in range(T_CONFIG5):
+                snap = c if t == CHUNK5 else snap
+                c, _, d = megastep(cfg5, scfg5, track, prm, ref5, c, sim_tire="pacejka")
+                xs.append(c.x)
+                cv.append(d[2])
+                it.append(d[4])
+            return torch.stack(xs).permute(2, 0, 1), torch.stack(cv).T, torch.stack(it).T, prm, snap
+
+        X4, *_ = mega_sweep(sub5)
+        Xa, cva, ita, prm5, snap5 = mega_sweep(scen5)
+        # the mesh-wide metrics against the unsharded traces of every lane
+        # (their converged flags and done-at included)
+        whole = _finalize(_local_metrics(Xa, cva, ita, 5, 4))
+        run5m.update(ms=run5m["wall_s"] / T_CONFIG5 * 1e3, solves_per_s=B_CONFIG5 * T_CONFIG5 / run5m["wall_s"],
+                     converged=float(m5m.converged_frac), ey_rms=float(m5m.ey_rms),
+                     progress=float(m5m.mean_progress), mean_iters=float(m5m.mean_iters),
+                     bitwise=torch.equal(X5m[:B_MAIN], X4) and torch.equal(X5m, Xa)
+                     and all(torch.equal(a, b) for a, b in zip(m5m, whole)),
+                     finite=bool(torch.isfinite(X5m).all()))
+        run5m["held"] = mega_held("config5-mega", cfg5, scfg5, track, prm5, ref5, snap5, sim_tire="pacejka")
+        del Xa, cva, ita, snap5
+        par["config5-mega"] = run5m
+        for label, r in (("fused route (sharded_closed_loop)", run5), ("megastep (sharded_mega_loop)", run5m)):
+            log(f"[config5] B={B_CONFIG5} T={T_CONFIG5} N=14 racetrack Pacejka plant, world size 1 NCCL, {label}: "
+                f"{r['solves_per_s']:.0f} solves/s, {r['ms']:.3f} ms/step wall, converged {r['converged']:.4f}, "
+                f"e_y rms {r['ey_rms']:.4f} m, mean progress {r['progress']:.3f} m, mean iterations "
+                f"{r['mean_iters']:.2f}, peak device memory {r['peak_bytes'] / 2**30:.3f} GiB "
+                f"({r['peak_bytes'] / B_CONFIG5:.0f} B per lane; {r['held_bytes'] / 2**30:.3f} GiB held before it); "
+                f"lanes 0-{B_MAIN - 1} bitwise an unsharded run of those lanes (the megastep: and every lane and "
+                f"the metrics bitwise the unsharded run of all lanes): {r['bitwise']}, finite={r['finite']} ({card})")
+            check(r["finite"], f"[config5] {label}: non-finite output")
+            check(r["converged"] >= 0.9, f"[config5] {label}: converged {r['converged']:.4f} < 0.9")
+            check(r["bitwise"], f"[config5] {label}: the sharded run differs from the unsharded one")
+        # the checkpointed sweep's chunk at config 5's scale (the JAX
+        # package's AOT memory analysis of sweep_chunk_fn): its peak memory
+        chunk5 = sweep_chunk_fn(mesh, cfg5, scfg5, track, ref5, CHUNK5, sim_tire="pacejka")
+        zeros5 = torch.zeros((B_CONFIG5,), device=dev)
+        _, run5c = driven("config5-chunk", lambda: chunk5(
+            scen5.x0, scen5.params, mpc_init(scen5.params, cfg5, track, scen5.x0),
+            {"conv": zeros5, "ey_sq": zeros5, "iters": zeros5}), {"fused": CHUNK5})
+        run5c["ms"] = run5c["wall_s"] / CHUNK5 * 1e3
+        par["config5-chunk"] = run5c
+        log(f"[config5] sweep_chunk_fn, {CHUNK5} steps at B={B_CONFIG5}: peak device memory "
+            f"{run5c['peak_bytes'] / 2**30:.3f} GiB ({run5c['peak_bytes'] / B_CONFIG5:.0f} B per lane), "
+            f"{run5c['ms']:.3f} ms/step wall ({card})")
+        r = cli_run("config5 fused", {"fused": 10}, "config5", "backend=fused", "per_device=4096", "T=5")
+        check(r["devices"] == 1 and r["converged_frac"] > 0.9 and "scaling_efficiency" not in r,
+              "[cli] config5 fused: not one device, converged <= 0.9, or an efficiency at world size 1")
+
+        # [sharded]: the entry points at B=4096, world size 1, against the
+        # unsharded paths on the same inputs
+        (mu_s, Xf_s, m_s), run_sr = driven("sharded-race", lambda: sharded_race_sweep(
+            mesh, p, rcfg, scfg, track, table, x0r, T_SHARD, mu_b, mu0=0.85, noise_sigma=SIGMA, seed=11),
+            {"racestep": T_SHARD})
+        ref_sr = mega_race_sweep(p, rcfg, scfg, track, table, x0r, T_SHARD, mu_b, mu0=0.85, noise_sigma=SIGMA,
+                                 seed=11)
+        run_sr.update(ms=run_sr["wall_s"] / T_SHARD * 1e3, converged=float(m_s.converged_frac),
+                      equal=torch.equal(mu_s, ref_sr.mu_hat) and torch.equal(Xf_s, ref_sr.Xf))
+        par["sharded-race"] = run_sr
+        sharded_solve_step(mesh, scen, cfg, scfg_admm, track, x_ref)              # warm-up
+        (u_s, c_s, d_s), run_ss = driven("sharded-step", lambda: sharded_solve_step(
+            mesh, scen, cfg, scfg_admm, track, x_ref), {"admm": 1})
+        u_r, c_r, _ = mpc_step_batched(scen.params, cfg, scfg_admm, track, scen.x0, x_ref,
+                                       mpc_init(scen.params, cfg, track, scen.x0))
+        run_ss.update(ms=run_ss["wall_s"] * 1e3, converged=d_s.converged.float().mean().item(),
+                      equal=torch.equal(u_s, u_r) and all(torch.equal(a, b) for a, b in zip(c_s, c_r)))
+        par["sharded-step"] = run_ss
+        hscfg = SolverConfig(max_iter=30)
+        (U_h, conv_h), run_h = driven("sharded-horizon", lambda: horizon_sharded_solve(
+            mesh, scen, cfg, hscfg, track, x_ref), {})
+        u0h = torch.zeros((B_MAIN, NU), device=dev)
+        Xs_h, Us_h = initial_schedule(scen.params, cfg, track, scen.x0, u0h)
+        sol_h = admm_solve(build_boxqp(scen.params, cfg, track, scen.x0, u0h, Xs_h, Us_h, x_ref), hscfg)
+        run_h.update(ms=run_h["wall_s"] * 1e3, dU=(U_h - sol_h.U).abs().max().item(),
+                     conv_equal=torch.equal(conv_h, sol_h.converged), converged=conv_h.float().mean().item())
+        par["sharded-horizon"] = run_h
+        log(f"[sharded] sharded_race_sweep B={B_MAIN} T={T_SHARD} (path 2's protocol, seed 11): "
+            f"{run_sr['ms']:.4f} ms/step wall, converged {run_sr['converged']:.4f}, equal to mega_race_sweep on "
+            f"the same carry and seed: {run_sr['equal']} ({card})")
+        log(f"[sharded] sharded_solve_step B={B_MAIN} N={N_MAIN} admm route: {run_ss['ms']:.3f} ms wall, "
+            f"converged {run_ss['converged']:.4f}, equal to mpc_step_batched: {run_ss['equal']} ({card})")
+        log(f"[sharded] horizon_sharded_solve n_h=1 B={B_MAIN} N={N_MAIN} max_iter=30: {run_h['ms']:.1f} ms wall, "
+            f"max|U - admm_solve U| {run_h['dU']:.3e}, converged {run_h['converged']:.4f} (flags equal: "
+            f"{run_h['conv_equal']}) ({card})")
+        check(run_sr["equal"], "[sharded] sharded_race_sweep differs from mega_race_sweep")
+        check(run_ss["equal"], "[sharded] sharded_solve_step differs from mpc_step_batched")
+        check(run_h["dU"] <= 1e-5, f"[sharded] horizon_sharded_solve beyond 1e-5 of admm_solve ({run_h['dU']:.3e})")
+
+        # [ckpt]: checkpointed_sweep on the bench's fused protocol, killed
+        # after its first chunk (the process lives on: the second call
+        # resumes from the directory), against an uninterrupted run
+        with tempfile.TemporaryDirectory(dir=HERE, prefix=".ckpt-smoke-") as tmp:
+            ck_args = (mesh, scen, cfg, fused_fixed, track, x_ref)
+            (m_ref, n_ref), run_ck = driven("ckpt", lambda: checkpointed_sweep(
+                *ck_args, T_CKPT, os.path.join(tmp, "ref"), save_every=CKPT_EVERY), {"fused": T_CKPT})
+            _, n_kill = checkpointed_sweep(*ck_args, CKPT_EVERY, os.path.join(tmp, "kill"), save_every=CKPT_EVERY)
+            m_res, n_res = checkpointed_sweep(*ck_args, T_CKPT, os.path.join(tmp, "kill"), save_every=CKPT_EVERY)
+            # what a save costs: the sweep's last state, read back from its
+            # checkpoint and written again CKPT_SAVES times
+            _, state_ck = SweepCheckpoint(os.path.join(tmp, "ref")).restore(initial_sweep_state(scen, cfg, track))
+            timing = SweepCheckpoint(os.path.join(tmp, "timing"))
+            saves = [timing.save(k, state_ck) for k in range(1, CKPT_SAVES + 1)]
+        run_ck.update(ms=run_ck["wall_s"] / T_CKPT * 1e3, steps=(n_ref, n_kill, n_res),
+                      bitwise=all(torch.equal(a, b) for a, b in zip(m_res, m_ref)),
+                      ckpt_bytes=saves[0][0], save_ms=float(np.mean([sec for _, sec in saves])) * 1e3,
+                      converged=float(m_ref.converged_frac))
+        par["ckpt"] = run_ck
+        log(f"[ckpt] checkpointed_sweep B={B_MAIN} T={T_CKPT} save_every={CKPT_EVERY} fused N={N_MAIN}: steps run "
+            f"{run_ck['steps']} (uninterrupted, killed, resumed), resumed metrics bitwise the uninterrupted run's: "
+            f"{run_ck['bitwise']}; {run_ck['ckpt_bytes']} B per checkpoint ({run_ck['ckpt_bytes'] / B_MAIN:.0f} B per "
+            f"lane), {run_ck['save_ms']:.1f} ms per save (mean of {len(saves)}), {run_ck['ms']:.3f} ms/step wall "
+            f"with the saves, converged {run_ck['converged']:.4f} ({card})")
+        check(run_ck["steps"] == (T_CKPT, CKPT_EVERY, T_CKPT - CKPT_EVERY), "[ckpt] wrong steps run")
+        check(run_ck["bitwise"], "[ckpt] the resumed metrics differ from the uninterrupted run's")
+
+        # [global]: closed_loop_global at B=4096 on the oval, fused route, EKF,
+        # tests/test_global_loop.py's noise (one stream per lane)
+        gcfg = MPCConfig(N=16, model="dynamic")
+        gscfg = SolverConfig(max_iter=40, rho_interval=0, backend="fused")
+        x0g = torch.zeros((B_MAIN, 6), device=dev)
+        x0g[:, 0] = 1.0
+        refg = constant_refs(gcfg, 1.5)
+        logg, run_g = driven("global", lambda: closed_loop_global(
+            p, gcfg, gscfg, oval, x0g, refg, T=T_GLOBAL, noise_sigma=GLOBAL_SIGMA,
+            generator=torch.Generator(device=dev).manual_seed(3), use_ekf=True), {"fused": T_GLOBAL})
+        # the fused kernel at these shapes against its plain version, from
+        # the loop's carry halfway: its tracker steps replayed on the logged
+        # estimates, each control equal to the logged one
+        carg, replay = mpc_init(p, gcfg, oval, x0g), True
+        for t in range(T_GLOBAL // 2):
+            ug, carg, _ = mpc_step_batched(p, gcfg, gscfg, oval, logg.Xf[t], refg, carg)
+            replay = replay and torch.equal(ug, logg.U[t])
+        check(replay, "[global] the replayed tracker steps differ from the loop's")
+        Xs, Us, kap, xr, lb, ub, x0a, warm = mpc_prepare_light(p, gcfg, oval, logg.Xf[T_GLOBAL // 2], refg, carg)
+        run_g["held"] = fused_held("global", gcfg, gscfg, (p, Xs, Us, kap, xr, lb, ub, x0a, warm[0], warm[1], carg.rho))
+        conv_g = logg.converged.float().mean(dim=0)
+        run_g.update(ms=run_g["wall_s"] / T_GLOBAL * 1e3, progress_min=logg.Xf[-1, :, 4].min().item(),
+                     ey_max=logg.Xf[..., 5].abs().max().item(), conv_min=conv_g.min().item(),
+                     converged=conv_g.mean().item(), finite=all(bool(torch.isfinite(t.float()).all()) for t in logg))
+        par["global"] = run_g
+        L_oval = float(oval.length)
+        log(f"[global] closed_loop_global B={B_MAIN} T={T_GLOBAL} oval N=16 fused + EKF + noise: {run_g['ms']:.3f} "
+            f"ms/step wall, least progress {run_g['progress_min']:.3f} m (lap {L_oval:.3f} m), |e_y| max "
+            f"{run_g['ey_max']:.4f}, converged {run_g['converged']:.4f} (least lane {run_g['conv_min']:.4f}), "
+            f"finite={run_g['finite']} ({card})")
+        check(run_g["finite"], "[global] non-finite output")
+        check(run_g["progress_min"] > L_oval, "[global] a lane did not complete a lap")
+        check(run_g["ey_max"] < 0.2, f"[global] |e_y| max {run_g['ey_max']:.4f} >= 0.2")
+        check(run_g["conv_min"] > 0.9, f"[global] a lane converged on {run_g['conv_min']:.4f} <= 0.9 of its steps")
+
+        # [mhe]: mhe_step over B=4096 noisy trajectories of tests/test_mhe.py's
+        # noisy protocol; lanes 0-15 again on the CPU
+        mcfg, mpc12 = MHEConfig(W=8, n_gn=2), MPCConfig(N=12, model="dynamic")
+        tt = torch.arange(T_MHE, dtype=torch.float32, device=dev)
+        Um = torch.stack([0.08 * torch.sin(2 * np.pi * tt / 40.0), 0.3 + 0.2 * torch.cos(2 * np.pi * tt / 60.0)], 1)
+        x0m = torch.tensor([1.2, 0.0, 0.0, 0.0, 0.0, 0.05], device=dev).expand(B_MAIN, 6).contiguous()
+        xm, Xm = x0m, []
+        for k in range(T_MHE):
+            xm = plant_step(p, mpc12, oval, xm, Um[k].expand(B_MAIN, 2), n_sub=4)
+            Xm.append(xm)
+        Xm = torch.stack(Xm)                                             # (T, B, 6) truth
+        sig_m = torch.tensor(MHE_SIGMA, device=dev)
+        Zm = Xm + sig_m * torch.randn(Xm.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        eye6 = torch.eye(6, device=dev)
+        mats = (0.1 * eye6, eye6, 1e-4 * eye6, torch.diag(sig_m ** 2))   # P0, H, Qw, Rv
+
+        def mhe_run(track_m, Z, U, x0, mats_m):
+            st = mhe_init(mpc12, mcfg, x0, mats_m[1])
+            out = []
+            for k in range(T_MHE):
+                st, xh = mhe_step(p, mpc12, mcfg, track_m, st, U[k].expand(x0.shape[0], 2), Z[k], *mats_m)
+                out.append(xh)
+            return torch.stack(out)
+
+        Xh, run_m = driven("mhe", lambda: mhe_run(oval, Zm, Um, x0m, mats), {})
+        w = mcfg.W
+        rmse = lambda A: (A[w:] - Xm[w:]).pow(2).mean().sqrt().item()
+        cpu = lambda t: t.cpu()
+        t0 = time.perf_counter()
+        Xh_cpu = mhe_run(oval_track(device="cpu"), cpu(Zm[:, :MHE_CPU_LANES]), cpu(Um), cpu(x0m[:MHE_CPU_LANES]),
+                         tuple(cpu(t) for t in mats))
+        cpu_ms = (time.perf_counter() - t0) / T_MHE * 1e3
+        run_m.update(ms=run_m["wall_s"] / T_MHE * 1e3, rmse_mhe=rmse(Xh), rmse_meas=rmse(Zm), cpu_ms=cpu_ms,
+                     card_vs_cpu=(Xh[:, :MHE_CPU_LANES].cpu() - Xh_cpu).abs().max().item(),
+                     finite=bool(torch.isfinite(Xh).all()))
+        par["mhe"] = run_m
+        log(f"[mhe] mhe_step B={B_MAIN} T={T_MHE} W={mcfg.W} n_gn={mcfg.n_gn}: {run_m['ms']:.3f} ms/step wall on the "
+            f"card, {run_m['cpu_ms']:.3f} ms/step on the CPU for lanes 0-{MHE_CPU_LANES - 1}; rmse {run_m['rmse_mhe']:.5f} "
+            f"against the sensor's {run_m['rmse_meas']:.5f} ({run_m['rmse_mhe'] / run_m['rmse_meas']:.3f}), card vs "
+            f"CPU on lanes 0-{MHE_CPU_LANES - 1} {run_m['card_vs_cpu']:.3e}, finite={run_m['finite']} ({card})")
+        check(run_m["finite"], "[mhe] non-finite estimate")
+        check(run_m["rmse_mhe"] < 0.6 * run_m["rmse_meas"], "[mhe] the estimate does not beat 0.6 x the sensor")
+        check(run_m["card_vs_cpu"] <= 1e-3, f"[mhe] card and CPU apart by {run_m['card_vs_cpu']:.3e} > 1e-3")
+        log(f"[parallel] phases wall {time.perf_counter() - t_par:.1f} s ({card})")
+
     # ---- bounds: this run's shapes, data and iteration counts ----
     # the admm kernel's stage matrices are its inputs: their patterns are
     # read from this run's QPs (A = Aa, B = Ba there)
@@ -2190,6 +2571,23 @@ def main():
         per_lane["megastep_kernel pacejka n10"] = (core_ops(S_lap, lcfg.tire, N_LAP, it["megastep_kernel pacejka n10"])
                                                    + plant_ops(S_lap, lcfg.tire, 10), mega_bytes(6, N_LAP))
         shared["megastep_kernel pacejka n10"] = 4 * loval.n_cells
+    if par is not None:
+        # [config5]: the fused kernel and the megastep at N=14, B=131072, a
+        # fixed count of max_iter (no early exit; one factorization per
+        # solve: the kernels take no rho interval), the megastep's Pacejka
+        # plant at 4 sub-steps; [global]: the fused kernel at N=16 on the
+        # oval, a fixed 40. [ckpt], [sharded-race] and [sharded-step] run the
+        # shapes of main paths 3, 2 and the solver-only check: their bounds
+        S5 = model_structure(p, cfg5, scfg5)
+        it["fused_kernel config5"] = it["megastep_kernel config5"] = scfg5.max_iter
+        per_lane["fused_kernel config5"] = (fused_ops(S5, cfg5.tire, cfg5.N, scfg5.max_iter), fused_bytes(6, cfg5.N))
+        per_lane["megastep_kernel config5"] = (core_ops(S5, cfg5.tire, cfg5.N, scfg5.max_iter)
+                                               + plant_ops(S5, "pacejka", 4), mega_bytes(6, cfg5.N))
+        shared["megastep_kernel config5"] = 4 * track.n_cells
+        lanes["fused_kernel config5"] = lanes["megastep_kernel config5"] = B_CONFIG5
+        Sg = model_structure(p, gcfg, gscfg)
+        it["fused_kernel global"] = gscfg.max_iter
+        per_lane["fused_kernel global"] = (fused_ops(Sg, gcfg.tire, gcfg.N, gscfg.max_iter), fused_bytes(6, gcfg.N))
     bounds = {k: bound(lanes.get(k, B_MAIN) * o, lanes.get(k, B_MAIN) * b + shared.get(k, 0))
               for k, (o, b) in per_lane.items()}
     log("[bound] per launch on the H100 at B=4096 unless named (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
@@ -2283,6 +2681,36 @@ def main():
         mega_rec["eyb"] = {"max_abs_err": mega_eyb["fixed"], "device_ms": mega_eyb["dev_ms"],
                            "box_device_ms": mega_eyb["box_dev_ms"],
                            "bound_ms": bounds["megastep_kernel+eyb"][0]}
+    if par is not None:
+        # the parallel layer's paths: their launches join the records,
+        # their numbers the records' paths
+        rec = {k["name"]: k for k in kernels}
+        path = lambda run, **kw: {"launches": sum(run["launches"].values()), "ms": run["ms"], **kw}
+        b5f, b5m, bg = bounds["fused_kernel config5"], bounds["megastep_kernel config5"], bounds["fused_kernel global"]
+        # the kernel-vs-plain check at the path's shapes: its error, one
+        # kernel call's ms (CUDA events) and the plain version's
+        held = lambda run, ms_key: {"max_abs_err": run["held"]["max_abs_err"], "kernel_ms": run["held"][ms_key],
+                                    "plain_ms": run["held"]["plain_ms"]}
+        fused_paths = {
+            "config5": path(par["config5"], solves_per_s=par["config5"]["solves_per_s"],
+                            peak_bytes=par["config5"]["peak_bytes"], bound_ms=b5f[0], bound_by=b5f[1],
+                            **held(par["config5"], "solve_ms")),
+            "config5-chunk": path(par["config5-chunk"], peak_bytes=par["config5-chunk"]["peak_bytes"],
+                                  bound_ms=b5f[0], bound_by=b5f[1]),
+            "ckpt": path(par["ckpt"], bound_ms=bounds["fused_kernel"][0], bound_by=bounds["fused_kernel"][1]),
+            "global": path(par["global"], bound_ms=bg[0], bound_by=bg[1], **held(par["global"], "solve_ms"))}
+        rec["fused_kernel"].setdefault("paths", {}).update(fused_paths)
+        rec["megastep_kernel"].setdefault("paths", {})["config5-mega"] = path(
+            par["config5-mega"], solves_per_s=par["config5-mega"]["solves_per_s"],
+            peak_bytes=par["config5-mega"]["peak_bytes"], bound_ms=b5m[0], bound_by=b5m[1],
+            **held(par["config5-mega"], "step_ms"))
+        rec["racestep_kernel"].setdefault("paths", {})["sharded-race"] = path(par["sharded-race"])
+        rec["admm_kernel"].setdefault("paths", {})["sharded-step"] = path(par["sharded-step"])
+        for name, runs in (("fused_kernel", ("config5", "config5-chunk", "ckpt", "global")),
+                           ("megastep_kernel", ("config5-mega",)), ("racestep_kernel", ("sharded-race",)),
+                           ("admm_kernel", ("sharded-step",))):
+            rec[name]["launches"] += sum(sum(par[r]["launches"].values()) for r in runs)
+        dist.destroy_process_group()
     log(f"[total] chip_smoke.py wall {time.perf_counter() - t_script:.1f} s, the kernels' build included")
     if mega_cache is not None:
         # the cached instantiation's path figures beside its record's

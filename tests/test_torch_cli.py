@@ -151,10 +151,14 @@ def test_cli_override_routing():
 
 
 def test_presets_refuse_what_they_do_not_run():
-    """config5 is not ported and raises; an unknown knob warns; an unknown
-    preset or race backend raises; no device means the card."""
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-        run_preset("config5", device="cpu")
+    """config5 runs at world size 1 (a one-rank group of its own, ended
+    with the call) and reports no scaling efficiency there; an unknown knob
+    warns; an unknown preset or race backend raises; no device means the
+    card."""
+    r = run_preset("config5", device="cpu", per_device=16, T=5)
+    assert r["devices"] == 1 and r["batch"] == 16 and r["converged_frac"] > 0.9
+    assert "scaling_efficiency" not in r
+    assert not torch.distributed.is_initialized()
     with pytest.raises(KeyError, match="unknown preset"):
         run_preset("config9")
     with pytest.warns(UserWarning, match=r"ignoring unknown knobs: \['mutrue'\]"):
