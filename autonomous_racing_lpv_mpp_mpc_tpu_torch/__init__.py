@@ -13,11 +13,19 @@ an obvious counterpart:
 - ``loop``     — receding-horizon controller, closed loop, EKF, MHE,
                  friction RLS, the world-frame loop and the composed race
                  loop.
-- ``planner``  — the MPP planner, online replanning, reference tables
-                 and opponents.
+- ``planner``  — the MPP planner, online replanning (serial, and
+                 pipelined with the planner on a second CUDA stream or
+                 card), reference tables and opponents.
 - ``parallel`` — scenario grids and sweeps over a rank mesh
                  (``torch.distributed``: one rank per card), the
                  collectives, the horizon-sharded Riccati and ADMM.
+- ``io``       — the native shared-memory / UDP bridge to a car
+                 (``native/io_bridge.cpp`` over ctypes) and the 30 Hz
+                 real-time tracking loop over it.
+- ``utils``    — lap statistics, plots, log records and sweep
+                 checkpoints; ``timed`` / ``trace_to`` / ``cost_analysis``
+                 (profiling) and ``enable_nan_debugging`` /
+                 ``checked_closed_loop`` (numerical safety).
 - ``ops``      — hand-written CUDA kernels (``ops/csrc``) with their plain
                  PyTorch versions beside them.
 - ``convert``  — hand JAX-package objects (as numpy arrays) to the port and

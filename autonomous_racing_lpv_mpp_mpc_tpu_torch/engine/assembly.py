@@ -39,6 +39,11 @@ def state_indices(model: str) -> Tuple[int, int]:
     raise ValueError(model)
 
 
+def aug_dim(model: str) -> int:
+    """Width of the augmented state (x, u_prev)."""
+    return model_nx(model) + NU
+
+
 def _s_index(model: str) -> int:
     return 4 if model == "dynamic" else 2
 

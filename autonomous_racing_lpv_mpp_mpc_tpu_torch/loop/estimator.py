@@ -26,6 +26,11 @@ from ..track.track import Track, curvature_at
 DEFAULT_EKF_Q = (1e-3, 1e-3, 5e-3, 1e-4, 1e-4, 1e-4)
 
 
+def passthrough(x: torch.Tensor) -> torch.Tensor:
+    """The identity estimator: the measured state is the estimate."""
+    return x
+
+
 def noisy_measurement(x: torch.Tensor, sigma, generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Simulated sensor: state + Gaussian noise with per-state sigma, drawn
     from ``generator`` (a ``torch.Generator`` on ``x``'s device)."""
@@ -46,9 +51,15 @@ def ekf_init(x0: torch.Tensor, p0: float = 0.1) -> EKFState:
 
 
 def _lane_params(p: VehicleParams, batch, device) -> dict:
-    """Every vehicle parameter as a (B,) tensor, for ``vmap``."""
-    return {f.name: torch.as_tensor(getattr(p, f.name), dtype=torch.float32, device=device).expand(batch)
-            for f in dataclasses.fields(VehicleParams)}
+    """Every vehicle parameter as a (B,) tensor, for ``vmap``: a float
+    leaf is filled on the device, with no host-to-device copy, so the step
+    can be captured in a CUDA graph."""
+    def lane(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device=device, dtype=torch.float32).expand(batch)
+        return torch.full(batch, float(v), dtype=torch.float32, device=device)
+
+    return {f.name: lane(getattr(p, f.name)) for f in dataclasses.fields(VehicleParams)}
 
 
 def ekf_step(
@@ -107,7 +118,9 @@ def ekf_step(
         outlier = torch.abs(nu) > gate_sigma * torch.sqrt(S0d)
         S = S + torch.diag_embed(torch.where(outlier, 1e6 * S0d, torch.zeros_like(S0d)))
     PHt = P_pred @ H.T
-    K = torch.linalg.solve(S.transpose(-1, -2), PHt.transpose(-1, -2)).transpose(-1, -2)
+    # solve_ex: no host read of the factorization's status (JAX's solve
+    # raises on no singular S either), so the step is graph-capturable
+    K = torch.linalg.solve_ex(S.transpose(-1, -2), PHt.transpose(-1, -2))[0].transpose(-1, -2)
     x_new = x_pred + (K @ nu[..., None])[..., 0]
     P_new = (torch.eye(nx, **kw) - K @ H) @ P_pred
     return EKFState(x=x_new, P=0.5 * (P_new + P_new.transpose(-1, -2)))

@@ -103,6 +103,24 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# Set by ``utils.debug.enable_nan_debugging``. A launch through ``launch``
+# bypasses the dispatcher, so that mode's per-op check never sees what a
+# kernel wrote: while this is on, each wrapper checks its kernel's outputs
+# right after the launch (``check_outputs``).
+CHECK_OUTPUTS = False
+
+
+def check_outputs(name: str, *tensors) -> None:
+    """With NaN debugging on, raise ``FloatingPointError`` naming the kernel
+    when one of its outputs holds a non-finite value (one host read per
+    output); otherwise do nothing."""
+    if not CHECK_OUTPUTS:
+        return
+    for i, t in enumerate(tensors):
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"{name}: output {i} of the kernel holds a non-finite value")
+
+
 def launch(name: str, tensors, floats, ints) -> None:
     """Call the C entry ``name`` with device pointers, float and int
     parameters on the current stream; raise if the launch failed. A None

@@ -148,6 +148,7 @@ def _admm_cuda(qp: BoxQP, cfg: SolverConfig, warm, rho0) -> ADMMSolution:
         [B, N, cfg.max_iter, ws_rows, *shape.ints(), na],
     )
     admm_kernel_solve.launches += 1
+    _cuda.check_outputs("arl_admm_solve", X, U, s, lam, stats[:6])
 
     fb = lambda t: t.movedim(-1, 0)
     X, U, s, lam = fb(X), fb(U), fb(s), fb(lam)

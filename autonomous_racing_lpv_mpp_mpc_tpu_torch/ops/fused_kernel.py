@@ -433,6 +433,7 @@ def _fused_cuda(cfg, scfg, p_b, X_sched, U_sched, kappas, x_ref_b, lb, ub, x0a, 
          MODELS[cfg.model]],
     )
     fused_mpc_solve.launches += 1
+    _cuda.check_outputs("arl_fused_solve", X, U, s, lam, stats[:6])
     return _solution(scfg, rho, X, U, s, lam, stats)
 
 

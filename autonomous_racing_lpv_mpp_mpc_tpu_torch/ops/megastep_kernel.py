@@ -488,6 +488,7 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
         megastep.launches += 1
     else:
         megastep.cached_launches += 1
+    _cuda.check_outputs("arl_megastep", *(t for t in out if t is not None), stats[:5], *(cache_out or ()))
     new = out._replace(rho=stats[3])
     return (new, out.u_prev, stats[:5]) + (() if cache is None else (cache_out,))
 

@@ -439,4 +439,5 @@ def _racestep_cuda(cfg, scfg, track, prm, x_ref, carry, noise, mu_true, ekf_q, e
          *launch_shape(N).ints()],
     )
     racestep.launches += 1
+    _cuda.check_outputs("arl_racestep", *(t for t in new if t is not None), z, stats[:6])
     return new._replace(rho=stats[3]), new.u_prev, stats[:6], z

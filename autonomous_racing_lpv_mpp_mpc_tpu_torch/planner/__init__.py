@@ -3,7 +3,7 @@ planner and its velocity profile, online replanning, the reference tables
 it emits for the tracker, and opponent cars as moving obstacle blocks."""
 
 from .mpp import MPPDiag, plan_mpp
-from .online import ReplanLog, replanning_loop
+from .online import ReplanLog, pipelined_replanning_loop, replanning_loop
 
 from .opponents import (
     DUMMY_BLOCK,
@@ -32,6 +32,7 @@ __all__ = [
     "opponents",
     "opponents_obstacle_fn",
     "pad_blocks",
+    "pipelined_replanning_loop",
     "plan_mpp",
     "refs_from_table",
     "replanning_loop",

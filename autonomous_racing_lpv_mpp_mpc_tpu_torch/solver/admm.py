@@ -204,7 +204,9 @@ class _ChunkGraph:
                 _chunk(self.qp, cfg, interval, *_unflat_state(self.state))
         cur.wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        # "thread_local": another thread's allocations and syncs (the
+        # tracker of the pipelined replanning loop) do not void the capture
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             out = _chunk(self.qp, cfg, interval, *_unflat_state(self.state))
             for dst, src in zip(self.state, _flat_state(*out)):
                 dst.copy_(src)

@@ -118,7 +118,32 @@ experiment command line and the parallel layer:
   converged > 0.9 on every lane, the fused kernel at its N=16 held against
   its plain version from the loop's carry halfway; ``[mhe]`` ``mhe_step`` over 4,096 noisy
   trajectories (W=8, 2 Gauss-Newton passes, T=90) gated on beating 0.6 x
-  the sensor's rmse, lanes 0-15 again on the CPU.
+  the sensor's rmse, lanes 0-15 again on the CPU;
+- the last slice: ``[pipelined]`` tests/test_planner.py:147-185's scenario
+  at its size (the oval, ``MPCConfig(N=16)``, the tracker on the fused
+  kernel, ``MPPConfig(H=192, n_sqp=2)``, T=240, a replan every 60 steps,
+  the block [4, 5, -0.4, 0.1] from step 60) through the serial
+  ``replanning_loop`` (plans and segments timed) and then
+  ``pipelined_replanning_loop`` (the planner on a second stream from a
+  second host thread): the JAX test's checks on both, replan steps, the
+  first segment bitwise equal, the boundary predictor on the card against
+  the CPU, the overlap of the planner stream's kernels with the tracker's
+  from a ``trace_to`` trace of a third run (from the plan for segment 2's
+  issue over 30 tracker steps), the fused kernel
+  at B=1, N=16 against plain from the loop's carry at step 120, at the
+  gated runs' 100 iterations and at the JAX test's 60;
+  ``[realtime]`` the real-time loop over the shm bridge against a car in
+  a child process (``tests/_torch_car_worker.py``, the port on the CPU):
+  noise-free in lockstep on the racetrack with cell 3's tracker at B=1
+  (held within 1e-3 of the in-process ``closed_loop`` on the card), and
+  the noisy, glitchy car on the oval with the EKF (replayed from a CUDA
+  graph) in the chain, 300 frames each: frame counts, the median solve
+  under 1/30 s, the EKF beating the raw frames 2x, the fused kernel at
+  each N against plain from the loop's carry; ``[utils]`` ``timed``
+  within 20% of CUDA events on one megastep, a ``trace_to`` trace naming
+  the megastep kernel, ``cost_analysis`` of a 64^3 matmul, the NaN mode
+  raising on a seeded NaN and not on a megastep step, and
+  ``checked_closed_loop`` flagging e_y = 25.
 
 The new paths build their tracks, grids and references without naming a
 device: the port's default device is the card. The ``kernels`` line has
@@ -128,7 +153,8 @@ racestep, and the megastep with the discretization cache), each with its
 launches on all of its main paths (the megastep: paths 1, 4 and 9 and
 ``[config5]``; the cached megastep: ``[mega-cache]``; the racestep: paths
 2, 5, 6, 7, 7b and 8 and ``[sharded]``; the fused kernel: paths 3 and 4,
-``[config5]``, ``[ckpt]`` and ``[global]``; the solver-only kernel: the
+``[config5]``, ``[ckpt]``, ``[global]``, ``[pipelined]`` and
+``[realtime]``; the solver-only kernel: the
 admm steps and ``[sharded]``) and its bound
 on the H100: the larger of the operations the algorithm needs over 67
 TFLOP/s f32 and its bytes over 3.35 TB/s, counted at this run's shapes and
@@ -152,13 +178,21 @@ script to that checkout's root and run it there with ``--ab``. It skips
 the ``[shape]`` lines (the group kernels' launch shape, which older
 checkouts lack), the solver-only kernel at na=6, the corridor and per-lane
 table phases, the fifth path, the racestep at N=12, the lap learner's
-megastep, the planner, paths 6-9, ``[mega-cache]``, ``[cli]`` and the
-parallel layer's phases (which they do not take), and runs every other
+megastep, the planner, paths 6-9, ``[mega-cache]``, ``[cli]``, the
+parallel layer's phases and the last slice's (which they do not take),
+and runs every other
 phase. A one-call A/B of a change
 runs the parent's copy and the change's script in turn (parent, change,
 change, parent) and compares their lines.
+
+``--trace-megastep <dir>`` is ``[utils]``'s own child process (one traced
+megastep launch). ``--two-cards`` (a host with two cards or more)
+runs only ``[pipelined]``'s pipelined loop twice, with the planner on the
+second card (its default placement there) and on a second stream of the
+tracker's card, and requires the two runs to be bitwise equal.
 """
 
+import bisect
 import dataclasses
 import json
 import os
@@ -205,6 +239,12 @@ CKPT_SAVES = 3                 # saves of its last state timed
 T_GLOBAL = 250         # [global]: closed_loop_global (tests/test_global_loop.py's protocol)
 GLOBAL_SIGMA = (0.02, 0.01, 0.02, 0.01, 0.01, 0.005)
 T_MHE = 90             # [mhe]: tests/test_mhe.py's noisy protocol, W=8, n_gn=2
+T_PIPE = 240           # [pipelined]: tests/test_planner.py:147-185's scenario at its size
+PIPE_H = 192
+PIPE_ITERS = 100       # the fused tracker's fixed count there (see [pipelined])
+TRACE_STEPS = 30       # its traced window: from the plan for segment 2's issue over this many steps of segment 1
+T_RT = 300             # [realtime]: 10 s of car time per run
+K_EKF_EAGER = 30       # frames of its EKF run replayed by the eager filter
 MHE_SIGMA = (0.05, 0.02, 0.05, 0.02, 0.02, 0.02)
 MHE_CPU_LANES = 16
 # the TPU run's quality numbers (PERF_TPU.md:117-133, 121-126, 548-553,
@@ -612,7 +652,8 @@ def kernel_ms(fn, n, kernel, sessions=3):
     without the wrapper's host work around it).
 
     The profiler has been seen to report fewer kernel records than launches
-    that ran (1 of 10 on one H100 run; not reproduced in 160 sessions since).
+    that ran (8-9 of 10 in some sessions of this long-lived script; the
+    records lost are the first of a session; cause not found, PERF.md §7).
     Each session is therefore padded with 0.1 s of idle host time on both
     sides of the calls, a session that reports fewer than n records is
     repeated, up to `sessions` in all, and the mean is taken over the
@@ -2474,6 +2515,413 @@ def main():
         check(run_m["card_vs_cpu"] <= 1e-3, f"[mhe] card and CPU apart by {run_m['card_vs_cpu']:.3e} > 1e-3")
         log(f"[parallel] phases wall {time.perf_counter() - t_par:.1f} s ({card})")
 
+    # ---- 17-19. the last slice, each path driven with the counts set to 0
+    # just before it and read just after: [utils] the profiling and debug
+    # tools, [pipelined] replanning with the planner on a second stream,
+    # [realtime] the deployment loop over the native IO bridge ----
+    pipe = rt = utl = None
+    if not ab:
+        import tempfile
+
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPPConfig
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.io import BridgeUnavailable, CarBridge, realtime_tracking_loop
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import closed_loop, ekf_init, ekf_step, mpc_step
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import (
+            online as online_mod, pipelined_replanning_loop, replanning_loop,
+        )
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils import (
+            checked_closed_loop, cost_analysis, enable_nan_debugging, timed, trace_to,
+        )
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils.nativelib import find_native_lib
+
+        t_new = time.perf_counter()
+
+        def fused_device_ms(fcfg, fscfg, fargs):
+            """One fused solve's own device time (torch.profiler) at these operands."""
+            return kernel_ms(lambda: fused_mpc_solve(fcfg, fscfg, *fargs), 10, "fused_kernel")
+
+        def one_car_fargs(fcfg, ftrack, x, ref, carry, obs=None):
+            """The fused solve's operands of one car's step (batch of one)."""
+            cb = MPCCarry(*(t[None] for t in carry))
+            Xs, Us, kap, xr, lb, ub, x0a, warm = mpc_prepare_light(p, fcfg, ftrack, x[None], ref, cb, obs)
+            return (p, Xs, Us, kap, xr, lb, ub, x0a, warm[0], warm[1], cb.rho)
+
+        # [utils]: timed, trace_to, cost_analysis, the NaN mode and
+        # checked_closed_loop on the card; one megastep launch at cell 1's
+        # shape. The trace is taken in a fresh process that loads the built
+        # kernel library before its first profiler session: in this
+        # long-lived one, sessions have lost their first kernel records
+        # (PERF.md §6, PR 11 after review), and trace_to raises on a trace
+        # without them
+        car_u = megastep_init(scen.params, cfg, track, scen.x0)
+        mstep = lambda c: megastep(cfg, scfg, track, prm, x_ref, c, n_sub=4)
+        ckcfg = SolverConfig(max_iter=40, backend="fused")
+
+        def utils_phase():
+            u = {}
+            secs, _ = timed(mstep, car_u, warmup=1, iters=5)
+            ev = []
+            for _ in range(5):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                e0.record()
+                mstep(car_u)
+                e1.record()
+                torch.cuda.synchronize()
+                ev.append(e0.elapsed_time(e1))
+            u.update(timed_ms=secs * 1e3, events_ms=min(ev))
+            with tempfile.TemporaryDirectory() as tdir:
+                child = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"), "--trace-megastep", tdir],
+                                       capture_output=True, text=True, timeout=300)
+            check(child.returncode == 0, f"[utils] the trace process failed: {child.stderr[-2000:]}")
+            traced = json.loads(child.stdout.strip().splitlines()[-1])
+            u.update(trace_kernels=traced["kernels"], trace_launches=traced["launches"])
+            a = torch.ones((64, 64), device=dev)
+            u["flops"] = cost_analysis(lambda m1, m2: m1 @ m2, a, a)["flops"]
+            enable_nan_debugging()
+            try:
+                try:
+                    torch.sqrt(torch.tensor([-1.0], device=dev))
+                    u["nan_raised"] = None
+                except FloatingPointError as e:
+                    u["nan_raised"] = str(e)
+                mstep(car_u)           # a normal step: raises nothing
+            finally:
+                enable_nan_debugging(False)
+            kx0 = torch.tensor([0.5, 0.0, 0.0, 0.0], device=dev)
+            err_ok, _ = checked_closed_loop(p, kcfg, ckcfg, oval, kx0, constant_refs(kcfg, 1.2), T=30)
+            err_bad, _ = checked_closed_loop(p, kcfg, ckcfg, oval, torch.tensor([0.5, 0.0, 0.0, 25.0], device=dev),
+                                             constant_refs(kcfg, 1.2), T=30, ey_limit=1.0)
+            u.update(check_ok=err_ok.get(), check_bad=err_bad.get())
+            return u
+
+        # timed's 6, the events' 5, the NaN mode's 1 (the trace process
+        # counts its own 2)
+        utl, run_u = driven("utils", utils_phase, {"megastep": 12, "fused": 60})
+        utl.update(run_u)
+        log(f"[utils] timed {utl['timed_ms']:.4f} ms against CUDA events {utl['events_ms']:.4f} ms per cell-1 "
+            f"megastep; trace_to's kernels {utl['trace_kernels']} ({utl['trace_launches']} megastep launches in the trace "
+            f"process); cost_analysis of a 64^3 matmul "
+            f"{utl['flops']:.0f} flops; NaN mode: {utl['nan_raised']!r}; checked_closed_loop sane "
+            f"{utl['check_ok']!r}, e_y=25 {utl['check_bad']!r} ({card})")
+        check(abs(utl["timed_ms"] - utl["events_ms"]) <= 0.2 * utl["events_ms"],
+              "[utils] timed is not within 20% of CUDA events")
+        check(any("megastep_kernel" in k for k in utl["trace_kernels"]), "[utils] the trace names no megastep_kernel")
+        check(utl["flops"] >= 2 * 64 ** 3 * 0.5, f"[utils] cost_analysis reports {utl['flops']} flops")
+        check(utl["nan_raised"] is not None and "sqrt" in utl["nan_raised"], "[utils] the NaN mode did not raise")
+        check(utl["check_ok"] is None and utl["check_bad"] is not None, "[utils] checked_closed_loop misjudged")
+
+        # [pipelined]: tests/test_planner.py:147-185 at its size, the tracker on
+        # the fused kernel; the serial loop first (plans and segments timed
+        # between syncs), then the pipelined loop, then the pipelined loop
+        # again under the port's trace_to
+        pcfg_t = MPCConfig(N=16, model="dynamic")
+        # the JAX test's tracker runs 60 iterations with rho adapted every 20;
+        # the fused kernel adapts rho once per solve, so at 60 it terminates
+        # formally on fewer steps (the run at 60 below is reported, not
+        # gated) and the gated runs give it PIPE_ITERS. JAX's own loop on
+        # the once-per-solve schedule converges on the same share as the
+        # port's fused route (tests/test_torch_online.py::
+        # test_fused_tracker_at_60_iterations_follows_the_rho_schedule)
+        pscfg = SolverConfig(max_iter=PIPE_ITERS, rho_interval=0, backend="fused")
+        ppcfg = MPPConfig(H=PIPE_H, n_sqp=2)
+        x0p = torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0, 0.0], device=dev)
+        blk = np.array([[4.0, 5.0, -0.4, 0.1]], np.float32)
+        pargs = (p, pcfg_t, pscfg, ppcfg, oval, x0p, T_PIPE)
+        pkw = dict(replan_every=REPLAN_EVERY, obstacles_fn=lambda t: blk if t >= REPLAN_EVERY else None)
+        orig_plan, orig_seg = online_mod.plan_mpp, online_mod._track_segment
+        split = {"plan": [], "segment": []}
+
+        def synced(key, fn):
+            def f(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                split[key].append(time.perf_counter() - t0)
+                return out
+            return f
+
+        online_mod.plan_mpp = synced("plan", orig_plan)
+        online_mod._track_segment = lambda *a: synced("segment", orig_seg(*a))
+        try:
+            res_s, run_s = driven("pipelined-serial", lambda: replanning_loop(*pargs, **pkw), {"fused": T_PIPE})
+        finally:
+            online_mod.plan_mpp, online_mod._track_segment = orig_plan, orig_seg
+        res_60, run_60 = driven("pipelined-serial-60", lambda: replanning_loop(
+            p, pcfg_t, pscfg.replace(max_iter=60), ppcfg, oval, x0p, T_PIPE, **pkw), {"fused": T_PIPE})
+        seg_in = []     # the pipelined run's segment inputs (x, carry, table, blocks): references only
+
+        def recording(*a):
+            run = orig_seg(*a)
+
+            def f(x, carry, table, obstacles=None):
+                seg_in.append((x, carry, table, obstacles))
+                return run(x, carry, table, obstacles)
+            return f
+
+        online_mod._track_segment = recording
+        try:
+            res_p, run_p = driven("pipelined", lambda: pipelined_replanning_loop(*pargs, **pkw), {"fused": T_PIPE})
+        finally:
+            online_mod._track_segment = orig_seg
+        # the trace: trace_to over a third pipelined run, from just before
+        # the plan for segment 2 is issued (its thread is born inside the
+        # session: a planner thread born before it was seen to leave no
+        # kernel records) over TRACE_STEPS tracker steps of segment 1; the
+        # window's exit synchronises the card, so this run's wall is not
+        # the pipelined one's
+        import autonomous_racing_lpv_mpp_mpc_tpu_torch.loop.mpc as mpc_mod
+        orig_step, window = mpc_mod.mpc_step, {"k": 0}
+
+        def windowed_obstacles(t):
+            if t == 2 * REPLAN_EVERY and "cm" not in window:     # the plan for segment 2 is issued next
+                window["cm"] = trace_to(tdir)
+                window["tr"], window["t0"] = window["cm"].__enter__(), time.perf_counter()
+            return pkw["obstacles_fn"](t)
+
+        def windowed_step(*a, **k):
+            out = orig_step(*a, **k)
+            window["k"] += 1
+            if window["k"] == REPLAN_EVERY + TRACE_STEPS:
+                window["cm"].__exit__(None, None, None)
+                window["s"] = time.perf_counter() - window["t0"]
+            return out
+
+        with tempfile.TemporaryDirectory() as tdir:
+            mpc_mod.mpc_step = windowed_step
+            try:
+                res_tr, run_tr = driven("pipelined-traced", lambda: pipelined_replanning_loop(
+                    *pargs, replan_every=REPLAN_EVERY, obstacles_fn=windowed_obstacles), {"fused": T_PIPE})
+            finally:
+                mpc_mod.mpc_step = orig_step
+            check("s" in window, "[pipelined] the traced window did not close")
+            t0 = time.perf_counter()
+            trace_mb = os.path.getsize(window["tr"].path) / 2 ** 20
+            with open(window["tr"].path) as f:
+                kern = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel" and e.get("ph") == "X"]
+            trace_s, traced_seg_s = time.perf_counter() - t0, window["s"]
+        # the tracker's stream is the one the fused kernel ran on; the
+        # planner's is every other stream with kernels after the first plan
+        t_stream = {e["args"]["stream"] for e in kern if "fused_kernel" in e["name"]}
+        check(len(t_stream) == 1, f"[pipelined] the fused kernel ran on streams {t_stream}")
+        t_iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in kern if e["args"]["stream"] in t_stream)
+        union = []
+        for a, b in t_iv:
+            if union and a <= union[-1][1]:
+                union[-1][1] = max(union[-1][1], b)
+            else:
+                union.append([a, b])
+        starts = [u[0] for u in union]
+        p_kern = [e for e in kern if e["args"]["stream"] not in t_stream]
+        p_busy = sum(e["dur"] for e in p_kern)
+        p_over = 0.0
+        for e in p_kern:
+            a, b = e["ts"], e["ts"] + e["dur"]
+            i = max(0, bisect.bisect_right(starts, a) - 1)
+            while i < len(union) and union[i][0] < b:
+                p_over += max(0.0, min(b, union[i][1]) - max(a, union[i][0]))
+                i += 1
+        X_s, X_p = res_s.log.X.cpu().numpy(), res_p.log.X.cpu().numpy()
+        L_oval = float(oval.length)
+
+        def jax_checks(res):
+            X = res.log.X.cpu().numpy()
+            s_mod = X[:, 4] % L_oval
+            mask = (np.arange(X.shape[0]) > 80) & (s_mod > 4.3) & (s_mod < 4.7)
+            return {"s_end": float(X[-1, 4]), "converged": res.log.converged.float().mean().item(),
+                    "ey_past_block": float(X[mask, 5].min()) if mask.any() else float("nan"),
+                    "finite": bool(np.isfinite(X).all())}
+
+        # the boundary predictor on the card against the same call on CPU
+        # copies, at segment 2's start state and table
+        x2, car2, tab2, obs2 = seg_in[2]
+        predict = online_mod._boundary_predictor(pcfg_t, REPLAN_EVERY)
+        pred_err = (predict(tab2, x2).cpu() - predict(tab2.to("cpu"), x2.cpu())).abs().max().item()
+        # the fused kernel at this path's shape, one solve from the loop's
+        # carry at step 120
+        fargs_p = one_car_fargs(pcfg_t, oval, x2, tab2, car2, obs2)
+        held_p = fused_held("pipelined", pcfg_t, pscfg, fargs_p)
+        held_p["device_ms"] = fused_device_ms(pcfg_t, pscfg, fargs_p)
+        # and at the JAX test's 60 iterations (the reported serial run's count)
+        held_p60 = fused_held("pipelined-60", pcfg_t, pscfg.replace(max_iter=60), fargs_p)
+        seg_s, plan_s = split["segment"], split["plan"]
+        n_seg = len(seg_s)
+        # the prediction from the serial run's own times; the first plan of
+        # the pipelined run replays graphs the serial run captured
+        plan0 = float(np.median(plan_s[1:]))
+        predicted = plan0 + sum(max(seg_s[k], plan_s[k + 1]) for k in range(n_seg - 1)) + seg_s[-1]
+        pipe = {"launches": {"serial": run_s["launches"]["fused"], "serial-60": run_60["launches"]["fused"],
+                             "pipelined": run_p["launches"]["fused"], "traced": run_tr["launches"]["fused"]},
+                "wall_serial_s": run_s["wall_s"], "wall_pipelined_s": run_p["wall_s"],
+                "wall_traced_s": run_tr["wall_s"], "predicted_s": predicted,
+                "saving_max_s": sum(min(seg_s[k], plan_s[k + 1]) for k in range(n_seg - 1)),
+                "plan_s": plan_s, "segment_s": seg_s, "overlap_share": p_over / max(p_busy, 1e-9),
+                "planner_device_ms": p_busy / 1e3, "planner_streams": len({e["args"]["stream"] for e in p_kern}),
+                "trace_mb": trace_mb, "trace_s": trace_s, "traced_window_s": traced_seg_s, "pred_err": pred_err,
+                "held": held_p, "held_60": held_p60,
+                "jax": {"serial": jax_checks(res_s), "pipelined": jax_checks(res_p)},
+                "jax_60": jax_checks(res_60),
+                "first_segment_bitwise": all(torch.equal(a[:REPLAN_EVERY], b[:REPLAN_EVERY])
+                                             for a, b in zip(res_s.log, res_p.log)),
+                "replans": (res_s.replan_steps.tolist(), res_p.replan_steps.tolist(),
+                            res_tr.replan_steps.tolist()),
+                "max_dx": float(np.abs(X_s - X_p).max())}
+        log(f"[pipelined] oval N=16 fused ({PIPE_ITERS} fixed iterations), H={PIPE_H} n_sqp=2, T={T_PIPE}, a replan every {REPLAN_EVERY}: serial "
+            f"{pipe['wall_serial_s']:.3f} s (plans {', '.join(f'{t:.3f}' for t in plan_s)} s; segments "
+            f"{', '.join(f'{t:.3f}' for t in seg_s)} s), pipelined {pipe['wall_pipelined_s']:.3f} s against "
+            f"plan_0 + sum max(segment_k, plan_k+1) + last segment = {predicted:.3f} s (at most "
+            f"{pipe['saving_max_s']:.3f} s can be hidden: each plan outlasts its segment), traced "
+            f"{pipe['wall_traced_s']:.3f} s ({card})")
+        log(f"[pipelined] trace from the plan for segment 2's issue over tracker steps {REPLAN_EVERY}-"
+            f"{REPLAN_EVERY + TRACE_STEPS - 1} ({trace_mb:.1f} MB, trace_to; the window with the trace's export "
+            f"{traced_seg_s:.2f} s, read in {trace_s:.2f} s): the planner's {len(p_kern)} kernels on "
+            f"{pipe['planner_streams']} stream(s), {pipe['planner_device_ms']:.1f} ms of device time, overlap the "
+            f"tracker stream's kernels for {pipe['overlap_share']:.4f} of it; replan steps {pipe['replans']}; "
+            f"first segment bitwise equal: {pipe['first_segment_bitwise']}; serial vs pipelined max |dX| "
+            f"{pipe['max_dx']:.3e}; predictor card vs CPU {pred_err:.3e}; fused device {held_p['device_ms']:.4f} ms "
+            f"at B=1 N=16; JAX checks {pipe['jax']}; the serial loop at the JAX test's 60 iterations (reported): "
+            f"{pipe['jax_60']}")
+        for tag, jc in pipe["jax"].items():
+            check(jc["finite"], f"[pipelined] {tag}: non-finite states")
+            check(jc["s_end"] > 1.5 * L_oval, f"[pipelined] {tag}: s at the end {jc['s_end']:.3f} <= 1.5 laps")
+            check(jc["converged"] > 0.85, f"[pipelined] {tag}: converged {jc['converged']:.4f} <= 0.85")
+            check(jc["ey_past_block"] > 0.1, f"[pipelined] {tag}: e_y past the block {jc['ey_past_block']:.4f} <= 0.1")
+        want_steps = list(range(0, T_PIPE, REPLAN_EVERY))
+        check(all(r == want_steps for r in pipe["replans"]), f"[pipelined] replan steps {pipe['replans']}")
+        check(pipe["first_segment_bitwise"], "[pipelined] the first segment differs between serial and pipelined")
+        check(pred_err <= 1e-5, f"[pipelined] the predictor's card and CPU results differ by {pred_err:.3e}")
+        check(pipe["overlap_share"] > 0.0, "[pipelined] the planner's kernels never overlapped the tracker's")
+
+        # [realtime]: the deployment loop over the shm bridge; the car is
+        # tests/_torch_car_worker.py in a child process (the port only, its
+        # plant on the CPU), the controller this process on the card
+        t0 = time.perf_counter()
+        find_native_lib("libiobridge.so", "libiobridge.so")     # raises if it cannot be built
+        bridge_s = time.perf_counter() - t0
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+        from _torch_car_worker import NOISE_SIGMA, X0 as CAR_X0
+
+        def hil(tag, extra, loop_args, **loop_kw):
+            """(the car's JSON result, RealtimeLog) of T_RT lockstep frames."""
+            name = f"/arl_smoke_{tag}_{os.getpid()}"
+            child = subprocess.Popen([sys.executable, os.path.join(HERE, "tests", "_torch_car_worker.py"), name,
+                                      str(T_RT), "shm", *extra], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+            try:
+                t_end = time.monotonic() + 120.0
+                while True:
+                    try:
+                        br = CarBridge(name)
+                        break
+                    except BridgeUnavailable:
+                        if child.poll() is not None:
+                            fail(f"[realtime] the car process ended: {child.communicate()[1][-2000:]}")
+                        check(time.monotonic() < t_end, f"[realtime] the car's bridge {name} never appeared")
+                        time.sleep(0.05)
+                try:
+                    rlog = realtime_tracking_loop(*loop_args, br, T_RT, **loop_kw)
+                finally:
+                    br.close()
+                out, err = child.communicate(timeout=300)
+                check(child.returncode == 0, f"[realtime] the car process failed: {err[-2000:]}")
+            finally:
+                if child.poll() is None:
+                    child.kill()
+                    child.communicate()
+            return json.loads(out.strip().splitlines()[-1]), rlog
+
+        def replay_carry(rcfg, rscfg, rtrack, ref, rlog, k_end):
+            """The loop's carry after k_end frames, from mpc_init on the first
+            raw frame and one mpc_step per state fed to the MPC, and whether
+            each replayed control equals the logged one."""
+            fr, U = torch.as_tensor(rlog.X_est, device=dev), rlog.U
+            c, same = mpc_init(p, rcfg, rtrack, torch.as_tensor(rlog.X[0], device=dev)), True
+            for k in range(k_end):
+                u, c, _ = mpc_step(p, rcfg, rscfg, rtrack, fr[k], ref, c)
+                same = same and bool(np.array_equal(u.cpu().numpy(), U[k]))
+            return fr[k_end], c, same
+
+        def rt_stats(rlog):
+            ms = np.sort(rlog.solve_s.astype(np.float64)) * 1e3
+            return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+                    "max_ms": float(ms[-1]), "missed": int(rlog.missed.sum()),
+                    "frames_ok": bool(np.array_equal(rlog.frame_counts, np.arange(1, T_RT + 1))),
+                    "converged": float(np.mean(rlog.converged))}
+
+        rt = {"bridge_build_s": bridge_s}
+        # (a) the noise-free lockstep car: cell 3's tracker for one car on the racetrack
+        cfg_a = MPCConfig(N=N_MAIN, model="dynamic")
+        scfg_a = SolverConfig(max_iter=20, rho_interval=0, early_exit=False, check_termination=2, backend="fused")
+        ref_a = constant_refs(cfg_a, 1.8)
+        (res_a, log_a), run_a = driven("realtime-lockstep", lambda: hil(
+            "rta", ["clean", "racetrack"], (p, cfg_a, scfg_a, track, ref_a)), {"fused": T_RT + 1})
+        ref_loop = closed_loop(p, cfg_a, scfg_a, track, torch.tensor(CAR_X0, device=dev), ref_a, T=T_RT)
+        xa, ca, same_a = replay_carry(cfg_a, scfg_a, track, ref_a, log_a, T_RT // 2)
+        fargs_a = one_car_fargs(cfg_a, track, xa, ref_a, ca)
+        held_a = fused_held("realtime-lockstep", cfg_a, scfg_a, fargs_a)
+        held_a["device_ms"] = fused_device_ms(cfg_a, scfg_a, fargs_a)
+        rt["lockstep"] = {**rt_stats(log_a), **run_a, "held": held_a, "replay_equal": same_a,
+                          "dx_final": float(np.abs(np.asarray(res_a["x_final"]) - ref_loop.X[-1].cpu().numpy()).max()),
+                          "dU": float(np.abs(log_a.U - ref_loop.U.cpu().numpy()).max())}
+        # (b) the noisy, glitchy car of tests/_car_worker.py on the JAX test's
+        # controller with the EKF in the chain
+        cfg_b = MPCConfig(N=10, model="dynamic")
+        scfg_b = SolverConfig(max_iter=30, rho_interval=0, backend="fused")
+        ref_b = constant_refs(cfg_b, 1.5)
+        (res_b, log_b), run_b = driven("realtime-ekf", lambda: hil(
+            "rtb", ["noise", "oval"], (p, cfg_b, scfg_b, oval, ref_b), use_ekf=True,
+            ekf_r=np.asarray(NOISE_SIGMA) ** 2), {"fused": T_RT + 1})
+        # the graphed filter against the eager ekf_step on the run's first
+        # K_EKF_EAGER raw frames and published controls
+        e_x = ekf_init(torch.as_tensor(log_b.X[0], device=dev)[None])
+        Qn = torch.diag(torch.tensor(DEFAULT_EKF_Q, device=dev))
+        Rn = torch.diag(torch.tensor(np.asarray(NOISE_SIGMA) ** 2, dtype=torch.float32, device=dev))
+        u_prev, ekf_gap = torch.zeros(2, device=dev), 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(K_EKF_EAGER):
+            e_x = ekf_step(p, cfg_b, oval, e_x, u_prev[None], torch.as_tensor(log_b.X[k], device=dev)[None], Qn, Rn,
+                           gate_sigma=3.0)
+            ekf_gap = max(ekf_gap, float(np.abs(e_x.x[0].cpu().numpy() - log_b.X_est[k]).max()))
+            u_prev = torch.as_tensor(log_b.U[k], device=dev)
+        eager_ekf_ms = (time.perf_counter() - t0) / K_EKF_EAGER * 1e3
+        truth = np.asarray(res_b["traj_true"], np.float32)[: T_RT - 1]
+        rms = lambda a, i: float(np.sqrt(np.mean((a[1:, i] - truth[:, i]) ** 2)))
+        xb, cb_, same_b = replay_carry(cfg_b, scfg_b, oval, ref_b, log_b, T_RT // 2)
+        fargs_b = one_car_fargs(cfg_b, oval, xb, ref_b, cb_)
+        held_b = fused_held("realtime-ekf", cfg_b, scfg_b, fargs_b)
+        held_b["device_ms"] = fused_device_ms(cfg_b, scfg_b, fargs_b)
+        rt["ekf"] = {**rt_stats(log_b), **run_b, "held": held_b, "replay_equal": same_b,
+                     "vx_end": res_b["x_final"][0], "graphed_vs_eager": ekf_gap, "eager_ekf_ms": eager_ekf_ms, "ey_rms_true": res_b["ey_rms_true"],
+                     "est_rms": {i: (rms(log_b.X_est, i), rms(log_b.X, i)) for i in (3, 5)}}
+        for tag in ("lockstep", "ekf"):
+            r = rt[tag]
+            log(f"[realtime] {tag}: {T_RT} frames over the shm bridge, solve_s p50 {r['p50_ms']:.3f} ms, p99 "
+                f"{r['p99_ms']:.3f} ms, max {r['max_ms']:.3f} ms, {r['missed']} deadline misses at 30 Hz, fused "
+                f"kernel {r['held']['device_ms']:.4f} ms device / {r['held']['solve_ms']:.4f} ms events per B=1 "
+                f"solve; frames 1..T {r['frames_ok']}, converged {r['converged']:.4f}, replayed controls equal "
+                f"{r['replay_equal']}, wall {r['wall_s']:.2f} s ({card})")
+            check(r["frames_ok"], f"[realtime] {tag}: frame counts are not 1..{T_RT}")
+            check(r["replay_equal"], f"[realtime] {tag}: the replayed controls differ from the loop's")
+            check(r["p50_ms"] < 1e3 / 30, f"[realtime] {tag}: median solve {r['p50_ms']:.3f} ms >= 1/30 s")
+        ra, rb = rt["lockstep"], rt["ekf"]
+        log(f"[realtime] lockstep against the in-process closed_loop on the card: |dx_final| {ra['dx_final']:.3e}, "
+            f"max |dU| {ra['dU']:.3e}; ekf: vx at the end {rb['vx_end']:.4f}, true e_y rms {rb['ey_rms_true']:.4f}, "
+            f"estimate rms (EKF, raw frames) e_psi {rb['est_rms'][3]}, e_y {rb['est_rms'][5]}; the graphed EKF against "
+            f"the eager step over {K_EKF_EAGER} frames {rb['graphed_vs_eager']:.3e} (the eager step "
+            f"{rb['eager_ekf_ms']:.2f} ms with its host reads); bridge built in "
+            f"{bridge_s:.2f} s")
+        check(ra["dx_final"] <= 1e-3 and ra["dU"] <= 1e-3, "[realtime] lockstep: beyond 1e-3 of closed_loop")
+        check(rb["graphed_vs_eager"] <= 1e-6, f"[realtime] ekf: the graphed filter is {rb['graphed_vs_eager']:.3e} "
+              "from the eager step")
+        check(rb["vx_end"] > 1.2, f"[realtime] ekf: vx at the end {rb['vx_end']:.4f} <= 1.2")
+        check(rb["ey_rms_true"] < 0.12, f"[realtime] ekf: true e_y rms {rb['ey_rms_true']:.4f} >= 0.12")
+        for i, (e_ekf, e_raw) in rb["est_rms"].items():
+            check(e_ekf < 0.5 * e_raw, f"[realtime] ekf: channel {i} estimate rms {e_ekf:.4f} >= 0.5 x raw {e_raw:.4f}")
+
+        log(f"[last-slice] phases wall {time.perf_counter() - t_new:.1f} s ({card})")
+
     # ---- bounds: this run's shapes, data and iteration counts ----
     # the admm kernel's stage matrices are its inputs: their patterns are
     # read from this run's QPs (A = Aa, B = Ba there)
@@ -2588,10 +3036,20 @@ def main():
         Sg = model_structure(p, gcfg, gscfg)
         it["fused_kernel global"] = gscfg.max_iter
         per_lane["fused_kernel global"] = (fused_ops(Sg, gcfg.tire, gcfg.N, gscfg.max_iter), fused_bytes(6, gcfg.N))
+    if pipe is not None:
+        # [pipelined] and [realtime]: the fused kernel at B=1 and a fixed count
+        # of max_iter (no early exit), at each path's N
+        for key, (fcfg, fscfg) in {"fused_kernel pipelined": (pcfg_t, pscfg),
+                                   "fused_kernel realtime-lockstep": (cfg_a, scfg_a),
+                                   "fused_kernel realtime-ekf": (cfg_b, scfg_b)}.items():
+            it[key] = fscfg.max_iter
+            per_lane[key] = (fused_ops(model_structure(p, fcfg, fscfg), fcfg.tire, fcfg.N, fscfg.max_iter),
+                             fused_bytes(6, fcfg.N))
+            lanes[key] = 1
     bounds = {k: bound(lanes.get(k, B_MAIN) * o, lanes.get(k, B_MAIN) * b + shared.get(k, 0))
               for k, (o, b) in per_lane.items()}
     log("[bound] per launch on the H100 at B=4096 unless named (67 TFLOP/s f32, 3.35 TB/s): " + "; ".join(
-        f"{k} {bounds[k][0]:.4f} ms ({bounds[k][1]}: {per_lane[k][0]:,.0f} operations and "
+        f"{k} {bounds[k][0]:.4g} ms ({bounds[k][1]}: {per_lane[k][0]:,.0f} operations and "
         f"{per_lane[k][1]:,.0f} B per lane at {it[k]:.2f} executed iterations)" for k in per_lane))
 
     src = f"{PKG}/ops/csrc"
@@ -2711,6 +3169,35 @@ def main():
                            ("admm_kernel", ("sharded-step",))):
             rec[name]["launches"] += sum(sum(par[r]["launches"].values()) for r in runs)
         dist.destroy_process_group()
+    if pipe is not None:
+        # the last slice's paths: the fused kernel's launches and numbers at
+        # B=1 (each one's events ms, device ms and check against plain from
+        # the path's own carry); the [utils] launches of the megastep and
+        # of the kinematic fused kernel
+        rec = {k["name"]: k for k in kernels}
+
+        def b1(key, held, **kw):
+            b_ms, b_by = bounds[key]
+            return {"ms": held["solve_ms"], "device_ms": held["device_ms"], "max_abs_err": held["max_abs_err"],
+                    "plain_ms": held["plain_ms"], "bound_ms": b_ms, "bound_by": b_by, **kw}
+
+        n_pipe, n_rt = sum(pipe["launches"].values()), rt["lockstep"]["launches"]["fused"] + rt["ekf"]["launches"]["fused"]
+        paths = rec["fused_kernel"].setdefault("paths", {})
+        paths["pipelined"] = b1("fused_kernel pipelined", pipe["held"], launches=n_pipe, runs=pipe["launches"],
+                                max_abs_err_60=pipe["held_60"]["max_abs_err"],
+                                wall_serial_s=pipe["wall_serial_s"], wall_pipelined_s=pipe["wall_pipelined_s"],
+                                predicted_s=pipe["predicted_s"], overlap_share=pipe["overlap_share"])
+        paths["realtime"] = {"launches": n_rt, "runs": {
+            tag: b1(f"fused_kernel realtime-{tag}", rt[tag]["held"], launches=rt[tag]["launches"]["fused"],
+                    solve_p50_ms=rt[tag]["p50_ms"], solve_p99_ms=rt[tag]["p99_ms"], missed=rt[tag]["missed"])
+            for tag in ("lockstep", "ekf")}}
+        rec["fused_kernel"]["launches"] += n_pipe + n_rt
+        rec["megastep_kernel"].setdefault("paths", {})["utils"] = {
+            "launches": utl["launches"]["megastep"], "timed_ms": utl["timed_ms"], "events_ms": utl["events_ms"],
+            "trace_process_launches": utl["trace_launches"]}
+        rec["megastep_kernel"]["launches"] += utl["launches"]["megastep"]
+        rec["fused_kernel_kinematic"].setdefault("paths", {})["utils"] = {"launches": utl["launches"]["fused"]}
+        rec["fused_kernel_kinematic"]["launches"] += utl["launches"]["fused"]
     log(f"[total] chip_smoke.py wall {time.perf_counter() - t_script:.1f} s, the kernels' build included")
     if mega_cache is not None:
         # the cached instantiation's path figures beside its record's
@@ -2723,5 +3210,113 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def trace_megastep_child(logdir):
+    """``python3 chip_smoke.py --trace-megastep <dir>``, started by [utils]:
+    one megastep launch at cell 1's shape under ``utils.trace_to`` in a
+    fresh process (the kernel library is the one the parent built); prints
+    the trace's kernel names as one JSON line."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPCConfig, SolverConfig, VehicleParams
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import constant_refs
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.megastep_kernel import megastep, megastep_init, megastep_params
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.parallel import make_scenario_grid
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import racetrack
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils import trace_to
+
+    p, cfg = VehicleParams(), MPCConfig(N=N_MAIN, model="dynamic")
+    scfg = SolverConfig(max_iter=20, rho_interval=0, early_exit=True, check_termination=2)
+    track = racetrack()
+    scen = make_scenario_grid(p, cfg, n_ey=64, n_mu=B_MAIN // 64, vx0=1.5)
+    prm = megastep_params(scen.params, B_MAIN)
+    car, ref = megastep_init(scen.params, cfg, track, scen.x0), constant_refs(cfg, 1.8)
+    megastep(cfg, scfg, track, prm, ref, car, n_sub=4)
+    torch.cuda.synchronize()
+    with trace_to(logdir) as tr:
+        megastep(cfg, scfg, track, prm, ref, car, n_sub=4)
+    with open(tr.path) as f:
+        names = sorted({e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"})
+    print(json.dumps({"kernels": names, "launches": megastep.launches}), flush=True)
+
+
+def two_cards():
+    """``python3 chip_smoke.py --two-cards``, on a host with two cards or
+    more: [pipelined]'s scenario with the planner on the second card (the
+    default placement there) against the same loop with the planner on a
+    second stream of the tracker's card. Every log field and planned span
+    must be bitwise equal, every plan after the first must be made on the
+    second card, and the tracker must run on the fused kernel."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        fail("--two-cards needs two CUDA devices")
+    sys.path.insert(0, HERE)
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPCConfig, MPPConfig, SolverConfig, VehicleParams
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import fused_mpc_solve
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import online as online_mod, pipelined_replanning_loop
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track
+
+    card = gpu_name_power()
+    log(f"[two-cards] {torch.cuda.device_count()} x {card}")
+    _cuda.library()
+    oval = oval_track()
+    args = (VehicleParams(), MPCConfig(N=16, model="dynamic"),
+            SolverConfig(max_iter=PIPE_ITERS, rho_interval=0, backend="fused"), MPPConfig(H=PIPE_H, n_sqp=2), oval,
+            torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0, 0.0], device="cuda:0"), T_PIPE)
+    blk = np.array([[4.0, 5.0, -0.4, 0.1]], np.float32)
+    orig_plan, plan_devs = online_mod.plan_mpp, []
+
+    def recording(p, pcfg, track, **k):
+        plan_devs.append(str(track.kappa.device))
+        return orig_plan(p, pcfg, track, **k)
+
+    runs = {}
+    online_mod.plan_mpp = recording
+    try:
+        for tag, planner_device in (("one card", "cuda:0"), ("two cards", None)):
+            plan_devs.clear()
+            fused_mpc_solve.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pipelined_replanning_loop(*args, replan_every=REPLAN_EVERY, planner_device=planner_device,
+                                            obstacles_fn=lambda t: blk if t >= REPLAN_EVERY else None)
+            torch.cuda.synchronize()
+            runs[tag] = {"res": res, "plans_on": list(plan_devs), "wall_s": time.perf_counter() - t0,
+                         "launches": fused_mpc_solve.launches}
+    finally:
+        online_mod.plan_mpp = orig_plan
+    one, two = runs["one card"]["res"], runs["two cards"]["res"]
+    L = float(oval.length)
+    X = two.log.X.cpu().numpy()
+    s_mod = X[:, 4] % L
+    mask = (np.arange(X.shape[0]) > 80) & (s_mod > 4.3) & (s_mod < 4.7)
+    out = {"plans_on": {k: r["plans_on"] for k, r in runs.items()},
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "bitwise": all(torch.equal(a, b) for a, b in zip(one.log, two.log)),
+           "max_dx": (one.log.X - two.log.X).abs().max().item(),
+           "spans_equal": bool(np.array_equal(one.plan_progress, two.plan_progress)),
+           "replans": two.replan_steps.tolist(), "s_end": float(X[-1, 4]),
+           "converged": two.log.converged.float().mean().item(),
+           "ey_past_block": float(X[mask, 5].min()) if mask.any() else float("nan")}
+    log(f"[two-cards] {json.dumps(out)} ({card})")
+    check(out["plans_on"]["two cards"] == ["cuda:1"] * (T_PIPE // REPLAN_EVERY),
+          "[two-cards] the plans were not made on the second card")
+    check(all(n == T_PIPE for n in out["launches"].values()), f"[two-cards] fused launches {out['launches']}")
+    check(out["bitwise"] and out["spans_equal"], f"[two-cards] the placements differ: max |dX| {out['max_dx']:.3e}")
+    check(out["replans"] == list(range(0, T_PIPE, REPLAN_EVERY)), f"[two-cards] replan steps {out['replans']}")
+    check(out["s_end"] > 1.5 * L and out["converged"] > 0.85 and out["ey_past_block"] > 0.1,
+          "[two-cards] the JAX test's checks failed")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--trace-megastep"]:
+        trace_megastep_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--two-cards"]:
+        two_cards()
+    else:
+        main()

@@ -4,9 +4,11 @@ The two C++ shared libraries (`native/libosqpcore.so`, the host QP core,
 and `native/libiobridge.so`, the real-car IO bridge) are plain C-ABI
 libraries loaded via ctypes — NOT Python extension modules — so the build
 compiles them with the platform compiler and ships them as package data
-under `autonomous_racing_lpv_mpp_mpc_tpu/native/`. The ctypes loaders
-(`oracle/native.py`, `io/bridge.py`) look in the packaged location first
-and fall back to building from `native/` in a source checkout.
+under `autonomous_racing_lpv_mpp_mpc_tpu/native/` and, for the PyTorch
+port, `autonomous_racing_lpv_mpp_mpc_tpu_torch/native/`. The ctypes
+loaders (`oracle/native.py`, both packages' `io/bridge.py`) look in the
+packaged location first and fall back to building from `native/` in a
+source checkout.
 
 Build: `python setup.py build_ext --inplace` or any PEP 517 frontend.
 """
@@ -21,8 +23,8 @@ from setuptools.extension import Extension
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NATIVE = os.path.join(HERE, "native")
-PKG_NATIVE = os.path.join(
-    HERE, "autonomous_racing_lpv_mpp_mpc_tpu", "native")
+PKG_NATIVES = [os.path.join(HERE, pkg, "native") for pkg in (
+    "autonomous_racing_lpv_mpp_mpc_tpu", "autonomous_racing_lpv_mpp_mpc_tpu_torch")]
 
 LIBS = {
     "libosqpcore.so": (["osqp_core.cpp"], []),
@@ -38,7 +40,8 @@ class BuildNativeLibs(_build_ext):
         cxx = os.environ.get("CXX", "g++")
         cxxflags = os.environ.get(
             "CXXFLAGS", "-O3 -march=native -fPIC -std=c++17 -Wall").split()
-        os.makedirs(PKG_NATIVE, exist_ok=True)
+        for pkg_native in PKG_NATIVES:
+            os.makedirs(pkg_native, exist_ok=True)
         for lib, (sources, extra_link) in LIBS.items():
             srcs = [os.path.join(NATIVE, s) for s in sources]
             out = os.path.join(NATIVE, lib)
@@ -47,11 +50,13 @@ class BuildNativeLibs(_build_ext):
                        *extra_link]
                 print(" ".join(cmd))
                 subprocess.run(cmd, check=True)
-            shutil.copy2(out, os.path.join(PKG_NATIVE, lib))
-        # an __init__ makes the dir a package so package_data applies
-        init = os.path.join(PKG_NATIVE, "__init__.py")
-        if not os.path.exists(init):
-            open(init, "w").close()
+            for pkg_native in PKG_NATIVES:
+                shutil.copy2(out, os.path.join(pkg_native, lib))
+        # an __init__ makes each dir a package so package_data applies
+        for pkg_native in PKG_NATIVES:
+            init = os.path.join(pkg_native, "__init__.py")
+            if not os.path.exists(init):
+                open(init, "w").close()
 
     @staticmethod
     def _up_to_date(out, srcs):
@@ -68,5 +73,6 @@ setup(
     cmdclass={"build_ext": BuildNativeLibs},
     package_data={
         "autonomous_racing_lpv_mpp_mpc_tpu.native": ["*.so"],
+        "autonomous_racing_lpv_mpp_mpc_tpu_torch.native": ["*.so"],
     },
 )
