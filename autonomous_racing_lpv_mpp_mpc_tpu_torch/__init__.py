@@ -28,14 +28,17 @@ an obvious counterpart:
                  ``checked_closed_loop`` (numerical safety).
 - ``ops``      — hand-written CUDA kernels (``ops/csrc``) with their plain
                  PyTorch versions beside them.
+- ``oracle``   — the CPU numpy OSQP-semantics oracle (ground truth, dense
+                 float64 on the host) and its stacker, with the native C++
+                 core's binding for cross-checks.
 - ``convert``  — hand JAX-package objects (as numpy arrays) to the port and
                  carries back.
 
 Everything is float32. Where JAX ``vmap``s, the batch is a written-out
 dimension; where JAX ``lax.scan``s, this package loops in Python or runs a
 kernel; where JAX ``shard_map``s over a device mesh, each rank of a
-process group runs its shard. The package imports ``torch`` and numpy
-only.
+process group runs its shard. The package imports ``torch``, numpy and,
+for the oracle, scipy only.
 """
 
 import torch as _torch

@@ -11,7 +11,7 @@ racestep also with an obstacle corridor, the racestep with per-lane
 reference tables and at the race presets' N=12 for B=4096 and B=1, the
 megastep as the lap learner runs it: N=10, Pacejka, per-lane references),
 then drives ten main paths, the planner, the cached megastep, the
-experiment command line and the parallel layer:
+experiment command line, the parallel layer and the oracle rungs:
 
 - the batched receding-horizon tracker of ``bench.py``: B=4096 scenarios of
   the dynamic bicycle on the racetrack, N=20, dt=1/30, constant reference
@@ -143,7 +143,17 @@ experiment command line and the parallel layer:
   within 20% of CUDA events on one megastep, a ``trace_to`` trace naming
   the megastep kernel, ``cost_analysis`` of a 64^3 matmul, the NaN mode
   raising on a seeded NaN and not on a megastep step, and
-  ``checked_closed_loop`` flagging e_y = 25.
+  ``checked_closed_loop`` flagging e_y = 25;
+- ``[oracle]``, beside cells 1-3: each CUDA kernel held against the port's
+  f64 OSQP oracle (``oracle/``, numpy on the host, in worker processes) on
+  the QP that ``mpc_prepare`` assembles from the carry the kernel steps
+  from: the megastep at B=1 over one oval lap (N=12, the JAX package's
+  tests/test_headline_oracle.py) and one racetrack lap (N=20, a sinusoidal
+  reference table), every 5th step, under 5e-5; the megastep on cell 1,
+  the racestep on cell 2, the fused kernel on cell 3 and the solver-only
+  kernel on cell 1's admm steps, 32 lanes every 50th step (every admm
+  step), under 5e-4 on the lane-checks converged on both sides (at least
+  90% of them); 16 QPs also by the native C++ core.
 
 The new paths build their tracks, grids and references without naming a
 device: the port's default device is the card. The ``kernels`` line has
@@ -179,8 +189,8 @@ the ``[shape]`` lines (the group kernels' launch shape, which older
 checkouts lack), the solver-only kernel at na=6, the corridor and per-lane
 table phases, the fifth path, the racestep at N=12, the lap learner's
 megastep, the planner, paths 6-9, ``[mega-cache]``, ``[cli]``, the
-parallel layer's phases and the last slice's (which they do not take),
-and runs every other
+parallel layer's phases, the last slice's and ``[oracle]`` (which they
+do not take), and runs every other
 phase. A one-call A/B of a change
 runs the parent's copy and the change's script in turn (parent, change,
 change, parent) and compares their lines.
@@ -199,6 +209,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from typing import NamedTuple
 
 import numpy as np
@@ -247,6 +258,16 @@ T_RT = 300             # [realtime]: 10 s of car time per run
 K_EKF_EAGER = 30       # frames of its EKF run replayed by the eager filter
 MHE_SIGMA = (0.05, 0.02, 0.05, 0.02, 0.02, 0.02)
 MHE_CPU_LANES = 16
+ORACLE_LANES = 32      # [oracle]: lanes checked on the B=4096 rungs, lanes 0 and B-1 among them
+ORACLE_EVERY = 50      # the step stride of those checks
+ORACLE_LAP_EVERY = 5   # and of the one-car laps' (tests/test_headline_oracle.py)
+T_ORACLE_OVAL = 210    # one oval lap at vx_ref 1.5
+T_ORACLE_LAP_MAX = 1200   # the racetrack lap must end within this many steps
+ORACLE_NATIVE = 16     # QPs solved by both oracles
+ORACLE_LAP_TOL = 5e-5  # tests/test_headline_oracle.py:98
+ORACLE_TOL = 5e-4      # the production rung, tests/test_closed_loop.py:101
+ORACLE_KERNEL_TOL = 2e-4   # kernel vs plain: the margin above plain on a lane that plain leaves out of bound
+ORACLE_MIN_CONVERGED = 0.9
 # the TPU run's quality numbers (PERF_TPU.md:117-133, 121-126, 548-553,
 # 585-600), printed beside ours
 TPU_SWEEP = {"corr": 0.956, "converged": 0.989, "ey_p99": 0.114}
@@ -696,6 +717,375 @@ def ptxas_usage(build_log, *parts):
                     regs = int(nxt.split("Used")[1].split("registers")[0])
             return regs, spills
     fail(f"no ptxas entry for {parts}")
+
+
+ORACLE_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+RACE_KW = dict(n_sub=10, n_sub_ekf=4, sim_tire="pacejka")     # make_racestep_scan's filter and plant
+
+
+def carry_lanes(c, idx):
+    """The batch-first MPCCarry of lanes idx (a list, a tensor, or
+    slice(None) for every lane) of a batch-last megastep or racestep carry."""
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import MPCCarry
+
+    fb = lambda t: t[..., idx].movedim(-1, 0)
+    return MPCCarry(X_pred=fb(c.X_pred), U_pred=fb(c.U_pred), s=fb(c.s), lam=fb(c.lam),
+                    u_prev=fb(c.u_prev), rho=c.rho[idx])
+
+
+def oracle_task(payload, native):
+    """[oracle]'s worker: one lane's QP, the fields of a port BoxQP as numpy
+    arrays, stacked and solved by the port's f64 oracle at its default
+    settings. Returns (U[0], converged, primal_infeasible, iterations, and
+    with `native` the C++ core's (converged, iterations, max |x - x_ref|))."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.oracle import (
+        OsqpRefSettings, osqp_ref_solve, stack_boxqp, unstack_solution,
+    )
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.solver.admm import BoxQP
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.solver.riccati import LQRCost, LQRDynamics
+
+    torch.set_num_threads(1)
+    if payload is None:            # the pool's warm-up: the imports alone
+        return None
+    dyn, cost, rest = payload
+    t = torch.from_numpy
+    qp = BoxQP(LQRDynamics(*map(t, dyn)), LQRCost(*map(t, cost)), *map(t, rest))
+    stacked = stack_boxqp(qp)
+    ref = osqp_ref_solve(*stacked, OsqpRefSettings())
+    nat = None
+    if native:
+        from autonomous_racing_lpv_mpp_mpc_tpu_torch.oracle.native import osqp_native_solve
+
+        n = osqp_native_solve(*stacked, OsqpRefSettings())
+        nat = (n.converged, n.iters, float(np.abs(n.x - ref.x).max()))
+    return unstack_solution(qp, ref.x)[1][0], ref.converged, ref.primal_infeasible, ref.iters, nat
+
+
+def oracle_plain_of(rung, cells, saved):
+    """For a cell rung of [oracle], the function of a checked step k that
+    gives u0 (B, 2), indexed by global lane, of the rung's kernel's plain
+    version from what ``saved[k]`` holds: (c) the megastep's carry, (d) the
+    racestep's carry and that step's noise, (e-fused) and (e-admm) the state
+    and the batch-first MPCCarry before the step. `cells` holds main()'s
+    setup of cells 1-3 (see oracle_phase)."""
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import mpc_prepare, mpc_prepare_light
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.admm_kernel import admm_solve_plain
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import fused_solve_plain
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.megastep_kernel import megastep_plain
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.racestep_kernel import racestep_plain
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.solver.scaling import ruiz_row_equilibrate, unscale_solution
+
+    c = cells
+    if rung == "c":
+        return lambda k: megastep_plain(c.cfg, c.scfg, c.track, c.prm, c.x_ref, saved[k], n_sub=4)[1].T
+    if rung == "d":
+        return lambda k: racestep_plain(c.rcfg, c.scfg, c.track, c.rprm, c.table, *saved[k], c.mu_b, c.ekq, c.ekr,
+                                        **RACE_KW)[1].T
+    if rung == "e-fused":
+        def fused_plain(k):
+            xk, ck = saved[k]
+            Xs, Us, kap, xr, lb, ub, x0a, warm = mpc_prepare_light(c.bscen.params, c.cfg, c.track, xk, c.x_ref, ck)
+            return fused_solve_plain(c.cfg, c.fused_fixed, c.bscen.params, Xs, Us, kap, xr, lb, ub, x0a, warm[0],
+                                     warm[1], ck.rho).U[:, 0]
+
+        return fused_plain
+    check(rung == "e-admm", f"[oracle] no plain version for rung {rung}")
+
+    def admm_plain(k):
+        xk, ck = saved[k]
+        qp_b, warm, _ = mpc_prepare(c.scen.params, c.cfg, c.track, xk, c.x_ref, ck)
+        qp_s, sc = ruiz_row_equilibrate(qp_b)
+        s_w, lam_w, Xa_w, U_w = warm
+        sol = admm_solve_plain(qp_s, c.scfg_admm, (s_w * sc.d, lam_w / sc.d, Xa_w, U_w), ck.rho)
+        return unscale_solution(sol, sc).U[:, 0]
+
+    return admm_plain
+
+
+def oracle_gate(rung, rows, out, plain_of=None, suffix=""):
+    """[oracle]'s numbers and gates for one rung. `rows` holds (step, global
+    lane, kernel u0 (2,), kernel converged) per check and `out`
+    oracle_task's answers for them. A lap rung (no `plain_of`): the oracle
+    converged at every check, at least 40 checks, every |du| below
+    ORACLE_LAP_TOL. A cell rung: at least ORACLE_MIN_CONVERGED of the
+    lane-checks converged on both sides, each of those below ORACLE_TOL;
+    where one is not, plain_of(step) (see oracle_plain_of) gives the plain
+    version's u0 from the same carry. Plain out of bound too makes the
+    lane's error the algorithm's, with the bound max(ORACLE_TOL, plain's
+    |du| + ORACLE_KERNEL_TOL); plain within bound is a kernel fault. Logs
+    the rung's line with `suffix` and returns its numbers."""
+    du = np.array([np.abs(r[2] - o[0]).max() for r, o in zip(rows, out)])
+    conv_k = np.array([r[3] for r in rows])
+    conv_o = np.array([o[1] for o in out])
+    pinf = np.array([o[2] for o in out])
+    iters = np.array([o[3] for o in out])
+    both = conv_k & conv_o
+    q = lambda v, x: float(np.percentile(v, x)) if v.size else float("nan")
+    g = du[both]
+    s = {"checks": int(du.size), "converged_both": int(both.sum()), "p50": q(g, 50), "p99": q(g, 99),
+         "max": float(g.max()) if g.size else float("nan"), "oracle_iters_median": q(iters, 50),
+         "kernel_unconverged": int((~conv_k).sum()), "oracle_infeasible": int(pinf.sum()),
+         "oracle_unconverged": int((~conv_o).sum()),
+         "other_max": float(du[~both].max()) if (~both).any() else 0.0}
+    log(f"[oracle] ({rung}) {s['checks']} checks, converged on both sides {s['converged_both']} "
+        f"({s['converged_both'] / max(s['checks'], 1):.4f}): |du| p50 {s['p50']:.3e} p99 {s['p99']:.3e} "
+        f"max {s['max']:.3e}; kernel not converged {s['kernel_unconverged']}, oracle infeasible "
+        f"{s['oracle_infeasible']}, oracle not converged {s['oracle_unconverged']}, their |du| max "
+        f"{s['other_max']:.3e}; oracle iterations median {s['oracle_iters_median']:.0f}{suffix}")
+    if plain_of is None:
+        check(conv_o.all(), f"[oracle] ({rung}) the oracle did not converge at {int((~conv_o).sum())} checks")
+        check(s["checks"] >= 40, f"[oracle] ({rung}) only {s['checks']} checks")
+        s["max_all"] = float(du.max())
+        check(s["max_all"] < ORACLE_LAP_TOL, f"[oracle] ({rung}) max |u_kernel - u_oracle| {s['max_all']:.3e} >= "
+              f"{ORACLE_LAP_TOL}")
+        return s
+    check(s["converged_both"] >= ORACLE_MIN_CONVERGED * s["checks"],
+          f"[oracle] ({rung}) only {s['converged_both']} of {s['checks']} lane-checks converged on both sides")
+    s["algorithmic_lanes"], plain_u = [], {}
+    for i in np.flatnonzero(both & (du >= ORACLE_TOL)):
+        step, lane = rows[i][0], rows[i][1]
+        if step not in plain_u:
+            plain_u[step] = plain_of(step).detach().cpu().double().numpy()
+        du_p = float(np.abs(plain_u[step][lane] - out[i][0]).max())
+        allowed = max(ORACLE_TOL, du_p + ORACLE_KERNEL_TOL)
+        log(f"[oracle] ({rung}) step {step} lane {lane}: kernel |du| {du[i]:.3e} >= {ORACLE_TOL}; the plain "
+            f"version from the same carry |du| {du_p:.3e}")
+        check(du_p >= ORACLE_TOL, f"[oracle] ({rung}) step {step} lane {lane}: the plain version is within "
+              f"{ORACLE_TOL} of the oracle ({du_p:.3e}) and the kernel is not ({du[i]:.3e}): a kernel fault")
+        check(du[i] < allowed, f"[oracle] ({rung}) step {step} lane {lane}: kernel |du| {du[i]:.3e} beyond "
+              f"max({ORACLE_TOL}, plain's {du_p:.3e} + {ORACLE_KERNEL_TOL})")
+        s["algorithmic_lanes"].append({"step": int(step), "lane": int(lane), "du": float(du[i]), "du_plain": du_p,
+                                       "bound": allowed})
+    return s
+
+
+def oracle_phase(dev, card, cells, reset_launches, read_launches):
+    """[oracle]: each CUDA kernel held against the f64 OSQP oracle at the
+    shapes its cells run. The QP of each checked lane-step is assembled by
+    ``mpc_prepare`` from the carry the kernel steps from (the JAX package's
+    tests/test_headline_oracle.py:73-85), solved on the host by the port's
+    oracle in a pool of worker processes while the card drives on, and the
+    kernel's u0 for that lane is compared with the oracle's U[0].
+
+    (a) the megastep at B=1 over one oval lap (N=12), (b) over one racetrack
+    lap (N=20, a sinusoidal reference table), every 5th step; (c) the
+    megastep on cell 1, (d) the racestep on cell 2, (e) the fused kernel on
+    cell 3 and the solver-only kernel on cell 1's admm steps, B_MAIN lanes
+    for K_MAIN steps, ORACLE_LANES lanes every ORACLE_EVERY-th step (every
+    admm step); the gates are oracle_gate's. `cells` holds main()'s setup of
+    cells 1-3 and their final states (cell1_x, cell1_admm_x, cell2_xf,
+    cell3_x): each rung re-drives its cell from the first state with that
+    setup and must end bitwise on the cell's final state. 16 QPs are also
+    solved by the native C++ core, which must give the numpy oracle's
+    iterations and x within 1e-9 (tests/test_native.py:28-36)."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.core import MPCConfig, SolverConfig
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import (
+        MPCCarry, constant_refs, mpc_init, mpc_prepare, mpc_step_batched, plant_step,
+    )
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.megastep_kernel import megastep, megastep_init, megastep_params
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.racestep_kernel import racestep, racestep_init
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.oracle.native import native_available
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.oracle.stack import boxqp_lane
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.planner import RefTable
+
+    c = cells
+    B, K = B_MAIN, K_MAIN
+    t_phase = time.perf_counter()
+    # the native core is built here, once, before any worker loads it
+    check(native_available(), "[oracle] the native QP core (native/libosqpcore.so) can be neither found nor built")
+    lanes_l = sorted({round(i * (B - 1) / (ORACLE_LANES - 1)) for i in range(ORACLE_LANES)})
+    lanes = torch.tensor(lanes_l, device=dev)
+    recs = {}          # rung -> [(step, lane, u kernel (2,), kernel converged, future)]
+    saved = {}         # rung -> step -> what oracle_plain_of replays the step from
+    drive_s = {}
+
+    def params_lanes(pb, idx):
+        return pb.replace(**{f.name: getattr(pb, f.name)[idx] for f in dataclasses.fields(pb)
+                             if torch.is_tensor(getattr(pb, f.name)) and getattr(pb, f.name).dim() >= 1})
+
+    def submit(rung, step, qp, lane_ids, u_k, conv_k, native=0):
+        """Hand each lane of the batch-first QP to the pool; u_k (n, 2) and
+        conv_k (n,) are the kernel's for those lanes. The first `native`
+        lanes go to the native core too."""
+        qp_cpu = type(qp)(type(qp.dyn)(*(t.cpu() for t in qp.dyn)), type(qp.cost)(*(t.cpu() for t in qp.cost)),
+                          *(t.cpu() for t in qp[2:]))
+        u_k, conv_k = u_k.detach().cpu().double().numpy(), conv_k.cpu().numpy()
+        for i, b in enumerate(lane_ids):
+            one = boxqp_lane(qp_cpu, i)
+            payload = (tuple(t.numpy() for t in one.dyn), tuple(t.numpy() for t in one.cost),
+                       tuple(t.numpy() for t in one[2:]))
+            recs.setdefault(rung, []).append(
+                (step, b, u_k[i], bool(conv_k[i]), pool.submit(oracle_task, payload, i < native)))
+
+    prm1 = megastep_params(c.p, 1, device=dev)
+    x0_lap = torch.tensor([[1.0, 0.0, 0.0, 0.0, 0.0, 0.05]], device=dev)
+
+    def lap(rung, label, cfg_l, track_l, ref_l, T_max, until_lap=False):
+        """The megastep at B=1 from x0_lap at the bench solver config; the
+        QP of every 5th step to the oracle. T_max steps, or with `until_lap`
+        until s passes the track's length at a check step."""
+        t0 = time.perf_counter()
+        car = megastep_init(c.p, cfg_l, track_l, x0_lap)
+        L = float(track_l.length)
+        reset_launches()
+        t = 0
+        while t < T_max:
+            if t % ORACLE_LAP_EVERY == 0:
+                if until_lap and float(car.x[4, 0]) > L:
+                    break
+                qp = mpc_prepare(c.p, cfg_l, track_l, car.x.T, ref_l, carry_lanes(car, [0]))[0]
+            car_n, u0, dg = megastep(cfg_l, c.scfg, track_l, prm1, ref_l, car, n_sub=4)
+            if t % ORACLE_LAP_EVERY == 0:
+                submit(rung, t, qp, [0], u0.T, dg[2] > 0.5)
+            car, t = car_n, t + 1
+        read_launches(f"oracle-{rung}", {"megastep": t})
+        s_end = float(car.x[4, 0])
+        drive_s[rung] = time.perf_counter() - t0
+        log(f"[oracle] ({rung}) {label}: {t} steps, s {s_end:.3f} m of a {L:.3f} m lap, "
+            f"{len(recs[rung])} checks queued, drive {drive_s[rung]:.1f} s")
+        check(s_end > L, f"[oracle] ({rung}) the car did not finish the lap: s {s_end:.3f} <= {L:.3f}")
+        check(all(torch.isfinite(v).all() for v in car), f"[oracle] ({rung}) non-finite carry")
+
+    def same_end(rung, what, got, cell_end):
+        equal = torch.equal(got, cell_end)
+        log(f"[oracle] ({rung}) {K if rung != 'e-admm' else K_ADMM_ROUTE} steps, drive {drive_s[rung]:.1f} s: "
+            f"the final {what} bitwise the cell's: {equal}")
+        check(equal, f"[oracle] ({rung}) re-drove its cell to another final {what} than the cell's run: it checks "
+              f"another configuration")
+
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    env_saved = {k: os.environ.get(k) for k in ORACLE_THREAD_VARS}
+    os.environ.update(dict.fromkeys(ORACLE_THREAD_VARS, "1"))     # one BLAS thread per worker
+    pool = concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        warm = [pool.submit(oracle_task, None, False) for _ in range(workers)]
+
+        # (a) tests/test_headline_oracle.py's lap, (b) the racetrack's with a
+        # sinusoidal racing line (tests/test_torch_closed_loop.py:161-170)
+        ocfg = MPCConfig(N=12, model="dynamic")
+        lap("a", "megastep B=1, oval, N=12, vx ref 1.5", ocfg, c.oval, constant_refs(ocfg, 1.5, device=dev),
+            T_ORACLE_OVAL)
+        L = float(c.track.length)
+        n_tab = int(round(L / 0.05))
+        w = 2 * np.pi * 3 * np.arange(n_tab) * (L / n_tab) / L
+        tt = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+        sin_table = RefTable(ds=tt(L / n_tab), length=tt(L), vx=tt(1.5 + 0.3 * np.sin(w)), ey=tt(0.1 * np.sin(w)),
+                             delta=tt(0.02 * np.cos(w)))
+        lap("b", "megastep B=1, racetrack, N=20, sinusoidal reference table", c.cfg, c.track, sin_table,
+            T_ORACLE_LAP_MAX, until_lap=True)
+
+        # (c) cell 1 on the megastep
+        p_l = params_lanes(c.scen.params, lanes)
+        t0 = time.perf_counter()
+        car, saved["c"] = megastep_init(c.scen.params, c.cfg, c.track, c.scen.x0), {}
+        reset_launches()
+        for k in range(K):
+            if k % ORACLE_EVERY == 0:
+                saved["c"][k] = car
+                qp = mpc_prepare(p_l, c.cfg, c.track, car.x[:, lanes].T, c.x_ref, carry_lanes(car, lanes))[0]
+            car_n, u0, dg = megastep(c.cfg, c.scfg, c.track, c.prm, c.x_ref, car, n_sub=4)
+            if k % ORACLE_EVERY == 0:
+                submit("c", k, qp, lanes_l, u0[:, lanes].T, dg[2, lanes] > 0.5,
+                       native=ORACLE_NATIVE if k == 0 else 0)
+            car = car_n
+        read_launches("oracle-c", {"megastep": K})
+        drive_s["c"] = time.perf_counter() - t0
+        same_end("c", "state", car.x, c.cell1_x)
+
+        # (e, second half) cell 1's admm steps on the solver-only kernel, from (c)'s final carry
+        t0 = time.perf_counter()
+        xs, ca, saved["e-admm"] = car.x.T.contiguous(), carry_lanes(car, slice(None)), {}
+        reset_launches()
+        for k in range(K_ADMM_ROUTE):
+            saved["e-admm"][k] = (xs, ca)
+            qp = mpc_prepare(p_l, c.cfg, c.track, xs[lanes], c.x_ref, MPCCarry(*(t[lanes] for t in ca)))[0]
+            u, ca, dg = mpc_step_batched(c.scen.params, c.cfg, c.scfg_admm, c.track, xs, c.x_ref, ca)
+            submit("e-admm", k, qp, lanes_l, u[lanes], dg.converged[lanes])
+            xs = plant_step(c.scen.params, c.cfg, c.track, xs, u, n_sub=4)
+        read_launches("oracle-e-admm", {"admm": K_ADMM_ROUTE})
+        drive_s["e-admm"] = time.perf_counter() - t0
+        same_end("e-admm", "state", xs, c.cell1_admm_x)
+
+        # (d) cell 2 on the racestep: make_racestep_scan's step, drawn from
+        # cell 2's generator. The tracker solves at the new filtered state,
+        # with the old carry's mu-hat, warm start and sampled references
+        # (ops/racestep_kernel.py::racestep_plain, steps 2-5)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rcar, saved["d"] = racestep_init(c.p, c.rcfg, c.track, c.x0r, 0.85), {}
+        reset_launches()
+        for k in range(K):
+            noise = c.sig[:, None] * torch.randn((6, B), generator=gen, device=dev)
+            new, u0, dg, _ = racestep(c.rcfg, c.scfg, c.track, c.rprm, c.table, rcar, noise, c.mu_b, c.ekq, c.ekr,
+                                      **RACE_KW)
+            if k % ORACLE_EVERY == 0:
+                saved["d"][k] = (rcar, noise)
+                qp = mpc_prepare(c.p_nom.replace(mu=rcar.fr[0, lanes]), c.rcfg, c.track, new.ekx[:, lanes].T,
+                                 c.table, carry_lanes(rcar, lanes))[0]
+                submit("d", k, qp, lanes_l, u0[:, lanes].T, dg[2, lanes] > 0.5)
+            rcar = new
+        read_launches("oracle-d", {"racestep": K})
+        drive_s["d"] = time.perf_counter() - t0
+        same_end("d", "filtered state", rcar.x_prev_f, c.cell2_xf)
+
+        # (e) cell 3 on the fused kernel
+        t0 = time.perf_counter()
+        fp_l = params_lanes(c.bscen.params, lanes)
+        fcar, fx, saved["e-fused"] = mpc_init(c.bscen.params, c.cfg, c.track, c.bscen.x0), c.bscen.x0, {}
+        reset_launches()
+        for k in range(K):
+            if k % ORACLE_EVERY == 0:
+                saved["e-fused"][k] = (fx, fcar)
+                qp = mpc_prepare(fp_l, c.cfg, c.track, fx[lanes], c.x_ref, MPCCarry(*(t[lanes] for t in fcar)))[0]
+            u, fcar_n, d = mpc_step_batched(c.bscen.params, c.cfg, c.fused_fixed, c.track, fx, c.x_ref, fcar)
+            if k % ORACLE_EVERY == 0:
+                submit("e-fused", k, qp, lanes_l, u[lanes], d.converged[lanes])
+            fx, fcar = plant_step(c.bscen.params, c.cfg, c.track, fx, u, n_sub=4), fcar_n
+        read_launches("oracle-e-fused", {"fused": K})
+        drive_s["e-fused"] = time.perf_counter() - t0
+        same_end("e-fused", "state", fx, c.cell3_x)
+
+        # the oracle's answers, rung by rung
+        t_wait = time.perf_counter()
+        for f in warm:
+            f.result()
+        res = {rung: [f.result() for *_, f in rs] for rung, rs in recs.items()}
+        log(f"[oracle] {sum(map(len, res.values()))} oracle solves in {workers} worker processes; waited "
+            f"{time.perf_counter() - t_wait:.1f} s after the card's last rung")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        for k, v in env_saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    summary = {}
+    for rung in ("a", "b", "c", "d", "e-fused", "e-admm"):
+        plain_of = oracle_plain_of(rung, c, saved[rung]) if rung in saved else None
+        summary[rung] = oracle_gate(rung, [r[:4] for r in recs[rung]], res[rung], plain_of,
+                                    f"; drive {drive_s[rung]:.1f} s ({card})")
+        summary[rung]["drive_s"] = drive_s[rung]
+    # both converged, the same iterations, x within 1e-9 (tests/test_native.py:28-36)
+    nat = [o for out in res.values() for o in out if o[4] is not None]
+    agree = [o[1] and o[4][0] and o[4][1] == o[3] and o[4][2] <= 1e-9 for o in nat]
+    dx_max = max((o[4][2] for o in nat), default=float("nan"))
+    log(f"[oracle] the native C++ core against the numpy oracle on {len(nat)} QPs: both converged, the same "
+        f"iterations and x within 1e-9 on {sum(agree)}; max |dx| {dx_max:.3e}")
+    check(len(nat) == ORACLE_NATIVE, f"[oracle] {len(nat)} QPs went to the native core, not {ORACLE_NATIVE}")
+    check(all(agree), "[oracle] the native core and the numpy oracle disagree")
+    summary["native"] = {"qps": len(nat), "agree": sum(agree), "max_dx": dx_max}
+    summary["wall_s"] = time.perf_counter() - t_phase
+    log(f"[oracle] phase wall {summary['wall_s']:.1f} s ({card})")
+    return summary
 
 
 def main():
@@ -1330,10 +1720,7 @@ def main():
         """K_ADMM_ROUTE steps of mpc_step_batched(backend="admm") + plant_step
         from the megastep's carry: the final state and the converged fraction
         of each step."""
-        fb = lambda t: t.movedim(-1, 0)
-        xs = fb(mcar.x).contiguous()
-        c = MPCCarry(X_pred=fb(mcar.X_pred), U_pred=fb(mcar.U_pred), s=fb(mcar.s),
-                     lam=fb(mcar.lam), u_prev=fb(mcar.u_prev), rho=mcar.rho)
+        xs, c = mcar.x.T.contiguous(), carry_lanes(mcar, slice(None))
         out = []
         for _ in range(K_ADMM_ROUTE):
             u, c, dg = mpc_step_batched(pscen.params, pcfg, scfg_admm, ptrack, xs, pref, c)
@@ -1668,7 +2055,7 @@ def main():
         out = dict(ms=st.elapsed_time(en) / (K_MAIN - 1), conv_last=fconv[-100:].mean().item(),
                    done_at=fiters.mean().item(), ey_max=ey_max.item(),
                    progress=(fx[:, s_i] - fscen.x0[:, s_i]).mean().item(),
-                   finite=bool(torch.isfinite(fx).all()),
+                   finite=bool(torch.isfinite(fx).all()), x=fx,
                    launches=read_launches(label, {"fused": K_MAIN}))
         log(f"[{label}] K={K_MAIN} B={fscen.batch} N={fcfg.N} fused path: {out['ms']:.4f} ms/step "
             f"({fscen.batch / out['ms'] * 1e3:.0f} solves/s) ({card}); converged (last 100) "
@@ -1682,6 +2069,17 @@ def main():
     bscen = make_scenario_grid(p, cfg, n_ey=64, n_mu=B_MAIN // 64, vx0=1.5)
     check(bscen.x0.is_cuda, "make_scenario_grid() did not default to the card")
     fused_bench = fused_run(cfg, racetrack(), bscen, constant_refs(cfg, 1.8), "fused-main")
+
+    # ---- 8b. [oracle]: every kernel against the f64 OSQP oracle, on the
+    # headline laps and on cells 1-3 re-driven from their first states with
+    # their own setup, each held to end on the cell's final state ----
+    if not ab:
+        cells = types.SimpleNamespace(
+            p=p, cfg=cfg, track=track, x_ref=x_ref, oval=oval, scfg=scfg, scen=scen, prm=prm, scfg_admm=scfg_admm,
+            rcfg=rcfg, rprm=rprm, table=table, x0r=x0r, mu_b=mu_b, p_nom=p_nom, sig=sig, ekq=ekq, ekr=ekr,
+            bscen=bscen, fused_fixed=fused_fixed, cell1_x=car.x, cell1_admm_x=xs, cell2_xf=Xf[-1],
+            cell3_x=fused_bench["x"])
+        oracle_phase(dev, card, cells, reset_launches, read_launches)
 
     # ---- 9. main path 4: BASELINE config 1 batched, fused path then megastep ----
     fused_cfg1 = fused_run(kcfg, oval, kscen, kref, "config1-fused")
