@@ -23,9 +23,10 @@ an obvious counterpart:
                  (``native/io_bridge.cpp`` over ctypes) and the 30 Hz
                  real-time tracking loop over it.
 - ``utils``    — lap statistics, plots, log records and sweep
-                 checkpoints; ``timed`` / ``trace_to`` / ``cost_analysis``
-                 (profiling) and ``enable_nan_debugging`` /
-                 ``checked_closed_loop`` (numerical safety).
+                 checkpoints; ``timed`` / ``trace_to``, the stage
+                 spans and the kernels' section counters (profiling)
+                 and ``enable_nan_debugging`` / ``checked_closed_loop``
+                 (numerical safety).
 - ``ops``      — hand-written CUDA kernels (``ops/csrc``) with their plain
                  PyTorch versions beside them.
 - ``oracle``   — the CPU numpy OSQP-semantics oracle (ground truth, dense

@@ -11,6 +11,7 @@ import torch
 from ..core.config import MPCConfig, SolverConfig, VehicleParams, broadcast_params
 from ..models import f_model
 from ..track.track import Track, curvature_at
+from ..utils import profiling
 from .mpc import MPCCarry, mpc_init, mpc_step_batched
 
 
@@ -41,16 +42,18 @@ class ClosedLoopLogPred(NamedTuple):
 def plant_step(p: VehicleParams, cfg: MPCConfig, track: Track, x: torch.Tensor,
                u: torch.Tensor, n_sub: int = 10, sim_tire: Optional[str] = None,
                sim_model: Optional[str] = None):
-    """Integrate the nonlinear plant for one control period; x (B, nx)."""
-    tire = sim_tire or cfg.tire
-    model = sim_model or cfg.model
-    h = cfg.dt / n_sub
-    s_idx = 4 if model == "dynamic" else 2
-    pb = broadcast_params(p, x.dim() - 1)
-    for _ in range(n_sub):
-        kap = curvature_at(track, x[..., s_idx])
-        x = x + h * f_model(pb, x, u, kap, model, tire)
-    return x
+    """Integrate the nonlinear plant for one control period; x (B, nx).
+    While a profiler records, in the span ``plant.step``."""
+    with profiling.span("plant.step", profiling.tracing()):
+        tire = sim_tire or cfg.tire
+        model = sim_model or cfg.model
+        h = cfg.dt / n_sub
+        s_idx = 4 if model == "dynamic" else 2
+        pb = broadcast_params(p, x.dim() - 1)
+        for _ in range(n_sub):
+            kap = curvature_at(track, x[..., s_idx])
+            x = x + h * f_model(pb, x, u, kap, model, tire)
+        return x
 
 
 def closed_loop(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,

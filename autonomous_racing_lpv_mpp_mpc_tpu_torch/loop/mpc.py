@@ -26,6 +26,7 @@ from ..solver.admm import ADMMSolution
 from ..solver.production import certify_primal_infeasibility, polish_solution, production_solve
 from ..solver.scaling import ruiz_row_equilibrate, unscale_solution
 from ..track.track import Track, curvature_at
+from ..utils import profiling
 
 
 class MPCCarry(NamedTuple):
@@ -63,14 +64,15 @@ def constant_refs(cfg: MPCConfig, vx_ref: float, ey_ref: float = 0.0, device=Non
 def mpc_init(p: VehicleParams, cfg: MPCConfig, track: Track, x0: torch.Tensor,
              u0: torch.Tensor | None = None) -> MPCCarry:
     """Initial carry for a batch of states x0 (B, nx)."""
-    batch = x0.shape[:-1]
-    kw = dict(dtype=torch.float32, device=x0.device)
-    if u0 is None:
-        u0 = torch.zeros(batch + (NU,), **kw)
-    X, U = initial_schedule(p, cfg, track, x0, u0)
-    z = torch.zeros(batch + (cfg.N + 1, N_CON), **kw)
-    return MPCCarry(X_pred=X, U_pred=U, s=z, lam=z.clone(), u_prev=u0,
-                    rho=torch.full(batch, 0.1, **kw))
+    with profiling.span("mpc.init", profiling.tracing()):
+        batch = x0.shape[:-1]
+        kw = dict(dtype=torch.float32, device=x0.device)
+        if u0 is None:
+            u0 = torch.zeros(batch + (NU,), **kw)
+        X, U = initial_schedule(p, cfg, track, x0, u0)
+        z = torch.zeros(batch + (cfg.N + 1, N_CON), **kw)
+        return MPCCarry(X_pred=X, U_pred=U, s=z, lam=z.clone(), u_prev=u0,
+                        rho=torch.full(batch, 0.1, **kw))
 
 
 def _shift_and_warm(x: torch.Tensor, carry: MPCCarry):
@@ -179,23 +181,30 @@ def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
     CPU tensors). The whole-step kernel is ``ops.megastep_kernel.megastep``.
     ``obstacles`` ((n_obs, 4) corridor blocks, shared by the batch) tighten
     every route's e_y row through ``tracker_bounds``. Only the "plain" route
-    certifies infeasibility; the kernels raise no heuristic flag.
+    certifies infeasibility; the kernels raise no heuristic flag. While a
+    profiler records, the preparation and the post-solve sit in the spans
+    ``mpc.prepare`` and ``mpc.post``.
     """
+    on = profiling.tracing()
     if scfg.backend == "fused":
         from ..ops.fused_kernel import fused_mpc_solve
 
-        Xs, Us, kap, xr, lb, ub, x0a, warm_b = mpc_prepare_light(
-            p_b, cfg, track, x_b, x_ref, carry_b, obstacles)
+        with profiling.span("mpc.prepare", on):
+            Xs, Us, kap, xr, lb, ub, x0a, warm_b = mpc_prepare_light(
+                p_b, cfg, track, x_b, x_ref, carry_b, obstacles)
         sol_b = fused_mpc_solve(cfg, scfg, p_b, Xs, Us, kap, xr, lb, ub, x0a, warm_b[0], warm_b[1],
                                 carry_b.rho)
         if scfg.polish:
             qp_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b, obstacles)[0]
             sol_b = polish_solution(qp_b, scfg, sol_b)
-        return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, warm_b[3], sol_b)
-    qp_b, warm_b, U_sched_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b, obstacles)
+        with profiling.span("mpc.post", on):
+            return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, warm_b[3], sol_b)
+    with profiling.span("mpc.prepare", on):
+        qp_b, warm_b, U_sched_b = mpc_prepare(p_b, cfg, track, x_b, x_ref, carry_b, obstacles)
     if scfg.backend == "plain":
         sol_b = production_solve(qp_b, scfg, warm=warm_b, rho0=carry_b.rho)
-        return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, U_sched_b, sol_b, qp=qp_b)
+        with profiling.span("mpc.post", on):
+            return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, U_sched_b, sol_b, qp=qp_b)
     if scfg.backend != "admm":
         raise ValueError(f"mpc_step_batched backend {scfg.backend!r}; "
                          "the whole-step kernel is ops.megastep_kernel.megastep")
@@ -209,7 +218,8 @@ def mpc_step_batched(p_b: VehicleParams, cfg: MPCConfig, scfg: SolverConfig,
     else:
         sol_b = admm_kernel_solve(qp_b, scfg, warm=warm_b, rho0=carry_b.rho)
     sol_b = polish_solution(qp_b, scfg, sol_b)
-    return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, U_sched_b, sol_b)
+    with profiling.span("mpc.post", on):
+        return _post_solve(p_b, cfg, scfg, track, x_b, warm_b, U_sched_b, sol_b)
 
 
 def mpc_step(p: VehicleParams, cfg: MPCConfig, scfg: SolverConfig, track: Track,

@@ -20,6 +20,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -121,10 +123,14 @@ def check_outputs(name: str, *tensors) -> None:
             raise FloatingPointError(f"{name}: output {i} of the kernel holds a non-finite value")
 
 
-def launch(name: str, tensors, floats, ints) -> None:
+def launch(name: str, tensors, floats, ints, counters=(), trace=None) -> None:
     """Call the C entry ``name`` with device pointers, float and int
     parameters on the current stream; raise if the launch failed. A None
-    in ``tensors`` (an optional operand left out) is a null pointer."""
+    in ``tensors`` (an optional operand left out) is a null pointer.
+    ``counters``: int64 counter arrays (or None) whose pointers follow the
+    operands' (the section counters). ``trace``: whether a profiler records
+    (``utils.profiling.tracing()``, read here when None); then the argument
+    marshalling and the call sit in the span ``cuda.launch.<name>``."""
     lib = library()
     dev = tensors[0].device
     if dev.type != "cuda":
@@ -132,13 +138,18 @@ def launch(name: str, tensors, floats, ints) -> None:
     for t in tensors:
         if t is not None and (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()):
             raise ValueError(f"{name}: every operand must be a contiguous float32 tensor on {dev}")
-    ptrs = (ctypes.c_void_p * len(tensors))(*(None if t is None else t.data_ptr() for t in tensors))
-    fv = (ctypes.c_float * len(floats))(*floats)
-    iv = (ctypes.c_int * len(ints))(*ints)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, name)(ptrs, len(tensors), fv, len(floats), iv, len(ints),
-                            dev.index if dev.index is not None else torch.cuda.current_device(),
-                            ctypes.c_void_p(stream))
+    for t in counters:
+        if t is not None and (t.device != dev or t.dtype != torch.int64 or not t.is_contiguous()):
+            raise ValueError(f"{name}: every counter array must be a contiguous int64 tensor on {dev}")
+    with profiling.span(f"cuda.launch.{name}", profiling.tracing() if trace is None else trace):
+        ops = list(tensors) + list(counters)
+        ptrs = (ctypes.c_void_p * len(ops))(*(None if t is None else t.data_ptr() for t in ops))
+        fv = (ctypes.c_float * len(floats))(*floats)
+        iv = (ctypes.c_int * len(ints))(*ints)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, name)(ptrs, len(ops), fv, len(floats), iv, len(ints),
+                                dev.index if dev.index is not None else torch.cuda.current_device(),
+                                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed with code {rc}"
                            + (" (operand count mismatch)" if rc < 0 else " (cudaError_t)"))

@@ -21,7 +21,11 @@
 // tail runs only if some lane has not. Groups past B vote "done" and touch
 // no memory (the Pallas kernel padded with copies of lane 0 instead). Stats
 // rows 0-4 are the last executed iteration's residuals, row 5 the done-at
-// (max_iter if never); rho is adapted on the host. Both models (Dynamic,
+// (max_iter if never); rho is adapted on the host. With a section-counter
+// pointer (tracing on) the traced instantiation runs (TRACE, its own
+// translation unit, fused_traced_kernel.cu): each lane's thread 0 adds its
+// cycles per section and its counts into the counters (group_core.cuh,
+// Sec); the untraced one reads no clock. Both models (Dynamic,
 // Kinematic), each with its operands in shared or in device memory, as the
 // wrapper chooses from N (ops/fused_kernel.py::launch_shape); the launch
 // shape is arl_sync.cuh's (G = 8, 16 lanes per block, clusters of 8).
@@ -48,14 +52,17 @@ struct FusedParams {
   const float *xs, *us, *kap, *xref, *prm, *lb, *ub, *x0a, *s0, *lam0;
   float *X_out, *U_out, *ws;   // (N+1, na), (N, NU), (ws_rows) per lane
   int ws_rows;
+  // (N_SEC,) section counters (group_core.cuh, Sec), or null: tracing off.
+  // Last, so that every other member keeps its place in the untraced kernel
+  unsigned long long* sec;
 };
 
-constexpr int FUSED_PTRS = 17;
+constexpr int FUSED_PTRS = 18;
 constexpr int FUSED_INTS = 10;
 
 // At most 168 registers, so that three blocks of 128 threads fit on an SM
 // where the shared memory allows it (the kinematic model at N=10).
-template <class M, bool SM>
+template <class M, bool SM, bool TRACE>
 __global__ void __launch_bounds__(GROUP_THREADS, 3) fused_kernel(const __grid_constant__ FusedParams<M> P) {
   constexpr int NX = M::NX, NA = M::NA, G = LANE_THREADS;
   const CoreParams<M>& C = P.C;
@@ -72,8 +79,10 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) fused_kernel(const __grid_co
   float rho = 1.0f, rinv = 1.0f, da = -1.0f;
   float x0a[NA] = {};
   Resid acc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  sec_begin<TRACE>();
 
   if (active) {
+    sec_open<TRACE>(g, SEC_PREPARE);
     rho = C.rho[b];
     rinv = 1.0f / rho;
     const VehParams pv = load_params(P.prm, b, S);
@@ -97,34 +106,54 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) fused_kernel(const __grid_co
       }
     }
     gr.sync();
+    sec_switch<TRACE>(g, SEC_PREPARE, SEC_FACTOR);
     // 2. rho-folded cost + Riccati factor; X, U at zero
     factor_g(C, op, rho, gr);
     admm_start_g(C, P.S, op, L, rho, rinv, gr);
     const Lane xa = lane_of(P.x0a, b, S);
 #pragma unroll
     for (int i = 0; i < NA; ++i) x0a[i] = xa[i];
+    sec_switch<TRACE>(g, SEC_FACTOR, SEC_SWEEP);
   }
 
   // 3. ADMM, the termination test after every iteration (exact done-at)
   const int n_chunks = C.max_iter / C.check;
   const int rem = C.max_iter - n_chunks * C.check;
   auto iterate = [&](int it1) {
-    acc = group_max(gr, admm_iteration_g(C, P.S, op, L, x0a, rho, rinv, gr));
-    if (da < 0.0f && converged(acc, rho, C.eps_abs, C.eps_rel)) da = (float)it1;
+    if constexpr (TRACE) {   // the test in the vote section; the untraced branch compiles to
+                             // the same instructions as a kernel without counters
+      const Resid mine = admm_iteration_g<M, G, Ops<SM>, true>(C, P.S, op, L, x0a, rho, rinv, gr);
+      sec_open<true>(g, SEC_VOTE);
+      acc = group_max(gr, mine);
+      if (da < 0.0f && converged(acc, rho, C.eps_abs, C.eps_rel)) da = (float)it1;
+      sec_close<true>(g, SEC_VOTE);
+    } else {
+      acc = group_max(gr, admm_iteration_g(C, P.S, op, L, x0a, rho, rinv, gr));
+      if (da < 0.0f && converged(acc, rho, C.eps_abs, C.eps_rel)) da = (float)it1;
+    }
   };
   if (C.early_exit) {
     bool all_done = false;
     for (int c = 0; c < n_chunks && !all_done; ++c) {
-      if (active)
+      if (active) {
         for (int i = 0; i < C.check; ++i) iterate(c * C.check + i + 1);
+        sec_count<TRACE>(g, SEC_LANE_ITERS, C.check);
+        sec_open<TRACE>(g, SEC_VOTE);
+      }
       all_done = vote_all(!active || da >= 0.0f);
+      if (active) sec_close<TRACE>(g, SEC_VOTE);
     }
-    if (rem && !all_done && active)
+    if (rem && !all_done && active) {
       for (int i = 0; i < rem; ++i) iterate(n_chunks * C.check + i + 1);
+      sec_count<TRACE>(g, SEC_LANE_ITERS, rem);
+    }
   } else if (active) {
     for (int it = 0; it < C.max_iter; ++it) iterate(it + 1);
+    sec_count<TRACE>(g, SEC_LANE_ITERS, C.max_iter);
   }
-  if (!active) return;
+  if (!active) return sec_end<TRACE>(P.sec, g);
+  sec_switch<TRACE>(g, SEC_SWEEP, SEC_FINISH);
+  sec_unnest<TRACE>(g);
 
   // 4. the solution, the residual rows of the last executed iteration
   const Lane X_out = lane_of(P.X_out, b, S), U_out = lane_of(P.U_out, b, S);
@@ -145,6 +174,35 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) fused_kernel(const __grid_co
   st[5] = da > 0.0f ? da : (float)C.max_iter;
   st[6] = 0.0f;
   st[7] = 0.0f;
+  sec_close<TRACE>(0, SEC_FINISH);
+  sec_count<TRACE>(0, SEC_LANE_STEPS, 1u);
+  sec_count<TRACE>(0, SEC_LANE_DONEAT, (unsigned)(da > 0.0f ? da : (float)C.max_iter));
+  sec_end<TRACE>(P.sec, 0);
+}
+
+// The traced instantiations are compiled in a translation unit of their own
+// (fused_traced_kernel.cu, which includes this file with
+// ARL_FUSED_TRACED_TU defined), so that their nvcc runs beside this one's.
+template <class M, bool SM>
+int launch_fused_traced(const FusedParams<M>& P, int grid, int smem, void* stream);
+
+#ifdef ARL_FUSED_TRACED_TU
+template <class M, bool SM>
+int launch_fused_traced(const FusedParams<M>& P, int grid, int smem, void* stream) {
+  return launch_clustered(fused_kernel<M, SM, true>, P, grid, smem, stream);
+}
+
+template int launch_fused_traced<Dynamic, true>(const FusedParams<Dynamic>&, int, int, void*);
+template int launch_fused_traced<Dynamic, false>(const FusedParams<Dynamic>&, int, int, void*);
+template int launch_fused_traced<Kinematic, true>(const FusedParams<Kinematic>&, int, int, void*);
+template int launch_fused_traced<Kinematic, false>(const FusedParams<Kinematic>&, int, int, void*);
+
+}  // namespace arl
+#else
+template <class M, bool SM>
+int launch_fused_as(const FusedParams<M>& P, int grid, int smem, void* stream) {
+  return P.sec ? launch_fused_traced<M, SM>(P, grid, smem, stream)
+                 : launch_clustered(fused_kernel<M, SM, false>, P, grid, smem, stream);
 }
 
 template <class M>
@@ -158,6 +216,7 @@ int launch_fused(void** ptrs, const float* fv, int n_f, const int* iv, int devic
   int p = 0;
   for (auto q : in) *q = static_cast<const float*>(ptrs[p++]);
   for (auto q : out) *q = static_cast<float*>(ptrs[p++]);
+  P.sec = static_cast<unsigned long long*>(ptrs[p++]);
   int ops_smem = 0, smem = 0;
   int* ints[] = {&C.B, &C.N, &C.max_iter, &C.check, &C.early_exit, &C.tire, &P.ws_rows,
                  &ops_smem, &smem};
@@ -169,13 +228,14 @@ int launch_fused(void** ptrs, const float* fv, int n_f, const int* iv, int devic
   if (C.B < 1 || C.N < 1 || C.check < 1 || C.max_iter < 1) return -3;
   cudaSetDevice(device);
   const int grid = (C.B + BLOCK - 1) / BLOCK * CLUSTER;
-  return ops_smem ? launch_clustered(fused_kernel<M, true>, P, grid, smem, stream)
-                  : launch_clustered(fused_kernel<M, false>, P, grid, smem, stream);
+  return ops_smem ? launch_fused_as<M, true>(P, grid, smem, stream)
+                  : launch_fused_as<M, false>(P, grid, smem, stream);
 }
 
 }  // namespace arl
 
-// C entry: device pointers, float and int parameters in the order of
+// C entry: device pointers (the last, the section counters, null with
+// tracing off), float and int parameters in the order of
 // ops/fused_kernel.py::_fused_cuda (the last three ints: operands in shared
 // memory, its bytes per block, the model: 0 dynamic, 1 kinematic). Returns
 // -1 on an operand-count mismatch, -2 on a workspace- or shared-memory-size
@@ -191,3 +251,4 @@ extern "C" int arl_fused_solve(void** ptrs, int n_ptrs, const float* fv, int n_f
     default: return -3;
   }
 }
+#endif  // ARL_FUSED_TRACED_TU

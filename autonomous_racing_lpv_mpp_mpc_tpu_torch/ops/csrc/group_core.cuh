@@ -34,6 +34,131 @@
 
 namespace arl {
 
+// Section counters (the kernels' `sec`; utils/profiling.py SECTIONS names
+// them in this order), kept by the traced instantiations of the megastep and the
+// fused kernel (the kernels' TRACE; their untraced code is the kernel without
+// them): the clock64 cycles each active lane's thread 0 spent in each
+// section, and three counts. A section ends after the group barrier that
+// closes it, so its time holds its wait for the group. prepare: sections 1-4
+// and the cache branch (the fused kernel: stage builds and warm start);
+// factor: section 5 and admm_start_g; sweep: each ADMM iteration's backward
+// sweep and forward rollout; stage_pass: stage_pass_g; vote: the termination
+// test, vote_all and its cluster barrier; finish: sections 7-8 and the
+// output stores; plant: section 9 (megastep). lane_steps: active lanes;
+// lane_iters: ADMM iterations the active lanes executed; lane_doneat: their
+// own done-ats (stats row 4 of the megastep, 5 of the fused kernel).
+enum Sec : int {
+  SEC_PREPARE, SEC_FACTOR, SEC_SWEEP, SEC_STAGE_PASS, SEC_VOTE, SEC_FINISH, SEC_PLANT,
+  SEC_LANE_STEPS, SEC_LANE_ITERS, SEC_LANE_DONEAT, N_SEC
+};
+
+// Each lane's sums live in the block's shared memory, not in registers, in
+// the lane's own slots, which only its thread 0 touches. A section is opened
+// by subtracting the clock from its slot and closed by adding it (a switch
+// closes one and opens the next at one reading), so a mark reads the clock
+// and updates one slot per section it touches, with no earlier reading to
+// load. The ADMM iterations run inside the sweep section; the stage pass and
+// the vote are opened and closed inside it and taken out of it once the
+// loop ends (sec_unnest): two slot updates per iteration. The block's last
+// lane to finish sums the lanes' slots and adds them into the launch's
+// counters (one atomic per block and counter). A lane's slots are 32-bit,
+// the low word of clock64, exact modulo 2^32: a section of one launch would
+// need 2^32 cycles (~2 s) to wrap.
+struct SecBlock {
+  unsigned sum[BLOCK_LANES][N_SEC];
+  unsigned finished;
+};
+
+__device__ __forceinline__ SecBlock& sec_block() {
+  __shared__ SecBlock s;
+  return s;
+}
+
+// Adds v into count c of this thread's lane, on every thread of the lane's
+// group (g its index): each reads the slot, thread 0 alone stores, so the
+// group does not diverge at a mark (a branch to thread 0, or shared-memory
+// atomics, cost the traced launch 2-3% in the 60-iteration cells). The
+// address is a shared-window one (a generic address, in a cluster kernel, is
+// rebuilt from the block's place in the cluster at every mark); the accesses
+// are volatile, so that no slot stays in a register from one mark to the
+// next.
+__device__ __forceinline__ void sec_add(int g, Sec c, unsigned v) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(&sec_block().sum[0][0]) +
+                        ((threadIdx.x / LANE_THREADS) * N_SEC + c) * 4u;
+  unsigned x;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(x) : "r"(addr));
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.s32 p, %2, 0;\n @p st.shared.u32 [%0], %1;\n}"
+      ::"r"(addr), "r"(x + v), "r"(g));
+}
+
+// At the kernel's start, on every thread of the block: zero the slots.
+template <bool ON>
+__device__ __forceinline__ void sec_begin() {
+  if constexpr (ON) {
+    SecBlock& s = sec_block();
+    for (int i = threadIdx.x; i < BLOCK_LANES * N_SEC; i += blockDim.x) (&s.sum[0][0])[i] = 0u;
+    if (threadIdx.x == 0) s.finished = 0u;
+    __syncthreads();
+  }
+}
+
+// On every thread of the lane's group, at a section boundary: thread 0's
+// clock into the slots.
+template <bool ON>
+__device__ __forceinline__ void sec_open(int g, Sec c) {
+  if constexpr (ON) sec_add(g, c, 0u - (unsigned)clock64());
+}
+
+template <bool ON>
+__device__ __forceinline__ void sec_close(int g, Sec c) {
+  if constexpr (ON) sec_add(g, c, (unsigned)clock64());
+}
+
+template <bool ON>
+__device__ __forceinline__ void sec_switch(int g, Sec from, Sec to) {
+  if constexpr (ON) {
+    const unsigned now = (unsigned)clock64();
+    sec_add(g, from, now);
+    sec_add(g, to, 0u - now);
+  }
+}
+
+// n into count c.
+template <bool ON>
+__device__ __forceinline__ void sec_count(int g, Sec c, unsigned n) {
+  if constexpr (ON) sec_add(g, c, n);
+}
+
+// Once the ADMM loop has ended: the stage pass and the vote, which ran
+// inside the sweep section, out of it.
+template <bool ON>
+__device__ __forceinline__ void sec_unnest(int g) {
+  if constexpr (ON) {
+    const volatile unsigned* l = sec_block().sum[threadIdx.x / LANE_THREADS];
+    sec_add(g, SEC_SWEEP, 0u - (l[SEC_STAGE_PASS] + l[SEC_VOTE]));
+  }
+}
+
+// On each lane's thread 0 once, active or not, as the lane leaves the kernel
+// (its sections closed): the block's last lane adds the block's sums into the
+// counters.
+template <bool ON>
+__device__ __forceinline__ void sec_end(unsigned long long* sec, int g) {
+  if constexpr (ON) {
+    if (g != 0) return;
+    SecBlock& s = sec_block();
+    __threadfence_block();
+    if (atomicAdd(&s.finished, 1u) != BLOCK_LANES - 1) return;
+    __threadfence_block();
+    for (int c = 0; c < N_SEC; ++c) {
+      unsigned long long tot = 0ull;
+      for (int l = 0; l < BLOCK_LANES; ++l) tot += *(volatile unsigned*)&s.sum[l][c];
+      atomicAdd(&sec[c], tot);
+    }
+  }
+}
+
 // The selector rows as gathers: row c of D z (z = [x; u]) and column j of
 // D' y, each at most two (index, coefficient) pairs; unused pairs have
 // coefficient 0 and index 0.
@@ -438,8 +563,10 @@ __device__ void stage_pass_g(const CoreParams<M>& P, const Sel<M>& S, const O& o
 // shuffle at every stage, then the stage pass. Each sweep loads the next
 // stage's operands before its broadcast, so the shared-memory reads overlap
 // the exchange. Returns this thread's part of the residual maxima
-// (group_max gives the iteration's).
-template <class M, int G, class O>
+// (group_max gives the iteration's). TRACE (named by the caller, no
+// argument, so that the untraced call is the one without it): the stage
+// pass's section counter.
+template <class M, int G, class O, bool TRACE = false>
 __device__ Resid admm_iteration_g(const CoreParams<M>& P, const Sel<M>& S, const O& op,
                                   const IterLanes& L, const float (&x0a)[M::NA], float rho,
                                   float rinv, const Grp<G>& gr) {
@@ -578,9 +705,11 @@ __device__ Resid admm_iteration_g(const CoreParams<M>& P, const Sel<M>& S, const
     gather<G, NA>(gr, xn, x);
   }
   gr.sync();   // the rollout
+  sec_open<TRACE>(g, SEC_STAGE_PASS);
 
   Resid acc{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   stage_pass_g(P, S, op, L, true, rho, rinv, gr, acc);
+  sec_close<TRACE>(g, SEC_STAGE_PASS);
   return acc;
 }
 
@@ -756,13 +885,16 @@ __device__ void cache_stages_g(const CoreParams<M>& P, int b, const WsLayout<M>&
 // 128-lane group:
 // every stage rebuilt when the group's largest drift exceeds the tolerance
 // or its largest age reaches cache_max_age (max_all over the cluster;
-// groups past B add 0 to both), else the shift.
-template <class M, int G, class O, bool CACHE = false>
+// groups past B add 0 to both), else the shift. TRACE (the tag
+// std::true_type): the section counters, in the block's slots; the finish
+// section is left open for the caller to close.
+template <class M, int G, class O, bool CACHE = false, bool TRACE = false>
 __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool active,
                            const float (&x0)[M::NX], const VehParams& pv, const Lane& xref,
                            const Lane& ws, const O& op, const Grp<G>& gr, float (&u0)[NU],
                            const CacheIO* cio = nullptr,
-                           std::bool_constant<CACHE> = std::bool_constant<false>{}) {
+                           std::bool_constant<CACHE> = std::bool_constant<false>{},
+                           std::bool_constant<TRACE> = std::bool_constant<false>{}) {
   constexpr int NX = M::NX, NA = M::NA, RA = (NA + G - 1) / G;
   const int SB = P.B, N = P.N, g = gr.g;
   const WsLayout<M> W(N);
@@ -774,6 +906,7 @@ __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool 
 
   float drift = 0.0f;
   if (active) {
+    sec_open<TRACE>(g, SEC_PREPARE);
     rho = P.rho[b];
     rinv = 1.0f / rho;
     prepare_g<CACHE>(P, b, W, ws, op, pv, x0, xref, gr, cio, drift);
@@ -785,6 +918,7 @@ __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool 
     if (active) cache_stages_g(P, b, W, ws, op, pv, *cio, rebuild, gr);
   }
   if (active) {
+    sec_switch<TRACE>(g, SEC_PREPARE, SEC_FACTOR);
     factor_g(P, op, rho, gr);
     const Lane up = lane_of(P.uprev, b, SB);
 #pragma unroll
@@ -792,14 +926,18 @@ __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool 
 #pragma unroll
     for (int i = 0; i < NU; ++i) x0a[NX + i] = up[i];
     admm_start_g(P, S, op, L, rho, rinv, gr);
+    sec_switch<TRACE>(g, SEC_FACTOR, SEC_SWEEP);
   }
 
   // 6. ADMM: chunks of `check` iterations, the termination test recorded
-  // at each chunk boundary (done-at = first passing boundary).
+  // at each chunk boundary (done-at = first passing boundary). A chunk ends
+  // with the vote section open.
   const int n_chunks = P.max_iter / P.check;
   const int rem = P.max_iter - n_chunks * P.check;
   auto chunk = [&](int c) {
-    for (int i = 0; i < P.check; ++i) acc = admm_iteration_g(P, S, op, L, x0a, rho, rinv, gr);
+    for (int i = 0; i < P.check; ++i) acc = admm_iteration_g<M, G, O, TRACE>(P, S, op, L, x0a, rho, rinv, gr);
+    sec_count<TRACE>(g, SEC_LANE_ITERS, P.check);
+    sec_open<TRACE>(g, SEC_VOTE);
     if (da < 0.0f && converged(group_max(gr, acc), rho, P.eps_abs, P.eps_rel))
       da = (float)((c + 1) * P.check);
   };
@@ -808,14 +946,23 @@ __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool 
     for (int c = 0; c < n_chunks && !all_done; ++c) {
       if (active) chunk(c);
       all_done = vote_all(!active || da >= 0.0f);
+      if (active) sec_close<TRACE>(g, SEC_VOTE);
     }
-    if (rem && !all_done && active)
-      for (int i = 0; i < rem; ++i) acc = admm_iteration_g(P, S, op, L, x0a, rho, rinv, gr);
+    if (rem && !all_done && active) {
+      for (int i = 0; i < rem; ++i) acc = admm_iteration_g<M, G, O, TRACE>(P, S, op, L, x0a, rho, rinv, gr);
+      sec_count<TRACE>(g, SEC_LANE_ITERS, rem);
+    }
   } else if (active) {
-    for (int c = 0; c < n_chunks; ++c) chunk(c);
-    for (int i = 0; i < rem; ++i) acc = admm_iteration_g(P, S, op, L, x0a, rho, rinv, gr);
+    for (int c = 0; c < n_chunks; ++c) {
+      chunk(c);
+      sec_close<TRACE>(g, SEC_VOTE);
+    }
+    for (int i = 0; i < rem; ++i) acc = admm_iteration_g<M, G, O, TRACE>(P, S, op, L, x0a, rho, rinv, gr);
+    sec_count<TRACE>(g, SEC_LANE_ITERS, rem);
   }
   if (!active) return;
+  sec_switch<TRACE>(g, SEC_SWEEP, SEC_FINISH);
+  sec_unnest<TRACE>(g);
   acc = group_max(gr, acc);
 
   // 7. residuals / convergence / rho adaptation of the last iteration
@@ -860,6 +1007,9 @@ __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool 
       for (int i = 0; i < NU; ++i)
         Up_out[k * NU + i] = usable ? op[op.U + k * NU + i] : ws[W.Us + k * NU + i];
   }
+  // the finish section stays open: the caller closes it
+  sec_count<TRACE>(g, SEC_LANE_STEPS, 1u);
+  sec_count<TRACE>(g, SEC_LANE_DONEAT, (unsigned)(da > 0.0f ? da : (float)P.max_iter));
 }
 
 }  // namespace arl

@@ -28,9 +28,14 @@
 // uncached instantiation is the kernel as it was. With early exit the cluster
 // votes after each chunk (vote_all) and stops when all its 128 lanes have a
 // done-at: the 128-lane grouping of the TPU kernel. Lanes past B vote
-// "done" and touch no memory. The stage operands, iterate and linear terms
-// live in the block's shared memory, or in the device-memory workspace
-// where N is too long (ops/fused_kernel.py::launch_shape).
+// "done" and touch no memory. With a section-counter pointer (tracing on)
+// the traced instantiation runs (TRACE, its own translation unit,
+// megastep_traced_kernel.cu): each lane's thread 0 adds its cycles per
+// section, the plant's included, and its counts into the counters
+// (group_core.cuh, Sec); the untraced one reads no clock. The stage
+// operands, iterate and linear terms live in the block's shared memory, or
+// in the device-memory workspace where N is too long
+// (ops/fused_kernel.py::launch_shape).
 //
 // What bounds it on the H100: the operations of the core (~0.12 MFLOP per
 // lane at N=20 and ~8 executed iterations, dynamic). What stands between it
@@ -50,15 +55,18 @@ struct MegaParams {
   float *x_out, *ws;             // (nx, B), (ws_rows, B) per-lane workspace
   int n_sub, sim_tire, ws_rows;
   CacheIO cache;                 // null pointers without the cache
+  // (N_SEC,) section counters (group_core.cuh, Sec), or null: tracing off.
+  // Last, so that every other member keeps its place in the untraced kernel
+  unsigned long long* sec;
 };
 
-constexpr int MEGA_PTRS = 32;
+constexpr int MEGA_PTRS = 33;
 constexpr int MEGA_INTS = 15;
 
 // At most 168 registers, so that three blocks of 128 threads fit on an SM
 // where the shared memory allows it (the kinematic model at N=10); the
 // dynamic model fits in them without spills.
-template <class M, bool SM, bool CACHE>
+template <class M, bool SM, bool CACHE, bool TRACE>
 __global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid_constant__ MegaParams<M> P) {
   constexpr int NX = M::NX;
   const Grp<LANE_THREADS> gr;
@@ -69,6 +77,7 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid
   const int bb = active ? b : 0;
   const Lane ws = lane_of(P.ws, bb, S);
   const Ops<SM> op = ops_of<M, SM>(P.C.N, lane, P.ws, bb, S);
+  sec_begin<TRACE>();
   VehParams pv{};
   float x[NX] = {};
   if (active) {
@@ -79,8 +88,9 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid
   }
   float u0[NU];
   mpc_core_g(P.C, P.S, b, active, x, pv, lane_of(P.xref, bb, S), ws, op, gr, u0, &P.cache,
-             std::bool_constant<CACHE>{});
-  if (!active || gr.g != 0) return;
+             std::bool_constant<CACHE>{}, std::bool_constant<TRACE>{});
+  if (!active || gr.g != 0) return sec_end<TRACE>(P.sec, gr.g);
+  sec_switch<TRACE>(0, SEC_FINISH, SEC_PLANT);
   const Lane st = lane_of(P.C.stats, b, S);
   st[5] = 0.0f;
   st[6] = 0.0f;
@@ -98,19 +108,25 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid
   const Lane x_out = lane_of(P.x_out, b, S);
 #pragma unroll
   for (int i = 0; i < NX; ++i) x_out[i] = x[i];
+  sec_close<TRACE>(0, SEC_PLANT);
+  sec_end<TRACE>(P.sec, 0);
 }
 
-// The cached instantiations are compiled in their own translation unit
-// (megastep_cache_kernel.cu, which includes this file with
-// ARL_MEGASTEP_CACHED_TU defined), so that their nvcc runs beside this
-// one's and the build's wall time does not grow by theirs.
+// The cached and the traced instantiations are compiled in translation
+// units of their own (megastep_cache_kernel.cu and megastep_traced_kernel.cu,
+// which include this file with ARL_MEGASTEP_CACHED_TU or
+// ARL_MEGASTEP_TRACED_TU defined), so that their nvcc runs beside this one's
+// and the build's wall time does not grow by theirs. The cached
+// instantiations keep no section counters.
 template <class M, bool SM>
 int launch_megastep_cached(const MegaParams<M>& P, int grid, int smem, void* stream);
+template <class M, bool SM>
+int launch_megastep_traced(const MegaParams<M>& P, int grid, int smem, void* stream);
 
-#ifdef ARL_MEGASTEP_CACHED_TU
+#if defined(ARL_MEGASTEP_CACHED_TU)
 template <class M, bool SM>
 int launch_megastep_cached(const MegaParams<M>& P, int grid, int smem, void* stream) {
-  return launch_clustered(megastep_kernel<M, SM, true>, P, grid, smem, stream);
+  return launch_clustered(megastep_kernel<M, SM, true, false>, P, grid, smem, stream);
 }
 
 template int launch_megastep_cached<Dynamic, true>(const MegaParams<Dynamic>&, int, int, void*);
@@ -119,11 +135,24 @@ template int launch_megastep_cached<Kinematic, true>(const MegaParams<Kinematic>
 template int launch_megastep_cached<Kinematic, false>(const MegaParams<Kinematic>&, int, int, void*);
 
 }  // namespace arl
+#elif defined(ARL_MEGASTEP_TRACED_TU)
+template <class M, bool SM>
+int launch_megastep_traced(const MegaParams<M>& P, int grid, int smem, void* stream) {
+  return launch_clustered(megastep_kernel<M, SM, false, true>, P, grid, smem, stream);
+}
+
+template int launch_megastep_traced<Dynamic, true>(const MegaParams<Dynamic>&, int, int, void*);
+template int launch_megastep_traced<Dynamic, false>(const MegaParams<Dynamic>&, int, int, void*);
+template int launch_megastep_traced<Kinematic, true>(const MegaParams<Kinematic>&, int, int, void*);
+template int launch_megastep_traced<Kinematic, false>(const MegaParams<Kinematic>&, int, int, void*);
+
+}  // namespace arl
 #else
 template <class M, bool SM>
 int launch_megastep_as(const MegaParams<M>& P, int grid, int smem, void* stream) {
-  return P.cache.A ? launch_megastep_cached<M, SM>(P, grid, smem, stream)
-                   : launch_clustered(megastep_kernel<M, SM, false>, P, grid, smem, stream);
+  if (P.cache.A) return launch_megastep_cached<M, SM>(P, grid, smem, stream);
+  return P.sec ? launch_megastep_traced<M, SM>(P, grid, smem, stream)
+                 : launch_clustered(megastep_kernel<M, SM, false, false>, P, grid, smem, stream);
 }
 
 template <class M>
@@ -146,6 +175,7 @@ int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int de
   for (auto q : cache_in) n_null += (*q = static_cast<const float*>(ptrs[p++])) == nullptr;
   for (auto q : cache_out) n_null += (*q = static_cast<float*>(ptrs[p++])) == nullptr;
   if (n_null != 0 && n_null != 12) return -1;   // the whole cache or none of it
+  P.sec = static_cast<unsigned long long*>(ptrs[p++]);
   int ops_smem = 0, smem = 0;
   int* ints[] = {&C.B, &C.N, &C.n_cells, &P.n_sub, &C.max_iter, &C.check, &C.early_exit,
                  &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows, &ops_smem, &smem,
@@ -168,7 +198,8 @@ int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int de
 
 // C entry: device pointers (the corridor, the last input, may be null;
 // then the cache's six inputs and six outputs, all null without the
-// cache), float and int parameters in the order of
+// cache; last the section counters, null with tracing off and ignored with
+// the cache), float and int parameters in the order of
 // ops/megastep_kernel.py::_megastep_cuda (the floats end with
 // cache_drift_tol; the last four ints: operands in shared memory, its bytes
 // per block, cache_max_age, the model: 0 dynamic, 1 kinematic).
@@ -185,4 +216,4 @@ extern "C" int arl_megastep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
     default: return -3;
   }
 }
-#endif  // ARL_MEGASTEP_CACHED_TU
+#endif  // ARL_MEGASTEP_CACHED_TU, ARL_MEGASTEP_TRACED_TU

@@ -42,6 +42,7 @@ import torch
 
 from ..core.config import MPCConfig, SolverConfig, VehicleParams
 from ..solver.admm import ADMMSolution, ADMMState, _new_rho
+from ..utils import profiling
 from . import _cuda
 from .stage_math import (
     NC,
@@ -401,7 +402,11 @@ def fused_mpc_solve(cfg: MPCConfig, scfg: SolverConfig, p_b: VehicleParams, X_sc
 
 
 def _fused_cuda(cfg, scfg, p_b, X_sched, U_sched, kappas, x_ref_b, lb, ub, x0a, s0, lam0, rho0):
-    """Launch the kernel on the operands' device (batch-last operands)."""
+    """Launch the kernel on the operands' device (batch-last operands).
+    While a profiler records: the spans ``fused_kernel.layout`` and
+    ``.alloc``, and the traced instantiation adds into the section
+    counters."""
+    on = profiling.tracing()
     _check_fused(cfg, scfg)
     if cfg.tire not in TIRES:
         raise ValueError(f"fused_mpc_solve: unknown tire {cfg.tire!r}")
@@ -416,21 +421,25 @@ def _fused_cuda(cfg, scfg, p_b, X_sched, U_sched, kappas, x_ref_b, lb, ub, x0a, 
             raise ValueError(f"fused_mpc_solve: {name} has shape {tuple(t.shape)}, expected {dims}")
     kw = dict(dtype=torch.float32, device=dev)
     bl = lambda t: t.to(torch.float32).movedim(0, -1).contiguous()
-    rho = torch.as_tensor(rho0, **kw).expand(B).contiguous()
-    ins = [bl(X_sched[:, :N]), bl(U_sched), bl(kappas), bl(x_ref_b), stack_params(p_b, B, dev),
-           bl(lb), bl(ub), bl(x0a), bl(s0), bl(lam0), rho]
-    X = torch.empty((N + 1, na, B), **kw)
-    U = torch.empty((N, NU, B), **kw)
-    s = torch.empty((N + 1, NC, B), **kw)
-    lam = torch.empty((N + 1, NC, B), **kw)
-    stats = torch.empty((8, B), **kw)
-    ws_rows = core_workspace(N, cfg.model)
-    ws = torch.empty((ws_rows, B), **kw)
+    with profiling.span("fused_kernel.layout", on):
+        rho = torch.as_tensor(rho0, **kw).expand(B).contiguous()
+        ins = [bl(X_sched[:, :N]), bl(U_sched), bl(kappas), bl(x_ref_b), stack_params(p_b, B, dev),
+               bl(lb), bl(ub), bl(x0a), bl(s0), bl(lam0), rho]
+    with profiling.span("fused_kernel.alloc", on):
+        X = torch.empty((N + 1, na, B), **kw)
+        U = torch.empty((N, NU, B), **kw)
+        s = torch.empty((N + 1, NC, B), **kw)
+        lam = torch.empty((N + 1, NC, B), **kw)
+        stats = torch.empty((8, B), **kw)
+        ws_rows = core_workspace(N, cfg.model)
+        ws = torch.empty((ws_rows, B), **kw)
+        sec = profiling.section_buffer("fused_kernel", dev, on)
     _cuda.launch(
         "arl_fused_solve", ins + [X, U, s, lam, stats, ws], core_floats(cfg, scfg),
         [B, N, scfg.max_iter, max(1, scfg.check_termination), int(scfg.early_exit),
          TIRES[cfg.tire], ws_rows, *launch_shape(N, cfg.model).ints(),
          MODELS[cfg.model]],
+        counters=(sec,), trace=on,
     )
     fused_mpc_solve.launches += 1
     _cuda.check_outputs("arl_fused_solve", X, U, s, lam, stats[:6])

@@ -59,6 +59,7 @@ from ..core.device import resolve_device
 from ..planner.reftable import RefTable, refs_from_table
 from ..solver.admm import _RHO_MAX, _RHO_MIN, _RHO_TOL
 from ..track.track import Track
+from ..utils import profiling
 from . import _cuda
 from .fused_kernel import (
     GROUP,
@@ -218,13 +219,15 @@ def _check_supported(cfg: MPCConfig, scfg: SolverConfig, cache, eyb=None, B: int
 
 
 def megastep_init(p_b: VehicleParams, cfg: MPCConfig, track: Track, x0_b: torch.Tensor) -> MegaCarry:
-    """Batch-last carry from the batch-first ``mpc_init``; x0_b (B, nx)."""
+    """Batch-last carry from the batch-first ``mpc_init``; x0_b (B, nx).
+    While a profiler records, in the span ``megastep.init``."""
     from ..loop.mpc import mpc_init
 
-    c = mpc_init(p_b, cfg, track, x0_b)
-    bl = lambda t: t.movedim(0, -1).contiguous()
-    return MegaCarry(x=bl(x0_b), X_pred=bl(c.X_pred), U_pred=bl(c.U_pred), s=bl(c.s),
-                     lam=bl(c.lam), u_prev=bl(c.u_prev), rho=c.rho.contiguous())
+    with profiling.span("megastep.init", profiling.tracing()):
+        c = mpc_init(p_b, cfg, track, x0_b)
+        bl = lambda t: t.movedim(0, -1).contiguous()
+        return MegaCarry(x=bl(x0_b), X_pred=bl(c.X_pred), U_pred=bl(c.U_pred), s=bl(c.s),
+                         lam=bl(c.lam), u_prev=bl(c.u_prev), rho=c.rho.contiguous())
 
 
 def megastep_params(p_b: VehicleParams, B: int, device=None) -> torch.Tensor:
@@ -445,36 +448,45 @@ def megastep(cfg: MPCConfig, scfg: SolverConfig, track: Track, prm: torch.Tensor
 
 
 def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, cache):
-    """Launch the kernel on the carry's device (one launch per step)."""
+    """Launch the kernel on the carry's device (one launch per step). While
+    a profiler records: the spans ``megastep.check``, ``.refs`` and
+    ``.alloc``, and the traced instantiation (without a cache) adds into the
+    section counters."""
+    on = profiling.tracing()
     dev = carry.x.device
     N = cfg.N
     nx, _ = model_dims(cfg.model)
     B = carry.x.shape[-1]
-    _check_supported(cfg, scfg, cache, eyb, B)
-    _check_cuda_operands(carry, prm, N, nx)
-    sim_tire = sim_tire or cfg.tire
-    if cfg.tire not in TIRES or sim_tire not in TIRES:
-        raise ValueError(f"megastep: unknown tire {cfg.tire!r} / {sim_tire!r}")
+    with profiling.span("megastep.check", on):
+        _check_supported(cfg, scfg, cache, eyb, B)
+        _check_cuda_operands(carry, prm, N, nx)
+        sim_tire = sim_tire or cfg.tire
+        if cfg.tire not in TIRES or sim_tire not in TIRES:
+            raise ValueError(f"megastep: unknown tire {cfg.tire!r} / {sim_tire!r}")
     kw = dict(dtype=torch.float32, device=dev)
-    xref = megastep_refs(cfg, x_ref, carry)
-    kappa, taux = _track_inputs(track, dev)
-    # the corridor pointer is null without one: the kernel then keeps the box
-    ins = [carry.x, carry.X_pred, carry.U_pred, carry.s, carry.lam, carry.u_prev,
-           carry.rho, xref, prm, kappa, taux, eyb]
-    out = MegaCarry(
-        x=torch.empty((nx, B), **kw), X_pred=torch.empty((N + 1, nx, B), **kw),
-        U_pred=torch.empty((N, NU, B), **kw), s=torch.empty((N + 1, NC, B), **kw),
-        lam=torch.empty((N + 1, NC, B), **kw), u_prev=torch.empty((NU, B), **kw),
-        rho=None,
-    )
-    stats = torch.empty((8, B), **kw)
-    ws_rows = core_workspace(N, cfg.model)
-    ws = torch.empty((ws_rows, B), **kw)
-    # the cache's pointers are null without one; with one the kernel reads
-    # the old cache and writes a new one (the shift reads stage k+1 where
-    # another thread writes stage k, so the two never alias)
-    cache_out = None if cache is None else MegaCache(*(torch.empty(t.shape, **kw) for t in cache))
-    cache_ptrs = [None] * 12 if cache is None else [t.contiguous() for t in cache] + list(cache_out)
+    with profiling.span("megastep.refs", on):
+        xref = megastep_refs(cfg, x_ref, carry)
+        kappa, taux = _track_inputs(track, dev)
+        # the corridor pointer is null without one: the kernel then keeps the box
+        ins = [carry.x, carry.X_pred, carry.U_pred, carry.s, carry.lam, carry.u_prev,
+               carry.rho, xref, prm, kappa, taux, eyb]
+    with profiling.span("megastep.alloc", on):
+        out = MegaCarry(
+            x=torch.empty((nx, B), **kw), X_pred=torch.empty((N + 1, nx, B), **kw),
+            U_pred=torch.empty((N, NU, B), **kw), s=torch.empty((N + 1, NC, B), **kw),
+            lam=torch.empty((N + 1, NC, B), **kw), u_prev=torch.empty((NU, B), **kw),
+            rho=None,
+        )
+        stats = torch.empty((8, B), **kw)
+        ws_rows = core_workspace(N, cfg.model)
+        ws = torch.empty((ws_rows, B), **kw)
+        # the cache's pointers are null without one; with one the kernel reads
+        # the old cache and writes a new one (the shift reads stage k+1 where
+        # another thread writes stage k, so the two never alias)
+        cache_out = None if cache is None else MegaCache(*(torch.empty(t.shape, **kw) for t in cache))
+        cache_ptrs = [None] * 12 if cache is None else [t.contiguous() for t in cache] + list(cache_out)
+        # the cached instantiation keeps no section counters
+        sec = profiling.section_buffer("megastep_kernel", dev, on and cache is None)
     _cuda.launch(
         "arl_megastep",
         [t if t is None else t.contiguous() for t in ins]
@@ -483,6 +495,7 @@ def _megastep_cuda(cfg, scfg, track, prm, x_ref, carry, n_sub, sim_tire, eyb, ca
         [B, N, track.n_cells, n_sub, scfg.max_iter, max(1, scfg.check_termination),
          int(scfg.early_exit), TIRES[cfg.tire], TIRES[sim_tire], int(cfg.kappa_speed_cap),
          ws_rows, *launch_shape(N, cfg.model).ints(), int(scfg.cache_max_age), MODELS[cfg.model]],
+        counters=(sec,), trace=on,
     )
     if cache is None:
         megastep.launches += 1

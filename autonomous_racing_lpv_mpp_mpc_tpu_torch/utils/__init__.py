@@ -4,7 +4,7 @@ numerical-safety tools, and plots (the JAX package's ``utils``)."""
 from .debug import checked_closed_loop, enable_nan_debugging
 from .metrics import LapStats, lap_stats
 from .plotting import animate_run, plot_predictions, plot_run, plot_track
-from .profiling import cost_analysis, timed, trace_to
+from .profiling import timed, trace_to
 from .record import SweepCheckpoint, load_log, save_log
 
 __all__ = [
@@ -19,7 +19,6 @@ __all__ = [
     "load_log",
     "timed",
     "trace_to",
-    "cost_analysis",
     "enable_nan_debugging",
     "checked_closed_loop",
 ]

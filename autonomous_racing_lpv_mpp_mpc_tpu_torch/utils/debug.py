@@ -19,8 +19,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from ..core.config import MPCConfig, SolverConfig, VehicleParams
-from ..loop.closed_loop import closed_loop
-from ..ops import _cuda
 from ..track.track import Track
 
 _aten = torch.ops.aten
@@ -78,6 +76,8 @@ def enable_nan_debugging(enable: bool = True) -> None:
     The op check is a ``TorchDispatchMode``; PyTorch keeps those per
     thread, so switch it off from the thread that switched it on.
     """
+    from ..ops import _cuda   # here: the kernels' launcher imports utils
+
     global _MODE
     if enable and _MODE is None:
         _MODE = _NanCheckMode()
@@ -120,6 +120,8 @@ def checked_closed_loop(
     every state finite, and |e_y| below ``ey_limit`` (default 5 x the track
     width). Returns ``(CheckError, log)``. The checks are reduced on the
     device and read back once, after the loop."""
+    from ..loop.closed_loop import closed_loop   # here: the loop imports utils
+
     ey_i = 5 if cfg.model == "dynamic" else 3
     log = closed_loop(p, cfg, scfg, track, x0, x_ref, T, **kw)
     X = log.X

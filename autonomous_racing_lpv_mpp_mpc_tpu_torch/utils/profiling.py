@@ -5,8 +5,16 @@ SURVEY.md §5 "Tracing / profiling").
   around each call (PyTorch returns before the device finishes).
 - :func:`trace_to`: a ``torch.profiler`` session over a region, written as a
   Chrome / Perfetto JSON trace into a directory.
-- :func:`cost_analysis`: the FLOPs of the PyTorch ops a call runs, from
-  ``torch.utils.flop_counter.FlopCounterMode``.
+- The port's own tracing, on exactly while a ``torch.profiler`` session
+  records (:func:`tracing`; a ``trace_to`` region, a benchmark's traced
+  window): host spans around the stages of the step (:func:`span`:
+  ``mpc.prepare``, ``mpc.post``, ``mpc.init``, ``plant.step``,
+  ``megastep.check`` / ``.refs`` / ``.alloc`` / ``.init``,
+  ``fused_kernel.layout`` / ``.alloc``, ``cuda.launch.<C entry>``), on the
+  profiler's clock and kept in its session, and the section counters
+  inside the megastep and fused kernels (:data:`SECTIONS`, read by
+  :func:`sections`). Off, a wrapper call costs one flag read and its
+  launch one null pointer.
 """
 
 from __future__ import annotations
@@ -17,7 +25,69 @@ import time
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._pytree import tree_flatten
+
+# The kernels' section counters, in the order of ops/csrc/group_core.cuh's
+# Sec: clock64 cycles of each active lane's thread 0 per section (prepare:
+# schedule, bounds, stage builds, warm start; factor: the Riccati factor
+# and the first linear terms; sweep: each ADMM iteration's backward sweep
+# and forward rollout; stage_pass: its z-update and next linear terms;
+# vote: the termination test and the 128-lane vote with its wait; finish:
+# residuals, accept or limp-home, output stores; plant: the megastep's
+# Euler sub-steps), then the active lane-steps, the ADMM iterations they
+# executed and their own done-ats, summed over launches.
+SECTIONS = ("prepare", "factor", "sweep", "stage_pass", "vote", "finish", "plant",
+            "lane_steps", "lane_iters", "lane_doneat")
+
+_NO_SPAN = contextlib.nullcontext()
+_SECTION_BUFFERS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def tracing() -> bool:
+    """Whether a ``torch.profiler`` (or autograd profiler) session records
+    now: the flag the profiler sets on start and clears on stop. A wrapper
+    reads it once per call and hands it to its spans and its launch."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str, on: bool):
+    """A host span ``name`` (``record_function``: on the profiler's clock,
+    shared with its device trace) when ``on``, else the shared null
+    context."""
+    return _autograd_profiler.record_function(name) if on else _NO_SPAN
+
+
+def section_buffer(kernel: str, device, on: bool):
+    """The section counters of ``kernel`` ("megastep_kernel",
+    "fused_kernel") on ``device`` when ``on`` (allocated zeroed on first
+    use, then summed into by every traced launch: each block of the kernel
+    adds its lanes' sums), else None: the launch passes a null pointer."""
+    if not on:
+        return None
+    key = (kernel, torch.device(device))
+    buf = _SECTION_BUFFERS.get(key)
+    if buf is None:
+        buf = _SECTION_BUFFERS[key] = torch.zeros(len(SECTIONS), dtype=torch.int64, device=device)
+    return buf
+
+
+def sections(kernel: str) -> Dict[str, int]:
+    """{name: total} of :data:`SECTIONS` over every traced launch of
+    ``kernel`` since the last :func:`reset_sections`, summed over devices
+    (one device-to-host read each); empty where no traced launch ran (a CPU
+    run: the plain versions count nothing)."""
+    bufs = [b for (k, _), b in _SECTION_BUFFERS.items() if k == kernel]
+    if not bufs:
+        return {}
+    tot = sum(b.cpu() for b in bufs)
+    return dict(zip(SECTIONS, (int(v) for v in tot)))
+
+
+def reset_sections() -> None:
+    """Zero every kernel's section counters."""
+    for b in _SECTION_BUFFERS.values():
+        b.zero_()
 
 
 def _cuda_devices(*trees):
@@ -97,16 +167,3 @@ def trace_to(logdir: str):
             raise RuntimeError(f"trace_to: the host launched {launched} kernel(s) or graph(s) but the profiler "
                                f"recorded none on the device ({trace.path}); trace a longer region, or trace "
                                f"from a fresh process")
-
-
-def cost_analysis(fn: Callable, *args) -> Dict[str, float]:
-    """``{"flops": ...}`` of ``fn(*args)``: the FLOPs that
-    ``FlopCounterMode`` counts for the PyTorch ops the call runs (matmuls,
-    convolutions, attention). The hand-written CUDA kernels are opaque to
-    it, as Pallas calls are to XLA's cost analysis: a call that spends its
-    work in them counts none of it."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        fn(*args)
-    return {"flops": float(counter.get_total_flops())}

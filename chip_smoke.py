@@ -141,7 +141,7 @@ experiment command line, the parallel layer and the oracle rungs:
   under 1/30 s, the EKF beating the raw frames 2x, the fused kernel at
   each N against plain from the loop's carry; ``[utils]`` ``timed``
   within 20% of CUDA events on one megastep, a ``trace_to`` trace naming
-  the megastep kernel, ``cost_analysis`` of a 64^3 matmul, the NaN mode
+  the megastep kernel, the NaN mode
   raising on a seeded NaN and not on a megastep step, and
   ``checked_closed_loop`` flagging e_y = 25;
 - ``[oracle]``, beside cells 1-3: each CUDA kernel held against the port's
@@ -2928,7 +2928,7 @@ def main():
             online as online_mod, pipelined_replanning_loop, replanning_loop,
         )
         from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils import (
-            checked_closed_loop, cost_analysis, enable_nan_debugging, timed, trace_to,
+            checked_closed_loop, enable_nan_debugging, timed, trace_to,
         )
         from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils.nativelib import find_native_lib
 
@@ -2944,7 +2944,7 @@ def main():
             Xs, Us, kap, xr, lb, ub, x0a, warm = mpc_prepare_light(p, fcfg, ftrack, x[None], ref, cb, obs)
             return (p, Xs, Us, kap, xr, lb, ub, x0a, warm[0], warm[1], cb.rho)
 
-        # [utils]: timed, trace_to, cost_analysis, the NaN mode and
+        # [utils]: timed, trace_to, the NaN mode and
         # checked_closed_loop on the card; one megastep launch at cell 1's
         # shape. The trace is taken in a fresh process that loads the built
         # kernel library before its first profiler session: in this
@@ -2974,8 +2974,6 @@ def main():
             check(child.returncode == 0, f"[utils] the trace process failed: {child.stderr[-2000:]}")
             traced = json.loads(child.stdout.strip().splitlines()[-1])
             u.update(trace_kernels=traced["kernels"], trace_launches=traced["launches"])
-            a = torch.ones((64, 64), device=dev)
-            u["flops"] = cost_analysis(lambda m1, m2: m1 @ m2, a, a)["flops"]
             enable_nan_debugging()
             try:
                 try:
@@ -2999,13 +2997,11 @@ def main():
         utl.update(run_u)
         log(f"[utils] timed {utl['timed_ms']:.4f} ms against CUDA events {utl['events_ms']:.4f} ms per cell-1 "
             f"megastep; trace_to's kernels {utl['trace_kernels']} ({utl['trace_launches']} megastep launches in the trace "
-            f"process); cost_analysis of a 64^3 matmul "
-            f"{utl['flops']:.0f} flops; NaN mode: {utl['nan_raised']!r}; checked_closed_loop sane "
+            f"process); NaN mode: {utl['nan_raised']!r}; checked_closed_loop sane "
             f"{utl['check_ok']!r}, e_y=25 {utl['check_bad']!r} ({card})")
         check(abs(utl["timed_ms"] - utl["events_ms"]) <= 0.2 * utl["events_ms"],
               "[utils] timed is not within 20% of CUDA events")
         check(any("megastep_kernel" in k for k in utl["trace_kernels"]), "[utils] the trace names no megastep_kernel")
-        check(utl["flops"] >= 2 * 64 ** 3 * 0.5, f"[utils] cost_analysis reports {utl['flops']} flops")
         check(utl["nan_raised"] is not None and "sqrt" in utl["nan_raised"], "[utils] the NaN mode did not raise")
         check(utl["check_ok"] is None and utl["check_bad"] is not None, "[utils] checked_closed_loop misjudged")
 

@@ -248,7 +248,8 @@ def test_cache_shape_checks():
 def test_cuda_wrapper_operands(monkeypatch):
     """The wrapper's operands for the kernel, checked on the CPU with the
     launch replaced: the cache's twelve pointers follow the carry's (all
-    null without a cache), every operand is a contiguous float32 tensor
+    null without a cache), then the section counters' (null),
+    every operand is a contiguous float32 tensor
     even for a cache the plain version made (its stages are views), and
     the floats end with the drift tolerance, the ints with the age limit
     and the model."""
@@ -256,7 +257,7 @@ def test_cuda_wrapper_operands(monkeypatch):
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import megastep_kernel as mk
 
     calls = []
-    monkeypatch.setattr(_cuda, "launch", lambda name, t, f, i: calls.append((t, f, i)))
+    monkeypatch.setattr(_cuda, "launch", lambda name, t, f, i, **kw: calls.append((t, f, i, kw)))
     monkeypatch.setattr(megastep, "cached_launches", 0)
     monkeypatch.setattr(megastep, "launches", 0)     # restored after: other files read the count
     cfg, track, prm, xr, car = _port_case()
@@ -265,8 +266,10 @@ def test_cuda_wrapper_operands(monkeypatch):
     car, _, _, cache = megastep_plain(cfg, scfg1, track, prm, xr, car, n_sub=4, cache=cache)
     mk._megastep_cuda(cfg, _SCFG, track, prm, xr, car, 4, None, None, None)
     out = mk._megastep_cuda(cfg, scfg1, track, prm, xr, car, 4, None, None, cache)
-    (t0, _, i0), (t1, f1, i1) = calls
+    (t0, _, i0, kw0), (t1, f1, i1, kw1) = calls
     assert len(t0) == len(t1) == 32 and all(t is None for t in t0[20:])
+    # no profiler records: the section counters' pointer is null, and a cached launch never has one
+    assert kw0["counters"] == kw1["counters"] == (None,) and kw0["trace"] is kw1["trace"] is False
     assert all(t is not None and t.dtype == torch.float32 and t.is_contiguous() for t in t1[:11] + t1[12:])
     assert all(a is b for a, b in zip(t1[26:], out[3]))
     assert f1[-1] == pytest.approx(0.25) and i1[-2:] == [5, 0] and i0[-2] == _SCFG.cache_max_age

@@ -1,5 +1,5 @@
 """The port's profiling and numerical-safety tools and its last two exports,
-on the CPU: ``utils.timed`` / ``cost_analysis`` / ``trace_to``,
+on the CPU: ``utils.timed`` / ``trace_to``,
 ``utils.enable_nan_debugging``, ``utils.checked_closed_loop`` (as
 tests/test_profiling.py and tests/test_utils.py:101 hold the JAX package's),
 ``engine.aug_dim`` against JAX's and ``loop.passthrough``."""
@@ -20,7 +20,7 @@ from autonomous_racing_lpv_mpp_mpc_tpu_torch.loop import closed_loop, constant_r
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils import (
-    checked_closed_loop, cost_analysis, enable_nan_debugging, timed, trace_to,
+    checked_closed_loop, enable_nan_debugging, timed, trace_to,
 )
 
 P = VehicleParams()
@@ -33,13 +33,6 @@ def test_timed_returns_positive_wall_and_result():
     secs, out = timed(lambda a: (a @ a).sum(), x, warmup=1, iters=2)
     assert secs > 0
     assert float(out) == 128 * 128 * 128
-
-
-def test_cost_analysis_reports_flops():
-    a = torch.ones((64, 64))
-    ca = cost_analysis(lambda u, v: u @ v, a, a)
-    assert isinstance(ca, dict)
-    assert ca["flops"] >= 2 * 64 * 64 * 64 * 0.5
 
 
 def test_trace_to_writes_a_trace(tmp_path):
