@@ -102,6 +102,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = sig
         fn.restype = ctypes.c_int
+    lib.arl_cluster_fits.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_int]
+    lib.arl_cluster_fits.restype = ctypes.c_int
     return lib
 
 

@@ -1,8 +1,9 @@
 // Shared device code of the hand-written Hopper kernels: per-lane views of
 // batch-last arrays, small fixed-size matrix helpers, the curvature lookup,
 // the LPV stage builds of the dynamic and the kinematic bicycle with their
-// Van Loan discretization, the nonlinear plant ODEs, and the model traits
-// (Dynamic, Kinematic) that the tracker core is templated on.
+// Van Loan discretization, the nonlinear plant ODEs, the model traits
+// (Dynamic, Kinematic) that the tracker core is templated on, and the index
+// map of a stage's Ad through its model's structural pattern (AdMap).
 //
 // Counterparts in the JAX package: the small-matrix helpers of
 // ops/admm_kernel.py (_mm, _inv2),
@@ -321,6 +322,17 @@ __device__ __forceinline__ void f_kinematic(const VehParams& pv, const float (&x
   dx[3] = vx * se;
 }
 
+// Bit i * nx + j set where entry (i, j) of an nx x nx pattern, spelt row by
+// row, reads c.
+template <int nx>
+constexpr unsigned long long pattern_bits(const char (&p)[nx * nx + 1], char c) {
+  static_assert(nx * nx <= 64, "a pattern's entries fit in 64 bits");
+  unsigned long long m = 0ull;
+  for (int i = 0; i < nx * nx; ++i)
+    if (p[i] == c) m |= 1ull << i;
+  return m;
+}
+
 // Model traits of the tracker core (group_core.cuh): state width nx, the
 // augmented width na = nx + NU, the indices of s and e_y in the state, the
 // LPV stage build and the plant ODE. The plain version selects the same by
@@ -329,8 +341,26 @@ __device__ __forceinline__ void f_kinematic(const VehParams& pv, const float (&x
 // cache_scale(i) is state channel i's drift scale in the megastep's
 // discretization-cache signature (JAX ops/megastep_kernel.py::_mpc_core,
 // x_scl), 0 for s, which the signature leaves out.
+//
+// AD_PATTERN is the structural pattern of every discretized Ad, row by row:
+// 'x' an entry the stage build computes, '1' and '0' an exact 1 and an exact
+// 0. The continuous A's zero columns (s and e_y feed no state) and its other
+// exact zeros carry through the Van Loan series and squarings, which are
+// only products and sums, so the pattern holds in float at every schedule;
+// the group core keeps per stage only the columns with 'x' entries (AdMap
+// below).
 struct Dynamic {
   static constexpr int NX = arl::NX, NA = arl::NA, S = 4, EY = 5;
+  // s and e_y unit columns, e_psi's column e3 plus (5, 3), no (1, 0), (2, 0)
+  static constexpr char AD_PATTERN[] =
+      "xxx000"
+      "0xx000"
+      "0xx000"
+      "xxx100"
+      "xxx010"
+      "xxxx01";
+  static constexpr unsigned long long AD_STORED = pattern_bits<NX>(AD_PATTERN, 'x');
+  static constexpr unsigned long long AD_ONE = pattern_bits<NX>(AD_PATTERN, '1');
   static __device__ __forceinline__ float cache_scale(int i) {
     return i == 0 ? 1.0f : i == 2 ? 2.0f : i == S ? 0.0f : 0.5f;
   }
@@ -348,6 +378,14 @@ struct Dynamic {
 
 struct Kinematic {
   static constexpr int NX = KIN_NX, NA = KIN_NA, S = 2, EY = 3;
+  // s and e_y unit columns, e_psi's column e1 plus (3, 1)
+  static constexpr char AD_PATTERN[] =
+      "x000"
+      "x100"
+      "x010"
+      "xx01";
+  static constexpr unsigned long long AD_STORED = pattern_bits<NX>(AD_PATTERN, 'x');
+  static constexpr unsigned long long AD_ONE = pattern_bits<NX>(AD_PATTERN, '1');
   static __device__ __forceinline__ float cache_scale(int i) {
     return i == 0 ? 1.0f : i == S ? 0.0f : 0.5f;
   }
@@ -360,6 +398,108 @@ struct Kinematic {
                                            const float (&u)[NU], float kap, int /*tire*/,
                                            float (&dx)[NX]) {
     f_kinematic(pv, x, u, kap, dx);
+  }
+};
+
+// The leading columns of an nx x nx pattern's bits x that hold a set bit:
+// C where columns 0..C-1 each hold one and the later ones none; -1 where the
+// columns that hold one are not the leading ones.
+constexpr int pattern_lead_columns(unsigned long long x, int nx) {
+  int c = 0;
+  for (int j = 0; j < nx; ++j) {
+    bool any = false;
+    for (int i = 0; i < nx; ++i) any |= ((x >> (i * nx + j)) & 1ull) != 0ull;
+    if (any && c != j) return -1;
+    c += any;
+  }
+  return c;
+}
+
+// Byte j: the row of column j's set bit, for the columns j >= c; 0 overall
+// where one of them holds none or more than one.
+constexpr unsigned long long pattern_unit_rows(unsigned long long m, int nx, int c) {
+  unsigned long long out = 0ull;
+  for (int j = c; j < nx; ++j) {
+    int row = -1;
+    for (int i = 0; i < nx; ++i)
+      if ((m >> (i * nx + j)) & 1ull) {
+        if (row >= 0) return 0ull;
+        row = i;
+      }
+    if (row < 0) return 0ull;
+    out |= (unsigned long long)(row + 1) << (8 * j);
+  }
+  return out;
+}
+
+// A stage's Ad through its model's AD_PATTERN. The columns that hold a
+// computed ('x') entry are the leading C; the operand slots keep only them,
+// column by column, C nx floats a stage (with the exact 1s and 0s that they
+// hold too): entry (i, j) of stage k at k n + j nx + i. Every later column
+// is a unit column, its one 1 at row unit_row(j), the same at every stage.
+//
+// The ADMM sweeps and the factor read a lane thread's own column (c) or
+// row (r), known only at run time, as the dense layout did: a computed
+// entry is one load from a base register and a constant offset, and the
+// products keep the dense layout's terms and order. A unit column's entries
+// are not kept. The dense sum of v(i) Ad(i, c) over a unit column is v at
+// its 1 (its other terms are products with exact 0s): fix_col puts that in
+// the sum's place, and the loads made in its stead read past the stage's
+// computed columns (the next stage's slots or, past the last stage, Bd's,
+// which follows Ad in both operand layouts: group_core.cuh OpsLayout,
+// mpc_core.cuh WsLayout). A row's terms from the unit columns are v(j)
+// added where the row holds the 1 (fix_row), after the computed columns'
+// terms as in the dense order. So the results are the dense layout's bit
+// for bit.
+template <class M>
+struct AdMap {
+  static constexpr int NX = M::NX;
+  static constexpr unsigned long long X = M::AD_STORED, ONE = M::AD_ONE;
+  static constexpr int C = pattern_lead_columns(X, NX);   // the computed columns
+  static constexpr int n = C * NX;                         // floats per stage
+  static constexpr unsigned long long UNIT_ROWS = pattern_unit_rows(ONE, NX, C);
+  static_assert(C >= 2 && (X & ONE) == 0ull && (C == NX || UNIT_ROWS != 0ull),
+                "the computed columns lead (two at least: the dense sums' first pair); every later "
+                "column holds a single 1; an entry is 'x', '1' or '0'");
+  static_assert(NX * NX - 1 - n < NX * NU, "a unit column's loads stay within the next block");
+
+  // the row of unit column j's 1 (j >= C, known when unrolled)
+  static __host__ __device__ constexpr int unit_row(int j) {
+    return (int)((UNIT_ROWS >> (8 * j)) & 0xffull) - 1;
+  }
+  // the slot of a computed entry (i, j) of stage k (j < C)
+  static __host__ __device__ constexpr int index(int k, int i, int j) { return k * n + j * NX + i; }
+
+  // entry (i, j) of stage k, j < C; i or j may be known only at run time
+  // (for a run-time j >= C another slot's value: fix_col then replaces the
+  // sum)
+  template <class O>
+  static __device__ __forceinline__ float ld(const O& op, int k, int i, int j) {
+    return op[op.Ad + index(k, i, j)];
+  }
+  // the dense sum over i of v(i) Ad(i, c), given the sum over ld's loads of
+  // column c
+  template <int L>
+  static __device__ __forceinline__ float fix_col(float sum, int c, const float (&v)[L]) {
+#pragma unroll
+    for (int j = C; j < NX; ++j) sum = c == j ? v[unit_row(j)] : sum;
+    return sum;
+  }
+  // the dense sum over j of Ad(r, j) v(j), given the sum over j < C of ld's
+  // loads of row r
+  template <int L>
+  static __device__ __forceinline__ float fix_row(float sum, int r, const float (&v)[L]) {
+#pragma unroll
+    for (int j = C; j < NX; ++j) sum = r == unit_row(j) ? sum + v[j] : sum;
+    return sum;
+  }
+  // the computed columns of Ad into stage k's slots
+  template <class O>
+  static __device__ __forceinline__ void put(const O& op, int k, const float (&Ad)[NX][NX]) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) op[op.Ad + index(k, i, j)] = Ad[i][j];
   }
 };
 

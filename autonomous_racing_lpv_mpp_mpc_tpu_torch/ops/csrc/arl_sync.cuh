@@ -2,7 +2,8 @@
 // racestep, fused and solver-only kernels): the G threads that own one lane,
 // the lane's slice of dynamic shared memory, the 128-lane early-exit vote
 // and the 128-lane maximum (the megastep's cache decision) held across a
-// thread block cluster, and the (clustered) launch.
+// thread block cluster, and the (clustered) launch with the cluster fits it
+// keeps.
 //
 // Launch shape: a lane is LANE_THREADS adjacent threads of one warp; a
 // block holds BLOCK_LANES lanes; a cluster of CLUSTER blocks holds the 128
@@ -103,6 +104,20 @@ __device__ __forceinline__ float max_all(float mine) {
   return all;
 }
 
+// The clusters of a launch's shape that the card holds at once
+// (cudaOccupancyMaxActiveClusters), per kernel instantiation, device and
+// dynamic shared-memory bytes: asked at the first such launch and kept, under
+// the kernel's name, for arl_cluster_fits (arl_sync.cu). A launch of
+// B lanes runs in ceil(B / 128 / clusters) waves.
+struct ClusterFit {
+  const void* kern;
+  const char* name;
+  int device, smem, clusters;
+};
+constexpr int MAX_FITS = 64;
+inline ClusterFit cluster_fits[MAX_FITS];
+inline int n_cluster_fits = 0;
+
 // Launch `kern` on `grid` blocks of `threads` threads in clusters of
 // `cluster` blocks (1: no cluster) with `smem` bytes of dynamic shared
 // memory. Returns 0, -4 if the card cannot hold one such cluster, or the
@@ -110,14 +125,14 @@ __device__ __forceinline__ float max_all(float mine) {
 //
 // The kernel's dynamic shared-memory limit is raised before any launch that
 // needs more than the limit set on this device so far (never lowered, so
-// any sequence of horizons launches), and a cluster's fit is checked for
-// every amount above the largest that fitted.
+// any sequence of horizons launches); a clustered launch's fit is asked once
+// per amount and kept (ClusterFit, under `name`).
 template <class P>
 int launch_grouped(void (*kern)(P), const P& p, int grid, int threads, int cluster, int smem,
-                   void* stream) {
+                   void* stream, const char* name = nullptr) {
   struct Seen {
     void (*kern)(P);
-    int device, allowed, fitted;
+    int device, allowed;
   };
   static Seen seen[32];
   static int n_seen = 0;
@@ -125,7 +140,7 @@ int launch_grouped(void (*kern)(P), const P& p, int grid, int threads, int clust
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Seen none{kern, device, -1, -1};
+  Seen none{kern, device, -1};
   Seen* s = &none;
   for (int i = 0; i < n_seen; ++i)
     if (seen[i].kern == kern && seen[i].device == device) s = &seen[i];
@@ -153,12 +168,21 @@ int launch_grouped(void (*kern)(P), const P& p, int grid, int threads, int clust
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;
-  if (cluster > 1 && smem > s->fitted) {
-    int fit = 0;
-    e = cudaOccupancyMaxActiveClusters(&fit, kern, &cfg);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (fit < 1) return -4;
-    s->fitted = smem;
+  if (cluster > 1) {
+    const void* key = reinterpret_cast<const void*>(kern);
+    bool known = false;
+    for (int i = 0; i < n_cluster_fits; ++i) {
+      const ClusterFit& f = cluster_fits[i];
+      known |= f.kern == key && f.device == device && f.smem == smem;
+    }
+    if (!known) {
+      int fit = 0;
+      e = cudaOccupancyMaxActiveClusters(&fit, kern, &cfg);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (fit < 1) return -4;
+      if (n_cluster_fits < MAX_FITS)
+        cluster_fits[n_cluster_fits++] = {key, name, device, smem, fit};
+    }
   }
   e = cudaLaunchKernelEx(&cfg, kern, p);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -166,10 +190,12 @@ int launch_grouped(void (*kern)(P), const P& p, int grid, int threads, int clust
 }
 
 // The group core's launch: blocks of GROUP_THREADS threads in clusters of
-// CLUSTER blocks (one 128-lane vote group per cluster).
+// CLUSTER blocks (one 128-lane vote group per cluster); `name` the kernel's,
+// under which its cluster fit is kept.
 template <class P>
-int launch_clustered(void (*kern)(P), const P& p, int grid, int smem, void* stream) {
-  return launch_grouped(kern, p, grid, GROUP_THREADS, CLUSTER, smem, stream);
+int launch_clustered(void (*kern)(P), const P& p, int grid, int smem, void* stream,
+                     const char* name) {
+  return launch_grouped(kern, p, grid, GROUP_THREADS, CLUSTER, smem, stream, name);
 }
 
 }  // namespace arl

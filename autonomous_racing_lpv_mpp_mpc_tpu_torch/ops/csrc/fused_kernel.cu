@@ -189,7 +189,7 @@ int launch_fused_traced(const FusedParams<M>& P, int grid, int smem, void* strea
 #ifdef ARL_FUSED_TRACED_TU
 template <class M, bool SM>
 int launch_fused_traced(const FusedParams<M>& P, int grid, int smem, void* stream) {
-  return launch_clustered(fused_kernel<M, SM, true>, P, grid, smem, stream);
+  return launch_clustered(fused_kernel<M, SM, true>, P, grid, smem, stream, "fused_kernel");
 }
 
 template int launch_fused_traced<Dynamic, true>(const FusedParams<Dynamic>&, int, int, void*);
@@ -202,7 +202,8 @@ template int launch_fused_traced<Kinematic, false>(const FusedParams<Kinematic>&
 template <class M, bool SM>
 int launch_fused_as(const FusedParams<M>& P, int grid, int smem, void* stream) {
   return P.sec ? launch_fused_traced<M, SM>(P, grid, smem, stream)
-                 : launch_clustered(fused_kernel<M, SM, false>, P, grid, smem, stream);
+                 : launch_clustered(fused_kernel<M, SM, false>, P, grid, smem, stream,
+                                    "fused_kernel");
 }
 
 template <class M>

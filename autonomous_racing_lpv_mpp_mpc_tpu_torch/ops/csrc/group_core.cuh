@@ -20,7 +20,8 @@
 // applied as the gathers they are (Sel: at most two +-1 entries per row and
 // per column), not as dense products.
 //
-// The per-iteration operands of every stage (Ad, Bd, K, Hux, Hiv, d) live in
+// The per-iteration operands of every stage (Ad, Bd, Hux, Hiv, d; of Ad only
+// the columns its model's pattern computes, AdMap of arl_common.cuh) live in
 // the block's dynamic shared memory, one slice per lane (OpsLayout), or,
 // where N makes the block's slices exceed what a block may hold, in the
 // device-memory workspace (WsLayout slots, batch-last); the wrapper chooses
@@ -206,17 +207,18 @@ inline bool make_sel(const CoreParams<M>& P, Sel<M>& S) {
   return sel_from<M>([&](int c, int j) { return j < M::NA ? P.Dx[c][j] : P.Du[c][j - M::NA]; }, S);
 }
 
-// One lane's slice of the ADMM operands in shared memory (floats): Ad, Bd,
-// the first nx columns of Hux (the rest is the constant Mf'), Hiv and the
-// affine term d of every stage; the linear terms of the backward sweep qt
-// (N+1, na) and rt (N, NU); the iterate X (N+1, na), U (N, NU).
+// One lane's slice of the ADMM operands in shared memory (floats): Ad (the
+// computed columns, AdMap), Bd, the first nx columns of Hux (the rest is the
+// constant Mf'), Hiv and the affine term d of every stage; the linear terms
+// of the backward sweep qt (N+1, na) and rt (N, NU); the iterate X (N+1,
+// na), U (N, NU).
 template <class M>
 struct OpsLayout {
   int Ad, Bd, Hux, Hiv, d, qt, rt, X, U, total;
   __host__ __device__ explicit OpsLayout(int N) {
     constexpr int nx = M::NX, na = M::NA;
     int o = 0;
-    Ad = o;  o += N * nx * nx;
+    Ad = o;  o += N * AdMap<M>::n;
     Bd = o;  o += N * nx * NU;
     Hux = o; o += N * NU * nx;
     Hiv = o; o += N * NU * NU;
@@ -314,13 +316,11 @@ __device__ __forceinline__ void build_stage(const O& op, int k, const float (&xk
   float Ac[NX][NX], Bc[NX][NU], Ad[NX][NX], Bd[NX][NU];
   M::ab_cont(xk, uk, kap, pv, tire, Ac, Bc);
   vanloan<NX>(Ac, Bc, dt, Ad, Bd);
+  AdMap<M>::put(op, k, Ad);
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
-#pragma unroll
-    for (int j = 0; j < NX; ++j) op[op.Ad + k * NX * NX + i * NX + j] = Ad[i][j];
+  for (int i = 0; i < NX; ++i)
 #pragma unroll
     for (int j = 0; j < NU; ++j) op[op.Bd + k * NX * NU + i * NU + j] = Bd[i][j];
-  }
 }
 
 // Section 5, the backward Riccati factorization of the rho-folded cost,
@@ -331,6 +331,7 @@ __device__ __forceinline__ void build_stage(const O& op, int k, const float (&xk
 template <class M, int G, class O>
 __device__ void factor_g(const CoreParams<M>& P, const O& op, float rho, const Grp<G>& gr) {
   constexpr int NX = M::NX, NA = M::NA, RA = (NA + G - 1) / G;
+  using A = AdMap<M>;
   const int g = gr.g;
   float V[RA][NA], mf[RA][NU];
 #pragma unroll
@@ -342,7 +343,7 @@ __device__ void factor_g(const CoreParams<M>& P, const O& op, float rho, const G
     for (int a = 0; a < NU; ++a) mf[j][a] = P.Mc[r][a] + P.DxDu[r][a] * rho;
   }
   for (int k = P.N - 1; k >= 0; --k) {
-    const int oA = op.Ad + k * NX * NX, oB = op.Bd + k * NX * NU;
+    const int oB = op.Bd + k * NX * NU;
     float Bd[NX][NU];
 #pragma unroll
     for (int l = 0; l < NX; ++l)
@@ -388,16 +389,20 @@ __device__ void factor_g(const CoreParams<M>& P, const O& op, float rho, const G
       const int r = g + G * j, rc = min(r, NX - 1);
 #pragma unroll
       for (int m = 0; m < NX; ++m) {
-        float acc = V[j][0] * op[oA + m];
+        float acc = V[j][0] * A::ld(op, k, 0, m);
 #pragma unroll
-        for (int l = 1; l < NX; ++l) acc += V[j][l] * op[oA + l * NX + m];
-        VAo[j][m] = acc;
+        for (int l = 1; l < NX; ++l) acc += V[j][l] * A::ld(op, k, l, m);
+        VAo[j][m] = A::fix_col(acc, m, V[j]);
       }
 #pragma unroll
       for (int a = 0; a < NU; ++a) {
-        float acc = VB[0][a] * op[oA + rc];
+        float vb[NX];
 #pragma unroll
-        for (int l = 1; l < NX; ++l) acc += VB[l][a] * op[oA + l * NX + rc];
+        for (int l = 0; l < NX; ++l) vb[l] = VB[l][a];
+        float acc = vb[0] * A::ld(op, k, 0, rc);
+#pragma unroll
+        for (int l = 1; l < NX; ++l) acc += vb[l] * A::ld(op, k, l, rc);
+        acc = A::fix_col(acc, rc, vb);
         Huxo[j][a] = r < NX ? mf[j][a] + acc : mf[j][a];
       }
 #pragma unroll
@@ -437,10 +442,13 @@ __device__ void factor_g(const CoreParams<M>& P, const O& op, float rho, const G
       for (int c = 0; c < NA; ++c) {
         float ava = 0.0f;
         if (c < NX) {
-          ava = op[oA + rc] * VA[0][c];
+          float va[NX];
 #pragma unroll
-          for (int l = 1; l < NX; ++l) ava += op[oA + l * NX + rc] * VA[l][c];
-          ava = rx ? ava : 0.0f;
+          for (int l = 0; l < NX; ++l) va[l] = VA[l][c];
+          ava = A::ld(op, k, 0, rc) * va[0];
+#pragma unroll
+          for (int l = 1; l < NX; ++l) ava += A::ld(op, k, l, rc) * va[l];
+          ava = rx ? A::fix_col(ava, rc, va) : 0.0f;
         }
         const float qf = P.Qc[r][c] + P.DxDx[r][c] * rho;
         const float vrow = qf + ava + (Huxo[j][0] * KA[0][c] + Huxo[j][1] * KA[1][c]);
@@ -571,6 +579,7 @@ __device__ Resid admm_iteration_g(const CoreParams<M>& P, const Sel<M>& S, const
                                   const IterLanes& L, const float (&x0a)[M::NA], float rho,
                                   float rinv, const Grp<G>& gr) {
   constexpr int NX = M::NX, NA = M::NA, RA = (NA + G - 1) / G;
+  using A = AdMap<M>;
   const int N = P.N, g = gr.g;
   float mf[RA][NU], mfu[NU][NU];   // Mf' columns: own rows, and the u_prev block
 #pragma unroll
@@ -604,7 +613,7 @@ __device__ Resid admm_iteration_g(const CoreParams<M>& P, const Sel<M>& S, const
     for (int j = 0; j < RA; ++j) {
       const int r = g + G * j, rc = min(r, NX - 1);
 #pragma unroll
-      for (int l = 0; l < NX; ++l) o.adc[j][l] = op[op.Ad + k * NX * NX + l * NX + rc];
+      for (int l = 0; l < NX; ++l) o.adc[j][l] = A::ld(op, k, l, rc);
 #pragma unroll
       for (int a = 0; a < NU; ++a)
         o.hux[j][a] = r < NX ? op[op.Hux + k * NU * NX + a * NX + rc] : mf[j][a];
@@ -633,9 +642,11 @@ __device__ Resid admm_iteration_g(const CoreParams<M>& P, const Sel<M>& S, const
     float vn[RA];
 #pragma unroll
     for (int j = 0; j < RA; ++j) {
+      const int rc = min(g + G * j, NX - 1);
       float atv = cb.adc[j][0] * vv[0];
 #pragma unroll
       for (int l = 1; l < NX; ++l) atv += cb.adc[j][l] * vv[l];
+      atv = A::fix_col(atv, rc, vv);
       vn[j] = cb.qt[j] + (g + G * j < NX ? atv : 0.0f) + (cb.hux[j][0] * d[0] + cb.hux[j][1] * d[1]);
     }
     cb = bload(max(k - 1, 0));
@@ -643,9 +654,10 @@ __device__ Resid admm_iteration_g(const CoreParams<M>& P, const Sel<M>& S, const
   }
   gr.sync();   // d of every stage
 
-  // forward: stage k's Hux (first NX columns), Hiv, d, and the own rows of Ad, Bd
+  // forward: stage k's Hux (first NX columns), Hiv, d, and the own rows of
+  // Ad's computed columns and of Bd
   struct Fk {
-    float hux[NU][NX], Hiv[NU][NU], d[NU], adr[RA][NX], bdr[RA][NU];
+    float hux[NU][NX], Hiv[NU][NU], d[NU], adr[RA][A::C], bdr[RA][NU];
   };
   auto fload = [&](int k) {
     Fk o;
@@ -661,7 +673,7 @@ __device__ Resid admm_iteration_g(const CoreParams<M>& P, const Sel<M>& S, const
     for (int j = 0; j < RA; ++j) {
       const int rc = min(g + G * j, NX - 1);
 #pragma unroll
-      for (int l = 0; l < NX; ++l) o.adr[j][l] = op[op.Ad + k * NX * NX + rc * NX + l];
+      for (int l = 0; l < A::C; ++l) o.adr[j][l] = A::ld(op, k, rc, l);
 #pragma unroll
       for (int a = 0; a < NU; ++a) o.bdr[j][a] = op[op.Bd + k * NX * NU + rc * NU + a];
     }
@@ -693,7 +705,8 @@ __device__ Resid admm_iteration_g(const CoreParams<M>& P, const Sel<M>& S, const
       const int r = g + G * j;
       float t = cf.adr[j][0] * x[0];
 #pragma unroll
-      for (int l = 1; l < NX; ++l) t += cf.adr[j][l] * x[l];
+      for (int l = 1; l < A::C; ++l) t += cf.adr[j][l] * x[l];
+      t = A::fix_row(t, min(r, NX - 1), x);
       t = t + (cf.bdr[j][0] * u[0] + cf.bdr[j][1] * u[1]);
       xn[j] = r < NX ? t : (r == NX ? u[0] : u[1]);
       if (r < NA) op[op.X + (k + 1) * NA + r] = xn[j];
@@ -835,6 +848,7 @@ __device__ void cache_stages_g(const CoreParams<M>& P, int b, const WsLayout<M>&
                                const Lane& ws, const O& op, const VehParams& pv,
                                const CacheIO& cio, bool rebuild, const Grp<G>& gr) {
   constexpr int NX = M::NX;
+  using A = AdMap<M>;
   const int N = P.N, S = P.B;
   const Lane A_in = lane_of(cio.A, b, S), B_in = lane_of(cio.B, b, S);
   const Lane Xs_in = lane_of(cio.Xs, b, S), Us_in = lane_of(cio.Us, b, S);
@@ -842,7 +856,7 @@ __device__ void cache_stages_g(const CoreParams<M>& P, int b, const WsLayout<M>&
   const Lane Xs_out = lane_of(cio.Xs_out, b, S), Us_out = lane_of(cio.Us_out, b, S);
   const Lane kap_out = lane_of(cio.kap_out, b, S);
   for (int k = gr.g; k < N; k += G) {
-    const int oA = op.Ad + k * NX * NX, oB = op.Bd + k * NX * NU;
+    const int oB = op.Bd + k * NX * NU;
     if (rebuild || k == N - 1) {
       float xk[NX], uk[NU];
 #pragma unroll
@@ -857,8 +871,10 @@ __device__ void cache_stages_g(const CoreParams<M>& P, int b, const WsLayout<M>&
       for (int i = 0; i < NU; ++i) Us_out[k * NU + i] = uk[i];
       kap_out[k] = kap;
     } else {
+      float Ad[NX][NX];
 #pragma unroll
-      for (int i = 0; i < NX * NX; ++i) op[oA + i] = A_in[(k + 1) * NX * NX + i];
+      for (int i = 0; i < NX * NX; ++i) Ad[i / NX][i % NX] = A_in[(k + 1) * NX * NX + i];
+      A::put(op, k, Ad);
 #pragma unroll
       for (int i = 0; i < NX * NU; ++i) op[oB + i] = B_in[(k + 1) * NX * NU + i];
 #pragma unroll
@@ -868,7 +884,10 @@ __device__ void cache_stages_g(const CoreParams<M>& P, int b, const WsLayout<M>&
       kap_out[k] = cio.kap[(size_t)(k + 1) * S + b];
     }
 #pragma unroll
-    for (int i = 0; i < NX * NX; ++i) A_out[k * NX * NX + i] = op[oA + i];
+    for (int i = 0; i < NX * NX; ++i) {
+      const int r = i / NX, c = i % NX;
+      A_out[k * NX * NX + i] = c < A::C ? A::ld(op, k, r, c) : A::unit_row(c) == r ? 1.0f : 0.0f;
+    }
 #pragma unroll
     for (int i = 0; i < NX * NU; ++i) B_out[k * NX * NU + i] = op[oB + i];
   }

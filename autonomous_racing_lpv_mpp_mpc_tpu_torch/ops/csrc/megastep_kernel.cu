@@ -126,7 +126,8 @@ int launch_megastep_traced(const MegaParams<M>& P, int grid, int smem, void* str
 #if defined(ARL_MEGASTEP_CACHED_TU)
 template <class M, bool SM>
 int launch_megastep_cached(const MegaParams<M>& P, int grid, int smem, void* stream) {
-  return launch_clustered(megastep_kernel<M, SM, true, false>, P, grid, smem, stream);
+  return launch_clustered(megastep_kernel<M, SM, true, false>, P, grid, smem, stream,
+                          "megastep_kernel");
 }
 
 template int launch_megastep_cached<Dynamic, true>(const MegaParams<Dynamic>&, int, int, void*);
@@ -138,7 +139,8 @@ template int launch_megastep_cached<Kinematic, false>(const MegaParams<Kinematic
 #elif defined(ARL_MEGASTEP_TRACED_TU)
 template <class M, bool SM>
 int launch_megastep_traced(const MegaParams<M>& P, int grid, int smem, void* stream) {
-  return launch_clustered(megastep_kernel<M, SM, false, true>, P, grid, smem, stream);
+  return launch_clustered(megastep_kernel<M, SM, false, true>, P, grid, smem, stream,
+                          "megastep_kernel");
 }
 
 template int launch_megastep_traced<Dynamic, true>(const MegaParams<Dynamic>&, int, int, void*);
@@ -152,7 +154,8 @@ template <class M, bool SM>
 int launch_megastep_as(const MegaParams<M>& P, int grid, int smem, void* stream) {
   if (P.cache.A) return launch_megastep_cached<M, SM>(P, grid, smem, stream);
   return P.sec ? launch_megastep_traced<M, SM>(P, grid, smem, stream)
-                 : launch_clustered(megastep_kernel<M, SM, false, false>, P, grid, smem, stream);
+                 : launch_clustered(megastep_kernel<M, SM, false, false>, P, grid, smem, stream,
+                                    "megastep_kernel");
 }
 
 template <class M>

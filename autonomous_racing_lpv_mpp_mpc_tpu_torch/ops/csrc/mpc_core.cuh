@@ -61,7 +61,9 @@ inline void read_core_floats(CoreParams<M>& P, const float* fv) {
 }
 
 // Per-lane workspace offsets (floats) of the core; ops/fused_kernel.py::
-// core_workspace mirrors the total.
+// core_workspace mirrors the total. Ad holds the fixed columns once and each
+// stage's computed columns (AdMap), the slots of the device-memory operands
+// (group_core.cuh Ops).
 template <class M>
 struct WsLayout {
   int Xs, Us, kap, lb, ub, Ad, Bd, q0, K, Hiv, Hux, d, Xsol, Usol, total;
@@ -73,7 +75,7 @@ struct WsLayout {
     kap = o;  o += N + 1;
     lb = o;   o += (N + 1) * NC;
     ub = o;   o += (N + 1) * NC;
-    Ad = o;   o += N * nx * nx;
+    Ad = o;   o += N * AdMap<M>::n;
     Bd = o;   o += N * nx * NU;
     q0 = o;   o += (N + 1) * nx;
     K = o;    o += N * NU * na;

@@ -522,6 +522,7 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
     return -3;
   cudaSetDevice(device);
   const int grid = (C.B + BLOCK - 1) / BLOCK * CLUSTER;
-  return ops_smem ? launch_clustered(racestep_kernel<true>, P, grid, smem, stream)
-                  : launch_clustered(racestep_kernel<false>, P, grid, smem, stream);
+  const char* name = "racestep_kernel";
+  return ops_smem ? launch_clustered(racestep_kernel<true>, P, grid, smem, stream, name)
+                  : launch_clustered(racestep_kernel<false>, P, grid, smem, stream, name);
 }

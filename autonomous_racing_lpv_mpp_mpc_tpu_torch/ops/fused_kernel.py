@@ -61,6 +61,17 @@ BLOCK_SMEM = 232_448          # bytes of shared memory one block may use on the 
 STATIC_SMEM = 1_024           # room left for the kernels' static shared memory
 MODELS = {"dynamic": 0, "kinematic": 1}
 TIRES = {"linear": 0, "pacejka": 1}
+# The leading columns of a stage's Ad that hold computed entries
+# (csrc/arl_common.cuh's AD_PATTERN), which the kernels keep; the others are
+# unit columns at every stage
+AD_COLUMNS = {"dynamic": 4, "kinematic": 2}
+
+
+def ad_floats(N: int, model: str = "dynamic") -> int:
+    """Per-lane float32 slots of Ad in the kernels' operands (``AdMap``):
+    the computed columns of every stage."""
+    nx, _ = model_dims(model)
+    return N * AD_COLUMNS[model] * nx
 
 
 class MegaConsts(NamedTuple):
@@ -126,9 +137,10 @@ def core_floats(cfg: MPCConfig, scfg: SolverConfig) -> tuple:
 
 
 def core_workspace(N: int, model: str = "dynamic") -> int:
-    """Per-lane float32 workspace of ``mpc_core.cuh``'s ``WsLayout``."""
+    """Per-lane float32 workspace of ``mpc_core.cuh``'s ``WsLayout`` (Ad:
+    :func:`ad_floats`)."""
     nx, na = model_dims(model)
-    return ((N + 1) * nx + N * NU + (N + 1) + 2 * (N + 1) * NC + N * nx * nx
+    return ((N + 1) * nx + N * NU + (N + 1) + 2 * (N + 1) * NC + ad_floats(N, model)
             + N * nx * NU + (N + 1) * nx + N * NU * na + N * NU * NU + N * NU * na
             + N * NU + (N + 1) * na + N * NU)
 
@@ -153,11 +165,11 @@ class LaunchShape(NamedTuple):
 
 def ops_floats(N: int, model: str = "dynamic") -> int:
     """Per-lane float32 ADMM operands of ``group_core.cuh``'s ``OpsLayout``:
-    Ad, Bd, the first nx columns of Hux, Hiv and d of every stage, the
-    backward sweep's linear terms (N+1, na) and (N, NU), the iterate X
-    (N+1, na) and U (N, NU)."""
+    Ad (:func:`ad_floats`); Bd, the first nx columns of Hux, Hiv and d of
+    every stage; the backward sweep's linear terms (N+1, na) and (N, NU),
+    the iterate X (N+1, na) and U (N, NU)."""
     nx, na = model_dims(model)
-    return N * (nx * nx + 2 * nx * NU + NU * NU + 3 * NU) + 2 * (N + 1) * na
+    return ad_floats(N, model) + N * (2 * nx * NU + NU * NU + 3 * NU) + 2 * (N + 1) * na
 
 
 def launch_shape(N: int, model: str = "dynamic") -> LaunchShape:

@@ -15,11 +15,15 @@ SURVEY.md §5 "Tracing / profiling").
   inside the megastep and fused kernels (:data:`SECTIONS`, read by
   :func:`sections`). Off, a wrapper call costs one flag read and its
   launch one null pointer.
+- :func:`clusters_per_wave`: how many clusters of a group kernel the card
+  holds at once, as its launches found (kept whether or not a profiler
+  records).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
 import time
 from typing import Any, Callable, Dict, Tuple
@@ -88,6 +92,29 @@ def reset_sections() -> None:
     """Zero every kernel's section counters."""
     for b in _SECTION_BUFFERS.values():
         b.zero_()
+
+
+def clusters_per_wave(kernel: str) -> Dict[Tuple[int, int], int]:
+    """{(device index, dynamic shared-memory bytes per block): clusters} of
+    the group kernel ``kernel`` ("megastep_kernel", "fused_kernel",
+    "racestep_kernel"): how many of its 128-lane clusters the card holds at
+    once at that launch shape, so that B lanes run in ceil(B / 128 /
+    clusters) waves. Each launch shape is asked once, at its first launch
+    (``cudaOccupancyMaxActiveClusters``); where two instantiations of the
+    kernel (traced and untraced) share a shape, the fewer. Empty where the
+    kernel library is not loaded (a CPU run) or the kernel has not run."""
+    from ..ops import _cuda
+
+    if not _cuda.library.cache_info().currsize:
+        return {}
+    cap = 64
+    out = (ctypes.c_int * (3 * cap))()
+    n = min(_cuda.library().arl_cluster_fits(kernel.encode(), out, cap), cap)
+    fits: Dict[Tuple[int, int], int] = {}
+    for i in range(n):
+        key, clusters = (out[3 * i], out[3 * i + 1]), out[3 * i + 2]
+        fits[key] = min(fits.get(key, clusters), clusters)
+    return fits
 
 
 def _cuda_devices(*trees):

@@ -653,7 +653,9 @@ def cuda_time_ms(fn, n):
 def device_events(fn, n):
     """(name, microseconds) of every device operation in n calls of fn, from
     one torch.profiler session padded with 0.1 s of idle host time on both
-    sides of the calls."""
+    sides of the calls. The port's own spans, which the profiler also puts on
+    the device's timeline (a span around a wrapper's copies, such as
+    `fused_kernel.layout`), are no device operation and are left out."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -664,7 +666,8 @@ def device_events(fn, n):
             fn()
         torch.cuda.synchronize()
         time.sleep(0.1)
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
 def kernel_ms(fn, n, kernel, sessions=3):

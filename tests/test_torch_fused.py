@@ -287,15 +287,21 @@ def test_launch_shape_fits_a_block(model):
     hold for every horizon the main paths and the tests use (N up to 40),
     in the count of group_core.cuh's OpsLayout; a long horizon (N=60, or 80
     for the smaller kinematic stage) takes the device-memory layout. A vote
-    group of 128 lanes is one cluster."""
+    group of 128 lanes is one cluster. Three blocks share an H100 SM's
+    233,472 B (each its dynamic shared memory, the traced instantiation's
+    static section counters and the 1,024 B the card reserves per block)
+    at the dynamic model's N=14 and the kinematic N=10, not at the dynamic
+    N=20 or the kinematic N=28."""
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import fused_kernel as fk
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils import profiling
 
     src = (_cuda.CSRC / "group_core.cuh").read_text()
     assert src.split("struct OpsLayout")[1].split("total = o;")[0].count("o +=") == 9
-    # per stage: Ad, Bd, Hux (nx columns), Hiv, d, qt, rt, X, U; qt and X have one more row
-    per_stage, extra = {"dynamic": (36 + 12 + 12 + 4 + 2 + 8 + 2 + 8 + 2, 16),
-                        "kinematic": (16 + 8 + 8 + 4 + 2 + 6 + 2 + 6 + 2, 12)}[model]
+    # per stage: Ad (the pattern's 4 or 2 computed columns), Bd, Hux (nx
+    # columns), Hiv, d, qt, rt, X, U; qt and X have one more row
+    per_stage, extra = {"dynamic": (24 + 12 + 12 + 4 + 2 + 8 + 2 + 8 + 2, 16),
+                        "kinematic": (8 + 8 + 8 + 4 + 2 + 6 + 2 + 6 + 2, 12)}[model]
     # the shape the kernels are built for (csrc/arl_sync.cuh)
     sync = (_cuda.CSRC / "arl_sync.cuh").read_text()
     assert f"LANE_THREADS = {fk.THREADS_PER_LANE};" in sync
@@ -310,3 +316,8 @@ def test_launch_shape_fits_a_block(model):
         assert sh.ints() == [1, sh.smem_bytes]
     long = fk.launch_shape({"dynamic": 60, "kinematic": 80}[model], model)
     assert not long.ops_in_smem and long.smem_bytes == 0 and long.ints() == [0, 0]
+    # group_core.cuh's SecBlock: a 32-bit slot per lane and section, and a count
+    sec_block = fk.LANES_PER_BLOCK * len(profiling.SECTIONS) * 4 + 4
+    three = lambda n: 3 * (fk.launch_shape(n, model).smem_bytes + sec_block + 1_024) <= 233_472
+    fits3 = {"dynamic": {14: True, 20: False}, "kinematic": {10: True, 28: False}}[model]
+    assert {n: three(n) for n in fits3} == fits3

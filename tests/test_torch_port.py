@@ -140,13 +140,14 @@ def test_kernel_sources_and_workspace_layout():
     src = (_cuda.CSRC / "mpc_core.cuh").read_text()
     terms = src.split("struct WsLayout")[1].split("total = o;")[0].count("o +=")
     assert terms == 14
-    # per stage: Xs 6, Us 2, kap 1, lb/ub 12, Ad 36, Bd 12, q0 6, K 16,
-    # Hiv 4, Hux 16, d 2, Xsol 8, Usol 2; the N+1-row arrays add one more row
+    # per stage: Xs 6, Us 2, kap 1, lb/ub 12, Ad 24 (the pattern's 4 computed
+    # columns), Bd 12, q0 6, K 16, Hiv 4, Hux 16, d 2, Xsol 8, Usol 2; the
+    # N+1-row arrays add one more row
     for N in (1, 8, 12, 20):
-        assert core_workspace(N) == 123 * N + (6 + 1 + 12 + 6 + 8)
-        # kinematic: Xs 4, Us 2, kap 1, lb/ub 12, Ad 16, Bd 8, q0 4, K 12, Hiv 4,
-        # Hux 12, d 2, Xsol 6, Usol 2 per stage
-        assert core_workspace(N, "kinematic") == 85 * N + (4 + 1 + 12 + 4 + 6)
+        assert core_workspace(N) == 111 * N + (6 + 1 + 12 + 6 + 8)
+        # kinematic: Xs 4, Us 2, kap 1, lb/ub 12, Ad 8 (2 columns), Bd 8, q0 4,
+        # K 12, Hiv 4, Hux 12, d 2, Xsol 6, Usol 2 per stage
+        assert core_workspace(N, "kinematic") == 77 * N + (4 + 1 + 12 + 4 + 6)
 
 
 def test_admm_launch_shape_from_N_and_na():
@@ -537,7 +538,8 @@ def test_racestep_wrapper_routes_by_device():
     assert all(torch.equal(x, y) for x, y in zip((*a[0], *a[1:]), (*b[0], *b[1:])))
     with pytest.raises(ValueError, match="per-lane tables have 3 lanes"):
         racestep(cfg, scfg, track, prm, lanes(shared, 3), car, *args)
-    assert rk.racestep_workspace(20) == 123 * 20 + 33 + 21 * 6
+    # the core's workspace (Ad: its 4 computed columns a stage) and the racestep's rows
+    assert rk.racestep_workspace(20) == 111 * 20 + 33 + 21 * 6
     assert racestep.launches == 0
 
 
@@ -682,7 +684,7 @@ def test_group_kernels_operands_in_device_memory_on_card(cuda_device, B, monkeyp
     workspace (the layout launch_shape picks for long horizons) give the
     shared-memory layout's results exactly: two megastep steps and one fused
     solve per model with and without early exit, and 3 racestep steps. A fused solve past the
-    shared-memory limit (N=48) takes that layout and stays within 5e-3 of
+    shared-memory limit (N=56) takes that layout and stays within 5e-3 of
     plain."""
     from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import fused_kernel as fk
 
@@ -735,8 +737,8 @@ def test_group_kernels_operands_in_device_memory_on_card(cuda_device, B, monkeyp
         assert all(torch.equal(x, y) for x, y in zip((*a[0], *a[1:]), (*b[0], *b[1:])))
         car = a[0]
 
-    assert not shape_of(48).ops_in_smem
-    cfg, scfg, args = _fused_case(cuda_device, "dynamic", 48, n_ey=B, n_mu=1, warm_steps=2)
+    assert not shape_of(56).ops_in_smem
+    cfg, scfg, args = _fused_case(cuda_device, "dynamic", 56, n_ey=B, n_mu=1, warm_steps=2)
     sk = fused_mpc_solve(cfg, scfg, *args)
     sp = fused_solve_plain(cfg, scfg, *args)
     torch.cuda.synchronize()

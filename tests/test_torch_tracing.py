@@ -133,6 +133,31 @@ def test_section_reader(metric, case, monkeypatch):
     assert value == (pytest.approx(want) if case == "counts" else None)
 
 
+@pytest.mark.parametrize("case", ["fits", "no_fits", "no_reader"])
+@pytest.mark.parametrize("metric,kernel", [("megastep_clusters_per_wave", "megastep_kernel"),
+                                           ("fused_clusters_per_wave", "fused_kernel")])
+def test_clusters_per_wave_reader(metric, kernel, case, monkeypatch):
+    """The occupancy metrics read the fewest clusters per wave the kernel's
+    launches kept, and nothing where it kept none or the port has no such
+    reader (the parent of the compact operand slices)."""
+    if case == "no_reader":
+        monkeypatch.delattr(profiling, "clusters_per_wave")
+    else:
+        fake = {(0, 61_056): 45, (0, 86_784): 30} if case == "fits" else {}
+        monkeypatch.setattr(profiling, "clusters_per_wave", lambda k: dict(fake) if k == kernel else {})
+    value = harness.plugin("metrics", metric).read(SimpleNamespace())
+    assert value == (30.0 if case == "fits" else None)
+
+
+def test_clusters_per_wave_is_empty_before_the_library_loads():
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import _cuda
+
+    if not torch.cuda.is_available():
+        _cuda.library.cache_clear()
+        assert profiling.clusters_per_wave("megastep_kernel") == {}
+    assert profiling.clusters_per_wave("no_such_kernel") == {}
+
+
 # ---- on the card, at the benchmark cells' shapes -----------------------------
 
 CARD_CELLS = {   # cell: steps stepped twice, with the counters off and on
