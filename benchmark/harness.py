@@ -3,9 +3,11 @@ and the comparison that decides ``correct``.
 
 Everything a cell needs is found by name: its file ``workloads/<cell>.json``
 (configuration, route, warm-up, sampling, limits), the configuration
-``configs/<config>.json``, the route ``routes/<route>.py``, and one reader
-per metric, ``metrics/<metric>.py``, for the metrics that ``BENCHMARK.json``
-lists for the cell.
+``configs/<config>.json``, the route ``routes/<route>.py``, the plain
+reference ``reference/<name>.py`` that ``check.reference`` names
+(``tracker`` where it names none), and one reader per metric,
+``metrics/<metric>.py``, for the metrics that ``BENCHMARK.json`` lists for
+the cell.
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ import numpy as np
 import torch
 
 from benchmark import check, trace
-from benchmark.reference import tracker as ref
-from benchmark.reference.track import curvature_lookup, track_table
 from benchmark.traffic import ScenarioStream
 
 HERE = Path(__file__).resolve().parent
@@ -45,7 +45,7 @@ def plugin(kind: str, name: str, root: Path = HERE):
     """The module ``<kind>/<name>.py`` under the benchmark's folder."""
     path = Path(root) / kind / f"{name}.py"
     if not path.is_file():
-        raise FileNotFoundError(f"no {kind[:-1]} named {name!r} ({path})")
+        raise FileNotFoundError(f"no {kind.rstrip('s')} named {name!r} ({path})")
     mod_name = f"benchmark_{kind}_{hashlib.sha1(str(path).encode()).hexdigest()[:12]}"
     if mod_name in sys.modules:
         return sys.modules[mod_name]
@@ -92,10 +92,10 @@ class Reservoir:
             self.next = i + 1 + self._skip()
 
 
-def sample_groups(B: int, n: int, rng: np.random.Generator) -> list:
-    """``n`` of the batch's 128-lane groups drawn from the seed, the first
-    and the last among them."""
-    n_g = -(-B // ref.GROUP)
+def sample_groups(B: int, n: int, group: int, rng: np.random.Generator) -> list:
+    """``n`` of the batch's ``group``-lane groups drawn from the seed, the
+    first and the last among them."""
+    n_g = -(-B // group)
     if n >= n_g:
         return list(range(n_g))
     rest = rng.choice(np.arange(1, n_g - 1), size=n - 2, replace=False)
@@ -152,14 +152,15 @@ def run_cell(cell: str, seed: int, seconds: float, trace_on: bool, device, *, t_
     bench = load_json(root.parent / "BENCHMARK.json") if bench is None else bench
     work = load_json(root / "workloads" / f"{cell}.json")
     config = load_json(root / "configs" / f"{work['config']}.json")
+    sample = work["check"]
+    ref = plugin("reference", sample.get("reference", "tracker"), root)
     S = ref.setup_from_config(config)
-    table = track_table(config["track"], float(config["track_ds"]), device)
+    table = ref.track(config, device)
     length = float(table["length"])
     B = int(config["batch"])
     sweep_steps = int(config["sweep_steps"])
-    sample = work["check"]
     rng = np.random.default_rng(seed)
-    ctx = SimpleNamespace(config=config, device=device, trace=trace_on)
+    ctx = SimpleNamespace(config=config, device=device, trace=trace_on, seed=seed)
     if device.type == "cuda":
         from benchmark import program
 
@@ -279,10 +280,10 @@ def run_cell(cell: str, seed: int, seconds: float, trace_on: bool, device, *, t_
 
     # the comparison, once the window has closed and its state is freed
     samples = first + reservoir.items
-    groups = sample_groups(B, int(sample["groups"]), rng)
-    lanes = check.lanes_of(groups, B, device)
-    numbers, ctl, info = compare(S, route, samples, scen, lanes, table, controls, float(config["vx_ref"]))
-    limits = work["check"].get("limits", {})
+    groups = sample_groups(B, int(sample["groups"]), ref.GROUP, rng)
+    lanes = check.lanes_of(groups, B, ref.GROUP, device)
+    numbers, ctl, info = ref.compare(ctx, S, table, route, samples, scen, lanes, controls)
+    limits = sample.get("limits", {})
     correct, rows = check.verdict(numbers, limits)
     if not limits:
         correct = False
@@ -315,7 +316,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace_on: bool, device, *, t_
         lane_steps = max(1, steps * B)
         log(f"[run] over the traced window: converged share {conv_sum / lane_steps:.6f}, done-at mean "
             f"{iters_sum / lane_steps:.4f} (each lane's own)")
-    log(f"[run] done-at of the 128-lane group's largest, on the sampled steps: {info['group_max_iters']:.4f}")
+    log("[check] info " + json.dumps(info))
     log("[check] " + json.dumps({k: v for k, v in numbers.items()}))
     result["_numbers"] = numbers
     result["_controls"] = ctl
@@ -329,38 +330,3 @@ def _nonfinite_lanes(route, state):
     so until its sweep ends, so each sweep's end counts it once)."""
     return (~torch.isfinite(route.outputs(state)["x"])).any(dim=0).sum()
 
-
-def compare(S, route, samples, scen, lanes, table, controls, vx_ref):
-    """The cell's numbers over the sampled steps (see ``check``), the
-    reference at float32 against the program; and for each precision in
-    ``controls``, the same numbers with the reference at that precision in
-    the program's place."""
-    kap_at = curvature_lookup(table, route.lookup)
-    f32 = ref.Precision("f32")
-    xref = torch.zeros((S.N + 1, ref.NX, len(lanes)), dtype=torch.float32, device=lanes.device)
-    xref[:, 0] = vx_ref
-    steps, init, gmax = [], None, []
-    ctl_steps = {c: [] for c in controls}
-    for prev, state, sweep in samples:
-        pv = ref.vehicle_rows(S, scen[sweep].mu.index_select(0, lanes))
-        carry = check.take(route.carry(prev), lanes)
-        if init is None:
-            x0 = scen[sweep].x0.index_select(0, lanes).T.contiguous()
-            kap_div = curvature_lookup(table, "div")
-            want0 = ref.initial_carry(S, pv, kap_div, x0, f32)
-            init = check.init_gap(carry, want0)
-            ctl_init = {c: check.init_gap(ref.initial_carry(S, pv, kap_div, x0, ref.Precision(c)), want0)
-                        for c in controls}
-        out = route.outputs(state)
-        it = out["iters"]
-        if it.numel() % ref.GROUP == 0:
-            gmax.append(float(it.reshape(-1, ref.GROUP).amax(dim=1).mean()))
-        prog = check.take(out, lanes)
-        want = ref.closed_loop_step(S, pv, kap_at, xref, carry, route.exact_done_at, f32)
-        steps.append(check.step_gaps(S, prog, want))
-        for c in controls:
-            alt = ref.closed_loop_step(S, pv, kap_at, xref, carry, route.exact_done_at, ref.Precision(c))
-            ctl_steps[c].append(check.step_gaps(S, alt, want))
-    info = {"group_max_iters": float(np.mean(gmax)) if gmax else float("nan")}
-    return (check.reduce(steps, init), {c: check.reduce(v, ctl_init[c]) for c, v in ctl_steps.items()},
-            info)

@@ -25,12 +25,12 @@ def configs(config: dict, backend: str = "plain"):
 
 
 def track(config: dict, device):
-    """The port's compiled track of the configuration."""
+    """The port's compiled track of the configuration: the builder of the
+    port's ``track`` module that the configuration's ``track`` names."""
     from autonomous_racing_lpv_mpp_mpc_tpu_torch import track as tr
 
-    builders = {"racetrack": tr.racetrack}
-    return builders[config["track"]](width=float(config["track_width"]), ds=float(config["track_ds"]),
-                                     device=device)
+    return getattr(tr, config["track"])(width=float(config["track_width"]), ds=float(config["track_ds"]),
+                                        device=device)
 
 
 def constant_refs(cfg, vx_ref: float, device):

@@ -15,6 +15,31 @@ It imports nothing of the program and takes nothing the program made but
 the carry it is told to step from. Every product of small matrices goes
 through :meth:`Precision.ein`, which computes it in float32 or, for the
 control, with its operands rounded to TF32 first.
+
+It is also the reference a cell is held to by default (the interface in
+``reference/__init__.py``): :func:`setup_from_config`, :func:`track`,
+``GROUP`` and :func:`compare`, the comparison that decides ``correct``.
+Its numbers (the names a cell's ``check.limits`` use):
+
+- ``init_gap``: the first sweep's initial carry, max |program - reference|
+  over the sampled lanes (the schedule's Euler rollout; the split, duals,
+  inputs and rho must start as the reference's);
+- ``groups_split``: the share of sampled 128-lane groups in which the two
+  sides leave the ADMM loop at another iteration or take another branch
+  (solution or limp-home) on some lane; the numbers below are over the
+  other groups' lanes;
+- ``u0_p99``, ``u0_max``: the 99th percentile and the maximum of
+  |u0 program - u0 reference| (rad, m/s^2) over those lanes;
+- ``x_max``: max |next state program - reference| over those lanes;
+- ``pred_max``: max |X_pred, U_pred program - reference| over those lanes
+  (the next step's schedule and warm start);
+- ``doneat_split``: the share of all sampled lanes whose done-at (the
+  iteration at which the lane passed the termination test) differs from
+  the reference's.
+
+``doneat_gap`` (the widest done-at difference) is printed beside them; it
+swings by whole chunks from a single lane at the test's threshold, so it
+is not compared.
 """
 
 from __future__ import annotations
@@ -22,7 +47,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from benchmark import check
+from benchmark.reference.track import curvature_lookup, track_table
 
 NX, NU, NA, NC = 6, 2, 8, 6
 S_IDX, EY_IDX = 4, 5
@@ -466,3 +495,99 @@ def closed_loop_step(S: Setup, pv, kap_at, xref, carry: dict, exact_done_at: boo
     out = tracker_step(S, pv, kap_at, xref, carry, exact_done_at, prec)
     out["x"] = plant(S, pv, kap_at, carry["x"], out["u0"])
     return out
+
+
+# ---- the comparison that decides ``correct`` ----
+
+CARRY_KEYS = ("x", "X_pred", "U_pred", "s", "lam", "u_prev", "rho")
+
+
+def track(config: dict, device) -> dict:
+    """The configuration's track table (``reference.track``)."""
+    return track_table(config["track"], float(config["track_ds"]), device)
+
+
+def init_gap(program_carry: dict, ref_carry: dict) -> float:
+    return max(float((program_carry[k] - ref_carry[k]).abs().max()) for k in CARRY_KEYS)
+
+
+def _usable(S, o):
+    fb = float(S.solver["eps_fallback"])
+    return o["converged"].to(torch.bool) | ((o["r_prim"] < fb) & (o["r_dual"] < fb))
+
+
+def step_gaps(S, prog: dict, want: dict) -> dict:
+    """The numbers of one sampled step over its lanes (whole 128-lane
+    groups): ``prog`` the program's outputs, ``want`` the reference's."""
+    n = prog["u0"].shape[-1]
+    g = n // GROUP
+    grp = lambda t: t.reshape(t.shape[:-1] + (g, GROUP))
+    exit_p = grp(prog["iters"]).amax(dim=-1)
+    exit_r = grp(want["iters"]).amax(dim=-1)
+    same_branch = grp(_usable(S, prog) == _usable(S, want)).all(dim=-1)
+    agree = (exit_p == exit_r) & same_branch                                   # (g,)
+    keep = agree.repeat_interleave(GROUP)
+    split = float((prog["iters"] != want["iters"]).float().mean())
+    if not bool(keep.any()):
+        return {"groups_split": 1.0, "n_compared": 0, "doneat_split": split}
+    d = lambda k: (prog[k] - want[k]).abs()[..., keep]
+    du0 = d("u0").amax(dim=0)
+    return {"groups_split": float(1.0 - agree.float().mean()), "n_compared": int(keep.sum()),
+            "doneat_split": split,
+            "du0": du0, "x_max": float(d("x").max()),
+            "pred_max": max(float(d("X_pred").max()), float(d("U_pred").max())),
+            "doneat_gap": float(d("iters").max())}
+
+
+def reduce(steps: list, init: float) -> dict:
+    """The cell's numbers over every sampled step."""
+    du0 = [s["du0"] for s in steps if "du0" in s]
+    out = {"init_gap": init, "groups_split": max(s["groups_split"] for s in steps),
+           "doneat_split": max(s["doneat_split"] for s in steps)}
+    if du0:
+        du0 = torch.cat(du0).double()
+        out.update(u0_p99=float(torch.quantile(du0, 0.99)), u0_max=float(du0.max()),
+                   x_max=max(s.get("x_max", 0.0) for s in steps),
+                   pred_max=max(s.get("pred_max", 0.0) for s in steps),
+                   doneat_gap=max(s.get("doneat_gap", 0.0) for s in steps))
+    else:
+        out.update(u0_p99=float("inf"), u0_max=float("inf"), x_max=float("inf"),
+                   pred_max=float("inf"), doneat_gap=float("inf"))
+    out["lane_steps_compared"] = sum(s["n_compared"] for s in steps)
+    return out
+
+
+def compare(ctx, S, table, route, samples, scen, lanes, controls):
+    """The cell's numbers over the sampled steps, the reference at float32
+    against the program; and for each precision in ``controls``, the same
+    numbers with the reference at that precision in the program's place.
+    ``info``: the done-at of each sampled 128-lane group's largest, the
+    mean over the sampled steps."""
+    kap_at = curvature_lookup(table, route.lookup)
+    f32 = Precision("f32")
+    xref = torch.zeros((S.N + 1, NX, len(lanes)), dtype=torch.float32, device=lanes.device)
+    xref[:, 0] = float(ctx.config["vx_ref"])
+    steps, init, gmax = [], None, []
+    ctl_steps = {c: [] for c in controls}
+    for prev, state, sweep in samples:
+        pv = vehicle_rows(S, scen[sweep].mu.index_select(0, lanes))
+        carry = check.take(route.carry(prev), lanes)
+        if init is None:
+            x0 = scen[sweep].x0.index_select(0, lanes).T.contiguous()
+            kap_div = curvature_lookup(table, "div")
+            want0 = initial_carry(S, pv, kap_div, x0, f32)
+            init = init_gap(carry, want0)
+            ctl_init = {c: init_gap(initial_carry(S, pv, kap_div, x0, Precision(c)), want0)
+                        for c in controls}
+        out = route.outputs(state)
+        it = out["iters"]
+        if it.numel() % GROUP == 0:
+            gmax.append(float(it.reshape(-1, GROUP).amax(dim=1).mean()))
+        prog = check.take(out, lanes)
+        want = closed_loop_step(S, pv, kap_at, xref, carry, route.exact_done_at, f32)
+        steps.append(step_gaps(S, prog, want))
+        for c in controls:
+            alt = closed_loop_step(S, pv, kap_at, xref, carry, route.exact_done_at, Precision(c))
+            ctl_steps[c].append(step_gaps(S, alt, want))
+    info = {"group_max_iters": float(np.mean(gmax)) if gmax else float("nan")}
+    return reduce(steps, init), {c: reduce(v, ctl_init[c]) for c, v in ctl_steps.items()}, info
