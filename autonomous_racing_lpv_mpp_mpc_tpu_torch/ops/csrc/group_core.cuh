@@ -36,18 +36,21 @@
 namespace arl {
 
 // Section counters (the kernels' `sec`; utils/profiling.py SECTIONS names
-// them in this order), kept by the traced instantiations of the megastep and the
-// fused kernel (the kernels' TRACE; their untraced code is the kernel without
-// them): the clock64 cycles each active lane's thread 0 spent in each
-// section, and three counts. A section ends after the group barrier that
-// closes it, so its time holds its wait for the group. prepare: sections 1-4
-// and the cache branch (the fused kernel: stage builds and warm start);
-// factor: section 5 and admm_start_g; sweep: each ADMM iteration's backward
-// sweep and forward rollout; stage_pass: stage_pass_g; vote: the termination
-// test, vote_all and its cluster barrier; finish: sections 7-8 and the
-// output stores; plant: section 9 (megastep). lane_steps: active lanes;
-// lane_iters: ADMM iterations the active lanes executed; lane_doneat: their
-// own done-ats (stats row 4 of the megastep, 5 of the fused kernel).
+// them in this order), kept by the traced instantiations of the megastep, the
+// fused kernel and the racestep (the kernels' TRACE; their untraced code is
+// the kernel without them): the clock64 cycles each active lane's thread 0
+// spent in each section, and three counts. A section ends after the group
+// barrier that closes it, so its time holds its wait for the group. prepare:
+// sections 1-4 and the cache branch (the fused kernel: stage builds and warm
+// start); factor: section 5 and admm_start_g; sweep: each ADMM iteration's
+// backward sweep and forward rollout; stage_pass: stage_pass_g; vote: the
+// termination test, vote_all and its cluster barrier; finish: sections 7-8 and
+// the output stores; plant: section 9 (megastep), the world-frame plant
+// (racestep). lane_steps: active lanes; lane_iters: ADMM iterations the active
+// lanes executed; lane_doneat: their own done-ats (stats row 4 of the megastep
+// and the racestep, 5 of the fused kernel). A kernel with sections of its own
+// (the racestep's, before the core) keeps them in slots of their own (NS of
+// them, the functions' second template argument) and adds them after these.
 enum Sec : int {
   SEC_PREPARE, SEC_FACTOR, SEC_SWEEP, SEC_STAGE_PASS, SEC_VOTE, SEC_FINISH, SEC_PLANT,
   SEC_LANE_STEPS, SEC_LANE_ITERS, SEC_LANE_DONEAT, N_SEC
@@ -65,13 +68,15 @@ enum Sec : int {
 // counters (one atomic per block and counter). A lane's slots are 32-bit,
 // the low word of clock64, exact modulo 2^32: a section of one launch would
 // need 2^32 cycles (~2 s) to wrap.
-struct SecBlock {
-  unsigned sum[BLOCK_LANES][N_SEC];
+template <int NS>
+struct SecSlots {
+  unsigned sum[BLOCK_LANES][NS];
   unsigned finished;
 };
 
-__device__ __forceinline__ SecBlock& sec_block() {
-  __shared__ SecBlock s;
+template <int NS = N_SEC>
+__device__ __forceinline__ SecSlots<NS>& sec_block() {
+  __shared__ SecSlots<NS> s;
   return s;
 }
 
@@ -83,9 +88,10 @@ __device__ __forceinline__ SecBlock& sec_block() {
 // rebuilt from the block's place in the cluster at every mark); the accesses
 // are volatile, so that no slot stays in a register from one mark to the
 // next.
-__device__ __forceinline__ void sec_add(int g, Sec c, unsigned v) {
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(&sec_block().sum[0][0]) +
-                        ((threadIdx.x / LANE_THREADS) * N_SEC + c) * 4u;
+template <int NS = N_SEC>
+__device__ __forceinline__ void sec_add(int g, int c, unsigned v) {
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(&sec_block<NS>().sum[0][0]) +
+                        ((threadIdx.x / LANE_THREADS) * NS + c) * 4u;
   unsigned x;
   asm volatile("ld.shared.u32 %0, [%1];" : "=r"(x) : "r"(addr));
   asm volatile(
@@ -94,11 +100,11 @@ __device__ __forceinline__ void sec_add(int g, Sec c, unsigned v) {
 }
 
 // At the kernel's start, on every thread of the block: zero the slots.
-template <bool ON>
+template <bool ON, int NS = N_SEC>
 __device__ __forceinline__ void sec_begin() {
   if constexpr (ON) {
-    SecBlock& s = sec_block();
-    for (int i = threadIdx.x; i < BLOCK_LANES * N_SEC; i += blockDim.x) (&s.sum[0][0])[i] = 0u;
+    SecSlots<NS>& s = sec_block<NS>();
+    for (int i = threadIdx.x; i < BLOCK_LANES * NS; i += blockDim.x) (&s.sum[0][0])[i] = 0u;
     if (threadIdx.x == 0) s.finished = 0u;
     __syncthreads();
   }
@@ -106,22 +112,22 @@ __device__ __forceinline__ void sec_begin() {
 
 // On every thread of the lane's group, at a section boundary: thread 0's
 // clock into the slots.
-template <bool ON>
-__device__ __forceinline__ void sec_open(int g, Sec c) {
-  if constexpr (ON) sec_add(g, c, 0u - (unsigned)clock64());
+template <bool ON, int NS = N_SEC>
+__device__ __forceinline__ void sec_open(int g, int c) {
+  if constexpr (ON) sec_add<NS>(g, c, 0u - (unsigned)clock64());
 }
 
-template <bool ON>
-__device__ __forceinline__ void sec_close(int g, Sec c) {
-  if constexpr (ON) sec_add(g, c, (unsigned)clock64());
+template <bool ON, int NS = N_SEC>
+__device__ __forceinline__ void sec_close(int g, int c) {
+  if constexpr (ON) sec_add<NS>(g, c, (unsigned)clock64());
 }
 
-template <bool ON>
-__device__ __forceinline__ void sec_switch(int g, Sec from, Sec to) {
+template <bool ON, int NS = N_SEC>
+__device__ __forceinline__ void sec_switch(int g, int from, int to) {
   if constexpr (ON) {
     const unsigned now = (unsigned)clock64();
-    sec_add(g, from, now);
-    sec_add(g, to, 0u - now);
+    sec_add<NS>(g, from, now);
+    sec_add<NS>(g, to, 0u - now);
   }
 }
 
@@ -143,16 +149,16 @@ __device__ __forceinline__ void sec_unnest(int g) {
 
 // On each lane's thread 0 once, active or not, as the lane leaves the kernel
 // (its sections closed): the block's last lane adds the block's sums into the
-// counters.
-template <bool ON>
+// counters (NS of them from `sec`).
+template <bool ON, int NS = N_SEC>
 __device__ __forceinline__ void sec_end(unsigned long long* sec, int g) {
   if constexpr (ON) {
     if (g != 0) return;
-    SecBlock& s = sec_block();
+    SecSlots<NS>& s = sec_block<NS>();
     __threadfence_block();
     if (atomicAdd(&s.finished, 1u) != BLOCK_LANES - 1) return;
     __threadfence_block();
-    for (int c = 0; c < N_SEC; ++c) {
+    for (int c = 0; c < NS; ++c) {
       unsigned long long tot = 0ull;
       for (int l = 0; l < BLOCK_LANES; ++l) tot += *(volatile unsigned*)&s.sum[l][c];
       atomicAdd(&sec[c], tot);

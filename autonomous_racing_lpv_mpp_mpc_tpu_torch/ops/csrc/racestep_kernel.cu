@@ -33,6 +33,11 @@
 //      place of row 1's box (CoreParams::eyb, null without obstacles);
 //   6. n_sub Euler sub-steps of the world-frame plant at the lane's true mu,
 //      on the group's first thread.
+// With a section-counter pointer (tracing on) the traced instantiation runs
+// (TRACE, its own translation unit, racestep_traced_kernel.cu): each lane's
+// thread 0 adds its cycles in sections 1-4 (RaceSec, in slots of their own)
+// and in the core's sections and the plant (group_core.cuh, Sec) into the
+// counters; the untraced one reads no clock.
 //
 // What bounds it on the H100: the operations of the tracker core (~0.18
 // MFLOP per lane at N=20 and ~14 executed iterations); a clock64 split of
@@ -69,9 +74,19 @@ struct RaceParams {
       win_cells;
   Sel<Dynamic> Sl;
   float gate_sigma, forgetting, min_sensitivity, fd_eps, inv_fd_eps;
+  // (N_SEC + N_RACE_SEC,) section counters, the core's (Sec) then the
+  // racestep's own (RaceSec), or null: tracing off. Last, so that every other
+  // member keeps its place in the untraced kernel
+  unsigned long long* sec;
 };
 
-constexpr int RACE_PTRS = 40;
+// The racestep's own sections (utils/profiling.py RACE_SECTIONS names them in
+// this order), before the core's: 1. the measurement with its noise; 2. the
+// EKF; 3. the friction RLS; 4. the reference rows with the stores of
+// sections 1-4 and the group barrier that closes them.
+enum RaceSec : int { RSEC_MEASURE, RSEC_EKF, RSEC_RLS, RSEC_REFS, N_RACE_SEC };
+
+constexpr int RACE_PTRS = 41;
 constexpr int RACE_INTS = 20;
 constexpr int RACE_FLOATS = core_floats<Dynamic>() + 5;
 constexpr float MU_MIN = 0.1f;
@@ -388,7 +403,7 @@ __device__ __forceinline__ void table_refs(const RaceParams& P, int b, float s0,
   }
 }
 
-template <bool SM>
+template <bool SM, bool TRACE>
 __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_constant__ RaceParams P) {
   const Grp<LANE_THREADS> gr;
   const int lane = threadIdx.x / LANE_THREADS;
@@ -398,6 +413,8 @@ __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_co
   const WsLayout<Dynamic> W(P.C.N);
   const Lane ws = lane_of(P.ws, active ? b : 0, S);
   const Ops<SM> op = ops_of<Dynamic, SM>(P.C.N, lane, P.ws, active ? b : 0, S);
+  sec_begin<TRACE>();
+  sec_begin<TRACE, N_RACE_SEC>();
   VehParams pv{}, pv_hat{};
   float xf[NX] = {}, xg[NX] = {}, z[NX] = {}, Pm[NX][NX], u_prev[NU] = {};
   float mu = 0.0f, Pr = 0.0f;
@@ -416,10 +433,12 @@ __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_co
     load(Pm, ekP, 0);
 
     // 1. measurement
+    sec_open<TRACE, N_RACE_SEC>(gr.g, RSEC_MEASURE);
     measure(P, xg, ekx[4], gr, z);
     for (int i = 0; i < NX; ++i) z[i] += noise[i];
 
     // 2. EKF at mu-hat
+    sec_switch<TRACE, N_RACE_SEC>(gr.g, RSEC_MEASURE, RSEC_EKF);
     if (P.use_ekf) {
       for (int i = 0; i < NX; ++i) xf[i] = ekx[i];
       ekf(P, pv_hat, u_prev, z, gr, xf, Pm);
@@ -428,6 +447,7 @@ __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_co
     }
 
     // 3. friction RLS: the next step's mu-hat (every thread of the group)
+    sec_switch<TRACE, N_RACE_SEC>(gr.g, RSEC_EKF, RSEC_RLS);
     if (P.adapt_mu) {
       float xp[NX];
       const Lane xpl = lane_of(P.xprev, b, S);
@@ -436,6 +456,7 @@ __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_co
     }
 
     // 4. references
+    sec_switch<TRACE, N_RACE_SEC>(gr.g, RSEC_RLS, RSEC_REFS);
     if (P.use_table) {
       xref = Lane{ws.p + (size_t)W.total * S, S};
       table_refs(P, b, xf[4], gr, xref);
@@ -456,12 +477,19 @@ __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_co
       fr_out[1] = Pr;
     }
     gr.sync();
+    sec_close<TRACE, N_RACE_SEC>(gr.g, RSEC_REFS);
   }
 
   // 5. tracker at mu-hat
   float u0[NU];
-  mpc_core_g(P.C, P.Sl, b, active, xf, pv_hat, xref, ws, op, gr, u0);
-  if (!active || gr.g != 0) return;
+  mpc_core_g(P.C, P.Sl, b, active, xf, pv_hat, xref, ws, op, gr, u0, nullptr,
+             std::bool_constant<false>{}, std::bool_constant<TRACE>{});
+  if (!active || gr.g != 0) {
+    sec_end<TRACE>(P.sec, gr.g);
+    sec_end<TRACE, N_RACE_SEC>(P.sec + N_SEC, gr.g);
+    return;
+  }
+  sec_switch<TRACE>(0, SEC_FINISH, SEC_PLANT);
   const Lane st = lane_of(P.C.stats, b, S);
   st[5] = mu;
   st[6] = 0.0f;
@@ -479,14 +507,40 @@ __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_co
   }
   const Lane xg_out = lane_of(P.xg_out, b, S);
   for (int i = 0; i < NX; ++i) xg_out[i] = xg[i];
+  sec_close<TRACE>(0, SEC_PLANT);
+  sec_end<TRACE>(P.sec, 0);
+  sec_end<TRACE, N_RACE_SEC>(P.sec + N_SEC, 0);
+}
+
+// The traced instantiations are compiled in a translation unit of their own
+// (racestep_traced_kernel.cu, which includes this file with
+// ARL_RACESTEP_TRACED_TU defined), so that its nvcc runs beside this one's.
+template <bool SM>
+int launch_racestep_traced(const RaceParams& P, int grid, int smem, void* stream);
+
+#if defined(ARL_RACESTEP_TRACED_TU)
+template <bool SM>
+int launch_racestep_traced(const RaceParams& P, int grid, int smem, void* stream) {
+  return launch_clustered(racestep_kernel<SM, true>, P, grid, smem, stream, "racestep_kernel");
+}
+
+template int launch_racestep_traced<true>(const RaceParams&, int, int, void*);
+template int launch_racestep_traced<false>(const RaceParams&, int, int, void*);
+
+}  // namespace arl
+#else
+template <bool SM>
+int launch_racestep_as(const RaceParams& P, int grid, int smem, void* stream) {
+  return P.sec ? launch_racestep_traced<SM>(P, grid, smem, stream)
+               : launch_clustered(racestep_kernel<SM, false>, P, grid, smem, stream, "racestep_kernel");
 }
 
 }  // namespace arl
 
-// C entry: device pointers (the corridor, the last input, may be null),
-// float and int parameters in the order of
-// ops/racestep_kernel.py::_racestep_cuda (the last two ints: operands in
-// shared memory, its bytes per block). Returns -1 on an operand-count
+// C entry: device pointers (the corridor, the last input, may be null; last
+// the section counters, null with tracing off), float and int parameters in
+// the order of ops/racestep_kernel.py::_racestep_cuda (the last two ints:
+// operands in shared memory, its bytes per block). Returns -1 on an operand-count
 // mismatch, -2 on a workspace- or shared-memory-size mismatch, -3 on a bad
 // size, -4 if the card cannot hold one cluster of the shape, else the CUDA
 // error of the launch.
@@ -505,6 +559,7 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
   int p = 0;
   for (auto q : in) *q = static_cast<const float*>(ptrs[p++]);
   for (auto q : out) *q = static_cast<float*>(ptrs[p++]);
+  P.sec = static_cast<unsigned long long*>(ptrs[p++]);
   int ops_smem = 0, smem = 0;
   int* ints[] = {&C.B, &C.N, &C.n_cells, &P.n_sub, &C.max_iter, &C.check, &C.early_exit,
                  &C.tire, &P.sim_tire, &C.kappa_speed_cap, &P.ws_rows, &P.n_sub_ekf,
@@ -522,7 +577,7 @@ extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, c
     return -3;
   cudaSetDevice(device);
   const int grid = (C.B + BLOCK - 1) / BLOCK * CLUSTER;
-  const char* name = "racestep_kernel";
-  return ops_smem ? launch_clustered(racestep_kernel<true>, P, grid, smem, stream, name)
-                  : launch_clustered(racestep_kernel<false>, P, grid, smem, stream, name);
+  return ops_smem ? launch_racestep_as<true>(P, grid, smem, stream)
+                  : launch_racestep_as<false>(P, grid, smem, stream);
 }
+#endif  // ARL_RACESTEP_TRACED_TU

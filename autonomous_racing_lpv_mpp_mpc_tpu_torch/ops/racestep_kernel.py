@@ -50,12 +50,14 @@ import torch
 from ..core.config import MPCConfig, SolverConfig, VehicleParams
 from ..planner.reftable import RefTable
 from ..track.track import Track, frenet_to_global
+from ..utils import profiling
 from . import _cuda
 from .fused_kernel import TIRES, core_floats, core_workspace, launch_shape
 from .megastep_kernel import (
     _check_supported,
     _kap_lookup,
     _make_consts,
+    _track_inputs,
     megastep_refs,
     mpc_core_plain,
 )
@@ -153,12 +155,20 @@ def _ref_table_inputs(table: RefTable, device):
     return per_dev[key]
 
 
+_POSE_TABLES = weakref.WeakKeyDictionary()   # Track -> {device: (X, Y, psi)}
+
+
 def _pose_tables(track: Track, device):
     """Centerline node poses X, Y, psi at the n_cells cell starts: the
-    candidate set of ``global_to_frenet``."""
-    n = track.n_cells
-    return tuple(a[:n].to(device=device, dtype=torch.float32).contiguous()
-                 for a in (track.X, track.Y, track.psi))
+    candidate set of ``global_to_frenet``; prepared once per track and
+    device (a track is immutable), so a step spends no host work on them."""
+    per_dev = _POSE_TABLES.setdefault(track, {})
+    key = torch.device(device)
+    if key not in per_dev:
+        n = track.n_cells
+        per_dev[key] = tuple(a[:n].to(device=device, dtype=torch.float32).contiguous()
+                             for a in (track.X, track.Y, track.psi))
+    return per_dev[key]
 
 
 def _check_race_supported(cfg: MPCConfig, scfg: SolverConfig, x_ref, eyb, B: int):
@@ -388,44 +398,53 @@ def _check_race_operands(carry: RaceMegaCarry, prm, noise, mu_true, N: int):
 def _racestep_cuda(cfg, scfg, track, prm, x_ref, carry, noise, mu_true, ekf_q, ekf_r, n_sub,
                    n_sub_ekf, sim_tire, use_ekf, adapt_mu, gate_sigma, forgetting,
                    min_sensitivity, window_m, eyb):
-    """Launch the kernel on the carry's device (one launch per step)."""
+    """Launch the kernel on the carry's device (one launch per step). While
+    a profiler records: the spans ``racestep.check``, ``.refs`` (the
+    reference-table and pose-table inputs) and ``.alloc``, and the traced
+    instantiation adds into the section counters."""
+    on = profiling.tracing()
     dev = carry.xg.device
     N = cfg.N
     B = carry.xg.shape[-1]
-    _check_race_supported(cfg, scfg, x_ref, eyb, B)
-    _check_race_operands(carry, prm, noise, mu_true, N)
-    sim_tire = sim_tire or cfg.tire
-    if cfg.tire not in TIRES or sim_tire not in TIRES:
-        raise ValueError(f"racestep: unknown tire {cfg.tire!r} / {sim_tire!r}")
+    with profiling.span("racestep.check", on):
+        _check_race_supported(cfg, scfg, x_ref, eyb, B)
+        _check_race_operands(carry, prm, noise, mu_true, N)
+        sim_tire = sim_tire or cfg.tire
+        if cfg.tire not in TIRES or sim_tire not in TIRES:
+            raise ValueError(f"racestep: unknown tire {cfg.tire!r} / {sim_tire!r}")
     kw = dict(dtype=torch.float32, device=dev)
     use_table = isinstance(x_ref, RefTable)
-    if use_table:
-        rvx, rey, rep, rtaux = _ref_table_inputs(x_ref, dev)
-        xref = torch.zeros((1,), **kw)
-        # a per-lane table is (B, n_ref), lane-major: lane b's row starts at
-        # b * n_ref; a shared one has stride 0
-        ref_stride = rvx.shape[-1] if rvx.dim() == 2 else 0
-    else:
-        xref = megastep_refs(cfg, x_ref, _RefView(x=carry.ekx, X_pred=carry.X_pred))
-        rvx = rey = rep = torch.zeros((1,), **kw)
-        rtaux = torch.ones((2,), **kw)
-        ref_stride = 0
-    Xt, Yt, Pt = _pose_tables(track, dev)
-    ins = [carry.xg, carry.ekx, carry.ekP, carry.fr, carry.x_prev_f, noise, mu_true,
-           carry.X_pred, carry.U_pred, carry.s, carry.lam, carry.u_prev, carry.rho, xref, prm,
-           track.kappa.to(**kw), _aux(track.length, track.ds, dev), Xt, Yt, Pt,
-           torch.as_tensor(ekf_q, **kw).reshape(6), torch.as_tensor(ekf_r, **kw).reshape(6),
-           rvx, rey, rep, rtaux, eyb]
-    new = RaceMegaCarry(
-        xg=torch.empty((6, B), **kw), ekx=torch.empty((6, B), **kw),
-        ekP=torch.empty((6, 6, B), **kw), fr=torch.empty((2, B), **kw),
-        x_prev_f=torch.empty((6, B), **kw), X_pred=torch.empty((N + 1, NX, B), **kw),
-        U_pred=torch.empty((N, NU, B), **kw), s=torch.empty((N + 1, NC, B), **kw),
-        lam=torch.empty((N + 1, NC, B), **kw), u_prev=torch.empty((NU, B), **kw), rho=None,
-    )
-    z = torch.empty((6, B), **kw)
-    stats = torch.empty((8, B), **kw)
-    ws = torch.empty((racestep_workspace(N), B), **kw)
+    with profiling.span("racestep.refs", on):
+        if use_table:
+            rvx, rey, rep, rtaux = _ref_table_inputs(x_ref, dev)
+            xref = rvx   # not read with a table: any float32 operand
+            # a per-lane table is (B, n_ref), lane-major: lane b's row starts at
+            # b * n_ref; a shared one has stride 0
+            ref_stride = rvx.shape[-1] if rvx.dim() == 2 else 0
+        else:
+            xref = megastep_refs(cfg, x_ref, _RefView(x=carry.ekx, X_pred=carry.X_pred))
+            rvx = rey = rep = torch.zeros((1,), **kw)
+            rtaux = torch.ones((2,), **kw)
+            ref_stride = 0
+        Xt, Yt, Pt = _pose_tables(track, dev)
+        kappa, taux = _track_inputs(track, dev)
+        ins = [carry.xg, carry.ekx, carry.ekP, carry.fr, carry.x_prev_f, noise, mu_true,
+               carry.X_pred, carry.U_pred, carry.s, carry.lam, carry.u_prev, carry.rho, xref, prm,
+               kappa, taux, Xt, Yt, Pt,
+               torch.as_tensor(ekf_q, **kw).reshape(6), torch.as_tensor(ekf_r, **kw).reshape(6),
+               rvx, rey, rep, rtaux, eyb]
+    with profiling.span("racestep.alloc", on):
+        new = RaceMegaCarry(
+            xg=torch.empty((6, B), **kw), ekx=torch.empty((6, B), **kw),
+            ekP=torch.empty((6, 6, B), **kw), fr=torch.empty((2, B), **kw),
+            x_prev_f=torch.empty((6, B), **kw), X_pred=torch.empty((N + 1, NX, B), **kw),
+            U_pred=torch.empty((N, NU, B), **kw), s=torch.empty((N + 1, NC, B), **kw),
+            lam=torch.empty((N + 1, NC, B), **kw), u_prev=torch.empty((NU, B), **kw), rho=None,
+        )
+        z = torch.empty((6, B), **kw)
+        stats = torch.empty((8, B), **kw)
+        ws = torch.empty((racestep_workspace(N), B), **kw)
+        sec = profiling.section_buffer("racestep_kernel", dev, on)
     _cuda.launch(
         "arl_racestep",
         [t if t is None else t.contiguous() for t in ins]
@@ -437,6 +456,7 @@ def _racestep_cuda(cfg, scfg, track, prm, x_ref, carry, noise, mu_true, ekf_q, e
          racestep_workspace(N), n_sub_ekf, int(use_ekf), int(adapt_mu), int(use_table),
          rvx.shape[-1] if use_table else 0, ref_stride, _win_cells(track, window_m),
          *launch_shape(N).ints()],
+        counters=(sec,), trace=on,
     )
     racestep.launches += 1
     _cuda.check_outputs("arl_racestep", *(t for t in new if t is not None), z, stats[:6])

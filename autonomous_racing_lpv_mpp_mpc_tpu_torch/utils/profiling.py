@@ -10,11 +10,12 @@ SURVEY.md §5 "Tracing / profiling").
   window): host spans around the stages of the step (:func:`span`:
   ``mpc.prepare``, ``mpc.post``, ``mpc.init``, ``plant.step``,
   ``megastep.check`` / ``.refs`` / ``.alloc`` / ``.init``,
-  ``fused_kernel.layout`` / ``.alloc``, ``cuda.launch.<C entry>``), on the
-  profiler's clock and kept in its session, and the section counters
-  inside the megastep and fused kernels (:data:`SECTIONS`, read by
-  :func:`sections`). Off, a wrapper call costs one flag read and its
-  launch one null pointer.
+  ``racestep.check`` / ``.refs`` / ``.alloc``, ``fused_kernel.layout`` /
+  ``.alloc``, ``cuda.launch.<C entry>``), on the profiler's clock and kept
+  in its session, and the section counters inside the megastep, racestep
+  and fused kernels (:data:`SECTIONS`, the racestep's with
+  :data:`RACE_SECTIONS` after them; read by :func:`sections`). Off, a
+  wrapper call costs one flag read and its launch one null pointer.
 - :func:`clusters_per_wave`: how many clusters of a group kernel the card
   holds at once, as its launches found (kept whether or not a profiler
   records).
@@ -43,6 +44,12 @@ from torch.utils._pytree import tree_flatten
 # executed and their own done-ats, summed over launches.
 SECTIONS = ("prepare", "factor", "sweep", "stage_pass", "vote", "finish", "plant",
             "lane_steps", "lane_iters", "lane_doneat")
+# The racestep's own sections, which run before the core's and follow them
+# in its counters, in the order of ops/csrc/racestep_kernel.cu's RaceSec:
+# the measurement with its noise, the EKF, the friction RLS, and the
+# reference rows with the stores of the four and the group barrier that
+# closes them.
+RACE_SECTIONS = ("measure", "ekf", "rls", "refs")
 
 _NO_SPAN = contextlib.nullcontext()
 _SECTION_BUFFERS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
@@ -62,30 +69,37 @@ def span(name: str, on: bool):
     return _autograd_profiler.record_function(name) if on else _NO_SPAN
 
 
+def section_names(kernel: str) -> Tuple[str, ...]:
+    """The counters of ``kernel``, in the order its launch adds them."""
+    return SECTIONS + RACE_SECTIONS if kernel == "racestep_kernel" else SECTIONS
+
+
 def section_buffer(kernel: str, device, on: bool):
     """The section counters of ``kernel`` ("megastep_kernel",
-    "fused_kernel") on ``device`` when ``on`` (allocated zeroed on first
-    use, then summed into by every traced launch: each block of the kernel
-    adds its lanes' sums), else None: the launch passes a null pointer."""
+    "fused_kernel", "racestep_kernel") on ``device`` when ``on`` (allocated
+    zeroed on first use, then summed into by every traced launch: each
+    block of the kernel adds its lanes' sums), else None: the launch passes
+    a null pointer."""
     if not on:
         return None
     key = (kernel, torch.device(device))
     buf = _SECTION_BUFFERS.get(key)
     if buf is None:
-        buf = _SECTION_BUFFERS[key] = torch.zeros(len(SECTIONS), dtype=torch.int64, device=device)
+        buf = _SECTION_BUFFERS[key] = torch.zeros(len(section_names(kernel)), dtype=torch.int64,
+                                                  device=device)
     return buf
 
 
 def sections(kernel: str) -> Dict[str, int]:
-    """{name: total} of :data:`SECTIONS` over every traced launch of
-    ``kernel`` since the last :func:`reset_sections`, summed over devices
-    (one device-to-host read each); empty where no traced launch ran (a CPU
-    run: the plain versions count nothing)."""
+    """{name: total} of the counters of ``kernel`` (:func:`section_names`)
+    over every traced launch since the last :func:`reset_sections`, summed
+    over devices (one device-to-host read each); empty where no traced
+    launch ran (a CPU run: the plain versions count nothing)."""
     bufs = [b for (k, _), b in _SECTION_BUFFERS.items() if k == kernel]
     if not bufs:
         return {}
     tot = sum(b.cpu() for b in bufs)
-    return dict(zip(SECTIONS, (int(v) for v in tot)))
+    return dict(zip(section_names(kernel), (int(v) for v in tot)))
 
 
 def reset_sections() -> None:

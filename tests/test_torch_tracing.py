@@ -30,7 +30,7 @@ from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops import megastep_init  # noqa: E
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.track import oval_track  # noqa: E402
 from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils import profiling  # noqa: E402
 
-GROUP_CORE = REPO / "autonomous_racing_lpv_mpp_mpc_tpu_torch" / "ops" / "csrc" / "group_core.cuh"
+CSRC = REPO / "autonomous_racing_lpv_mpp_mpc_tpu_torch" / "ops" / "csrc"
 
 
 def host_spans(prof) -> dict:
@@ -89,11 +89,26 @@ def test_megastep_init_records_its_span_around_mpc_init():
     assert m0 <= i0 <= i1 <= m1
 
 
-def test_section_table_is_the_kernels_enum_in_order():
-    body = re.search(r"enum Sec : int \{(.*?)\};", GROUP_CORE.read_text(), re.S).group(1)
+def enum_names(source: str, enum: str, prefix: str, last: str) -> tuple:
+    """The entries of a C++ enum, its prefix taken off, lower case, the
+    count at its end checked and left out."""
+    body = re.search(rf"enum {enum} : int \{{(.*?)\}};", (CSRC / source).read_text(), re.S).group(1)
     names = [n.strip() for n in body.split(",") if n.strip()]
-    assert names[-1] == "N_SEC"
-    assert tuple(n.removeprefix("SEC_").lower() for n in names[:-1]) == profiling.SECTIONS
+    assert names[-1] == last
+    return tuple(n.removeprefix(prefix).lower() for n in names[:-1])
+
+
+def test_section_table_is_the_kernels_enum_in_order():
+    assert enum_names("group_core.cuh", "Sec", "SEC_", "N_SEC") == profiling.SECTIONS
+
+
+def test_race_section_table_is_the_racesteps_enum_in_order():
+    assert enum_names("racestep_kernel.cu", "RaceSec", "RSEC_", "N_RACE_SEC") == profiling.RACE_SECTIONS
+
+
+def test_racestep_counts_its_own_sections_after_the_cores():
+    assert profiling.section_names("racestep_kernel") == profiling.SECTIONS + profiling.RACE_SECTIONS
+    assert profiling.section_names("megastep_kernel") == profiling.SECTIONS
 
 
 def test_section_buffer_is_one_per_kernel_and_device_and_reads_as_totals(monkeypatch):
@@ -106,17 +121,24 @@ def test_section_buffer_is_one_per_kernel_and_device_and_reads_as_totals(monkeyp
     buf += torch.arange(len(profiling.SECTIONS))
     assert profiling.sections("megastep_kernel") == {n: i for i, n in enumerate(profiling.SECTIONS)}
     assert set(profiling.sections("fused_kernel").values()) == {0}
+    race = profiling.section_buffer("racestep_kernel", "cpu", True)
+    assert race.shape == (len(profiling.SECTIONS) + len(profiling.RACE_SECTIONS),)
+    race += 1
+    assert profiling.sections("racestep_kernel") == dict.fromkeys(profiling.section_names("racestep_kernel"), 1)
     profiling.reset_sections()
     assert set(profiling.sections("megastep_kernel").values()) == {0}
+    assert set(profiling.sections("racestep_kernel").values()) == {0}
 
 
 FAKE = dict(prepare=700, factor=900, sweep=3000, stage_pass=2000, vote=1000, finish=300, plant=100,
-            lane_steps=2, lane_iters=30, lane_doneat=15)
+            lane_steps=2, lane_iters=30, lane_doneat=15, measure=400, ekf=1200, rls=100, refs=300)
 READERS = {   # metric: (the kernel it reads, its value on FAKE)
     "megastep_admm_kcycles": ("megastep_kernel", 3.0),
     "megastep_stage_pass_kcycles": ("megastep_kernel", 1.0),
     "megastep_admm_useful_pct": ("megastep_kernel", 50.0),
     "fused_admm_kcycles": ("fused_kernel", 3.0),
+    "racestep_admm_kcycles": ("racestep_kernel", 3.0),
+    "racestep_estimate_kcycles": ("racestep_kernel", 1.0),
 }
 
 
@@ -135,7 +157,8 @@ def test_section_reader(metric, case, monkeypatch):
 
 @pytest.mark.parametrize("case", ["fits", "no_fits", "no_reader"])
 @pytest.mark.parametrize("metric,kernel", [("megastep_clusters_per_wave", "megastep_kernel"),
-                                           ("fused_clusters_per_wave", "fused_kernel")])
+                                           ("fused_clusters_per_wave", "fused_kernel"),
+                                           ("racestep_clusters_per_wave", "racestep_kernel")])
 def test_clusters_per_wave_reader(metric, kernel, case, monkeypatch):
     """The occupancy metrics read the fewest clusters per wave the kernel's
     launches kept, and nothing where it kept none or the port has no such
@@ -219,3 +242,41 @@ def test_section_counters_leave_outputs_bitwise_and_count_the_lanes(cell, cuda_d
     for name in ("prepare", "factor", "sweep", "stage_pass", "vote", "finish"):
         assert tot[name] > 0, name
     assert (tot["plant"] > 0) == (route.kernel == "megastep_kernel")
+
+
+@pytest.mark.cuda
+def test_racestep_section_counters_leave_outputs_bitwise_and_count_the_lanes(cuda_device, monkeypatch):
+    """The race cell's racestep: the traced instantiation's outputs bitwise
+    the untraced one's from the same start and noise stream, its counters
+    the active lanes'."""
+    bench = REPO / "benchmark"
+    work = json.loads((bench / "workloads" / "racebench-pacejka-n20-b4096.composed.json").read_text())
+    config = json.loads((bench / "configs" / f"{work['config']}.json").read_text())
+    program.build_kernels()
+    ctx = SimpleNamespace(config=config, device=cuda_device, trace=False, seed=2**31 + 17)
+    length = float(track_table(config["track"], float(config["track_ds"]), cuda_device)["length"])
+    scen = ScenarioStream(config, 2**31 + 17, cuda_device, length).next()
+    steps, B, sv = 4, int(config["batch"]), config["solver"]
+
+    def run():
+        route = harness.plugin("routes", work["route"]).make(ctx)   # the noise stream from its start
+        return route, drive(route, route.start(scen), steps)
+
+    _, off = run()
+    monkeypatch.setattr(profiling, "tracing", lambda: True)
+    profiling.reset_sections()
+    launches0 = harness.plugin("routes", work["route"]).make(ctx).launches()
+    route, on = run()
+    tot = profiling.sections(route.kernel)
+
+    for a, b in zip(off, on):
+        assert a.keys() == b.keys()
+        for k in a:
+            if isinstance(a[k], torch.Tensor):
+                assert torch.equal(a[k], b[k]), k
+    assert route.launches() - launches0 == steps
+    assert tot["lane_steps"] == B * steps
+    assert tot["lane_doneat"] == int(sum(float(o["iters"].double().sum()) for o in on))
+    assert tot["lane_doneat"] <= tot["lane_iters"] <= sv["max_iter"] * tot["lane_steps"]
+    for name in profiling.SECTIONS[:7] + profiling.RACE_SECTIONS:
+        assert tot[name] > 0, name
