@@ -16,7 +16,10 @@
 // lam0 with X, U at zero. The OSQP
 // termination test runs after EVERY iteration on the group's max-reduced
 // residuals, so done-at is exact. With early exit the 128 consecutive lanes
-// of a thread block cluster vote (vote_all) at each boundary of a chunk of
+// of 8 blocks vote (vote_group: across a thread block cluster, or through
+// device memory in a co-resident launch, arl_sync.cuh launch_group, whose
+// instantiation takes the device's vote slots as a second argument) at each
+// boundary of a chunk of
 // `check` iterations and leave when every lane has a done-at; the remainder
 // tail runs only if some lane has not. Groups past B vote "done" and touch
 // no memory (the Pallas kernel padded with copies of lane 0 instead). Stats
@@ -28,7 +31,7 @@
 // Sec); the untraced one reads no clock. Both models (Dynamic,
 // Kinematic), each with its operands in shared or in device memory, as the
 // wrapper chooses from N (ops/fused_kernel.py::launch_shape); the launch
-// shape is arl_sync.cuh's (G = 8, 16 lanes per block, clusters of 8).
+// shape is arl_sync.cuh's (G = 8, 16 lanes per block, 8 blocks a group).
 //
 // What bounds it on the H100: the operations, ~0.2 MFLOP per lane at N=20
 // and 20 iterations (its ~5 KB of inputs and outputs per lane take far
@@ -36,9 +39,13 @@
 // is a short dependent chain (mat-vec, shuffle broadcast, next stage), so
 // the design shortens the chain by G, keeps the operands that every
 // iteration re-reads at shared-memory latency, and spreads B=4096 over 256
-// blocks of 16 lanes in clusters of 8. At N=20 (dynamic) a block's 111 KB
-// of shared memory leaves room for two blocks per SM; the card then holds
-// 30 such clusters at once, and the last 2 of B=4096 run as a second wave.
+// blocks of 16 lanes, 8 blocks a group. At N=20 (dynamic) a block's 95,744
+// B of shared memory leaves room for two blocks per SM: 264 on the card,
+// which holds 30 clusters of 8 at once (a cluster's blocks share a GPC).
+// The rule (launch_group): a launch with early exit that holds more groups
+// than that and fits the card's block places whole (B=4,096: 32 groups in
+// 256 places) runs co-resident, in one wave; any other runs as clusters, in
+// ceil(groups / clusters) waves.
 #include "group_core.cuh"
 
 namespace arl {
@@ -62,8 +69,11 @@ constexpr int FUSED_INTS = 10;
 
 // At most 168 registers, so that three blocks of 128 threads fit on an SM
 // where the shared memory allows it (the kinematic model at N=10).
-template <class M, bool SM, bool TRACE>
-__global__ void __launch_bounds__(GROUP_THREADS, 3) fused_kernel(const __grid_constant__ FusedParams<M> P) {
+// `vote`: empty (clustered), or the device's vote slots (co-resident;
+// arl_sync.cuh, launch_group).
+template <class M, bool SM, bool TRACE, class... Vote>
+__global__ void __launch_bounds__(GROUP_THREADS, 3) fused_kernel(const __grid_constant__ FusedParams<M> P,
+                                                                 Vote... vote) {
   constexpr int NX = M::NX, NA = M::NA, G = LANE_THREADS;
   const CoreParams<M>& C = P.C;
   const Grp<G> gr;
@@ -140,7 +150,7 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) fused_kernel(const __grid_co
         sec_count<TRACE>(g, SEC_LANE_ITERS, C.check);
         sec_open<TRACE>(g, SEC_VOTE);
       }
-      all_done = vote_all(!active || da >= 0.0f);
+      all_done = vote_group(!active || da >= 0.0f, vote...);
       if (active) sec_close<TRACE>(g, SEC_VOTE);
     }
     if (rem && !all_done && active) {
@@ -189,7 +199,8 @@ int launch_fused_traced(const FusedParams<M>& P, int grid, int smem, void* strea
 #ifdef ARL_FUSED_TRACED_TU
 template <class M, bool SM>
 int launch_fused_traced(const FusedParams<M>& P, int grid, int smem, void* stream) {
-  return launch_clustered(fused_kernel<M, SM, true>, P, grid, smem, stream, "fused_kernel");
+  return launch_group(fused_kernel<M, SM, true>, fused_kernel<M, SM, true, VoteSlot*>, P, grid,
+                      smem, stream, "fused_kernel", P.C.early_exit != 0);
 }
 
 template int launch_fused_traced<Dynamic, true>(const FusedParams<Dynamic>&, int, int, void*);
@@ -202,8 +213,8 @@ template int launch_fused_traced<Kinematic, false>(const FusedParams<Kinematic>&
 template <class M, bool SM>
 int launch_fused_as(const FusedParams<M>& P, int grid, int smem, void* stream) {
   return P.sec ? launch_fused_traced<M, SM>(P, grid, smem, stream)
-                 : launch_clustered(fused_kernel<M, SM, false>, P, grid, smem, stream,
-                                    "fused_kernel");
+               : launch_group(fused_kernel<M, SM, false>, fused_kernel<M, SM, false, VoteSlot*>, P,
+                              grid, smem, stream, "fused_kernel", P.C.early_exit != 0);
 }
 
 template <class M>
@@ -241,7 +252,8 @@ int launch_fused(void** ptrs, const float* fv, int n_f, const int* iv, int devic
 // memory, its bytes per block, the model: 0 dynamic, 1 kinematic). Returns
 // -1 on an operand-count mismatch, -2 on a workspace- or shared-memory-size
 // mismatch, -3 on a bad size or model, -4 if the card cannot hold one
-// cluster of the shape, else the CUDA error of the launch.
+// cluster of the shape (a launch that takes the clustered path), else the
+// CUDA error of the launch.
 extern "C" int arl_fused_solve(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
                                int n_i, int device, void* stream) {
   using namespace arl;

@@ -44,7 +44,7 @@ namespace arl {
 // sections 1-4 and the cache branch (the fused kernel: stage builds and warm
 // start); factor: section 5 and admm_start_g; sweep: each ADMM iteration's
 // backward sweep and forward rollout; stage_pass: stage_pass_g; vote: the
-// termination test, vote_all and its cluster barrier; finish: sections 7-8 and
+// termination test and the group's vote (vote_group); finish: sections 7-8 and
 // the output stores; plant: section 9 (megastep), the world-frame plant
 // (racestep). lane_steps: active lanes; lane_iters: ADMM iterations the active
 // lanes executed; lane_doneat: their own done-ats (stats row 4 of the megastep
@@ -903,23 +903,27 @@ __device__ void cache_stages_g(const CoreParams<M>& P, int b, const WsLayout<M>&
 
 // Sections 1-8 of the tracker core for lane b on its group: writes the
 // new warm start, u0 and stats rows 0-4 and returns u0 on every thread of
-// the group. It holds the 128-lane early-exit vote (vote_all), so every
-// thread of the cluster calls it; groups past B (active false) vote "done"
-// and touch no memory. With the discretization cache (the megastep only:
-// `cio` its arrays, the tag std::true_type) section 3 takes one branch per
-// 128-lane group:
+// the group. It holds the 128-lane early-exit vote (vote_group), so every
+// thread of the group's blocks calls it; groups past B (active false) vote
+// "done" and touch no memory. With the discretization cache (the megastep
+// only: `cio` its arrays, the tag std::true_type) section 3 takes one branch
+// per 128-lane group:
 // every stage rebuilt when the group's largest drift exceeds the tolerance
 // or its largest age reaches cache_max_age (max_all over the cluster;
 // groups past B add 0 to both), else the shift. TRACE (the tag
 // std::true_type): the section counters, in the block's slots; the finish
-// section is left open for the caller to close.
-template <class M, int G, class O, bool CACHE = false, bool TRACE = false>
+// section is left open for the caller to close. `vote`: empty, or the
+// co-resident launch's vote slots (arl_sync.cuh, vote_group, launch_group),
+// never with the cache.
+template <class M, int G, class O, bool CACHE = false, bool TRACE = false, class... Vote>
 __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool active,
                            const float (&x0)[M::NX], const VehParams& pv, const Lane& xref,
                            const Lane& ws, const O& op, const Grp<G>& gr, float (&u0)[NU],
                            const CacheIO* cio = nullptr,
                            std::bool_constant<CACHE> = std::bool_constant<false>{},
-                           std::bool_constant<TRACE> = std::bool_constant<false>{}) {
+                           std::bool_constant<TRACE> = std::bool_constant<false>{},
+                           Vote... vote) {
+  static_assert(!(CACHE && sizeof...(Vote) > 0), "the cache's max_all is a cluster's");
   constexpr int NX = M::NX, NA = M::NA, RA = (NA + G - 1) / G;
   const int SB = P.B, N = P.N, g = gr.g;
   const WsLayout<M> W(N);
@@ -970,7 +974,7 @@ __device__ void mpc_core_g(const CoreParams<M>& P, const Sel<M>& S, int b, bool 
     bool all_done = false;
     for (int c = 0; c < n_chunks && !all_done; ++c) {
       if (active) chunk(c);
-      all_done = vote_all(!active || da >= 0.0f);
+      all_done = vote_group(!active || da >= 0.0f, vote...);
       if (active) sec_close<TRACE>(g, SEC_VOTE);
     }
     if (rem && !all_done && active) {

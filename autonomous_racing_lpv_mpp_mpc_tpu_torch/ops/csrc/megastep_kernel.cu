@@ -8,29 +8,32 @@
 // config 1), selected by the last int parameter.
 //
 // Design. A group of G threads owns one scenario (lane), 16 lanes a block
-// and a thread block cluster of 8 blocks the 128 lanes that leave ADMM
-// together (arl_sync.cuh). Each group runs the tracker core of
-// group_core.cuh (mpc_core_g, sections 1-8: schedule shift, curvature +
-// friction-cap bounds, LPV + Van Loan + linear cost, warm-start shift,
-// Riccati factor, ADMM in chunks of `check` iterations, residuals / rho,
-// accept or limp-home), then section 9, n_sub Euler sub-steps of the
-// Frenet plant, on the group's first thread. An optional (N+1, 2, B) e_y
-// corridor (obstacle blocks evaluated on the host along the scheduled s)
-// replaces row 1's box in section 2; its pointer is null otherwise, and
-// the ADMM loop never reads it. With the discretization cache
+// and 8 blocks the 128 lanes that leave ADMM together, launched as a thread
+// block cluster or co-resident (arl_sync.cuh, launch_group). Each group runs
+// the tracker core of group_core.cuh (mpc_core_g, sections 1-8: schedule
+// shift, curvature + friction-cap bounds, LPV + Van Loan + linear cost,
+// warm-start shift, Riccati factor, ADMM in chunks of `check` iterations,
+// residuals / rho, accept or limp-home), then section 9, n_sub Euler
+// sub-steps of the Frenet plant, on the group's first thread. An optional
+// (N+1, 2, B) e_y corridor (obstacle blocks evaluated on the host along the
+// scheduled s) replaces row 1's box in section 2; its pointer is null
+// otherwise, and the ADMM loop never reads it. With the discretization cache
 // (SolverConfig.cache_build, its own instantiation: CACHE) the group core
-// takes the JAX kernel's shift-reuse branch per 128-lane cluster: the
-// drift of the new schedule from the cached one and the age, each a
-// cluster-wide maximum (max_all), decide between building every stage and
-// taking stage k + 1 of the old cache as stage k with only stage N-1 built
+// takes the JAX kernel's shift-reuse branch per 128-lane cluster: the drift
+// of the new schedule from the cached one and the age, each a cluster-wide
+// maximum (max_all), decide between building every stage and taking
+// stage k + 1 of the old cache as stage k with only stage N-1 built
 // (group_core.cuh::cache_stages_g); the kernel reads the old cache and
 // writes a new one. The cache's pointers are null without it and the
-// uncached instantiation is the kernel as it was. With early exit the cluster
-// votes after each chunk (vote_all) and stops when all its 128 lanes have a
-// done-at: the 128-lane grouping of the TPU kernel. Lanes past B vote
-// "done" and touch no memory. With a section-counter pointer (tracing on)
-// the traced instantiation runs (TRACE, its own translation unit,
-// megastep_traced_kernel.cu): each lane's thread 0 adds its cycles per
+// uncached instantiation is the kernel as it was; the cached one is always
+// launched as clusters. With early exit the group votes after each chunk
+// (vote_group: the cluster's vote_all, or, in the co-resident instantiation,
+// which takes the device's vote slots as a second argument,
+// vote_all_resident) and stops when all its 128 lanes have a done-at: the
+// 128-lane grouping of the TPU kernel. Lanes
+// past B vote "done" and touch no memory. With a section-counter pointer
+// (tracing on) the traced instantiation runs (TRACE, its own translation
+// unit, megastep_traced_kernel.cu): each lane's thread 0 adds its cycles per
 // section, the plant's included, and its counts into the counters
 // (group_core.cuh, Sec); the untraced one reads no clock. The stage
 // operands, iterate and linear terms live in the block's shared memory, or
@@ -65,9 +68,11 @@ constexpr int MEGA_INTS = 15;
 
 // At most 168 registers, so that three blocks of 128 threads fit on an SM
 // where the shared memory allows it (the kinematic model at N=10); the
-// dynamic model fits in them without spills.
-template <class M, bool SM, bool CACHE, bool TRACE>
-__global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid_constant__ MegaParams<M> P) {
+// dynamic model fits in them without spills. `vote`: empty (clustered), or
+// the device's vote slots (co-resident; arl_sync.cuh, launch_group).
+template <class M, bool SM, bool CACHE, bool TRACE, class... Vote>
+__global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid_constant__ MegaParams<M> P,
+                                                                    Vote... vote) {
   constexpr int NX = M::NX;
   const Grp<LANE_THREADS> gr;
   const int lane = threadIdx.x / LANE_THREADS;
@@ -88,7 +93,7 @@ __global__ void __launch_bounds__(GROUP_THREADS, 3) megastep_kernel(const __grid
   }
   float u0[NU];
   mpc_core_g(P.C, P.S, b, active, x, pv, lane_of(P.xref, bb, S), ws, op, gr, u0, &P.cache,
-             std::bool_constant<CACHE>{}, std::bool_constant<TRACE>{});
+             std::bool_constant<CACHE>{}, std::bool_constant<TRACE>{}, vote...);
   if (!active || gr.g != 0) return sec_end<TRACE>(P.sec, gr.g);
   sec_switch<TRACE>(0, SEC_FINISH, SEC_PLANT);
   const Lane st = lane_of(P.C.stats, b, S);
@@ -139,8 +144,9 @@ template int launch_megastep_cached<Kinematic, false>(const MegaParams<Kinematic
 #elif defined(ARL_MEGASTEP_TRACED_TU)
 template <class M, bool SM>
 int launch_megastep_traced(const MegaParams<M>& P, int grid, int smem, void* stream) {
-  return launch_clustered(megastep_kernel<M, SM, false, true>, P, grid, smem, stream,
-                          "megastep_kernel");
+  return launch_group(megastep_kernel<M, SM, false, true>,
+                      megastep_kernel<M, SM, false, true, VoteSlot*>, P, grid, smem, stream,
+                      "megastep_kernel", P.C.early_exit != 0);
 }
 
 template int launch_megastep_traced<Dynamic, true>(const MegaParams<Dynamic>&, int, int, void*);
@@ -154,8 +160,9 @@ template <class M, bool SM>
 int launch_megastep_as(const MegaParams<M>& P, int grid, int smem, void* stream) {
   if (P.cache.A) return launch_megastep_cached<M, SM>(P, grid, smem, stream);
   return P.sec ? launch_megastep_traced<M, SM>(P, grid, smem, stream)
-                 : launch_clustered(megastep_kernel<M, SM, false, false>, P, grid, smem, stream,
-                                    "megastep_kernel");
+               : launch_group(megastep_kernel<M, SM, false, false>,
+                              megastep_kernel<M, SM, false, false, VoteSlot*>, P, grid, smem,
+                              stream, "megastep_kernel", P.C.early_exit != 0);
 }
 
 template <class M>
@@ -208,7 +215,8 @@ int launch_megastep(void** ptrs, const float* fv, int n_f, const int* iv, int de
 // per block, cache_max_age, the model: 0 dynamic, 1 kinematic).
 // Returns -1 on an operand-count mismatch, -2 on a workspace- or
 // shared-memory-size mismatch, -3 on a bad size or model, -4 if the card
-// cannot hold one cluster of the shape, else the CUDA error of the launch.
+// cannot hold one cluster of the shape (a launch that takes the clustered
+// path), else the CUDA error of the launch.
 extern "C" int arl_megastep(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
                             int n_i, int device, void* stream) {
   using namespace arl;

@@ -6,8 +6,10 @@
 // ops/racestep_kernel.py::racestep_plain.
 //
 // Design. A group of G threads owns one lane (a car); a block holds 16
-// lanes and a thread block cluster of 8 blocks the 128 lanes that leave
-// ADMM together (arl_sync.cuh). Each group runs, in order:
+// lanes and 8 blocks the 128 lanes that leave ADMM together, launched as a
+// thread block cluster or co-resident (arl_sync.cuh, launch_group; the
+// co-resident instantiation takes the device's vote slots as a second
+// argument). Each group runs, in order:
 //   1. measurement: the nearest centerline node to the world-frame truth
 //      among the cells within +-win_cells of the EKF's s, searched in G
 //      strided slices and reduced over the group (plain indexed loads, cell
@@ -28,7 +30,7 @@
 //      interpolation of vx, e_y and the precomputed e_psi node channel),
 //      row k on thread k mod G, or the caller's tensor rows;
 //   5. the group tracker core of group_core.cuh at mu-hat (stage operands
-//      in shared memory, the 128-lane early-exit vote across the cluster),
+//      in shared memory, the 128-lane early-exit vote across the group),
 //      with the optional (N+1, 2, B) e_y corridor of obstacle blocks in
 //      place of row 1's box (CoreParams::eyb, null without obstacles);
 //   6. n_sub Euler sub-steps of the world-frame plant at the lane's true mu,
@@ -403,8 +405,11 @@ __device__ __forceinline__ void table_refs(const RaceParams& P, int b, float s0,
   }
 }
 
-template <bool SM, bool TRACE>
-__global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_constant__ RaceParams P) {
+// `vote`: empty (clustered), or the device's vote slots (co-resident;
+// arl_sync.cuh, launch_group).
+template <bool SM, bool TRACE, class... Vote>
+__global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_constant__ RaceParams P,
+                                                                 Vote... vote) {
   const Grp<LANE_THREADS> gr;
   const int lane = threadIdx.x / LANE_THREADS;
   const int b = blockIdx.x * BLOCK_LANES + lane;
@@ -483,7 +488,7 @@ __global__ void __launch_bounds__(GROUP_THREADS) racestep_kernel(const __grid_co
   // 5. tracker at mu-hat
   float u0[NU];
   mpc_core_g(P.C, P.Sl, b, active, xf, pv_hat, xref, ws, op, gr, u0, nullptr,
-             std::bool_constant<false>{}, std::bool_constant<TRACE>{});
+             std::bool_constant<false>{}, std::bool_constant<TRACE>{}, vote...);
   if (!active || gr.g != 0) {
     sec_end<TRACE>(P.sec, gr.g);
     sec_end<TRACE, N_RACE_SEC>(P.sec + N_SEC, gr.g);
@@ -521,7 +526,8 @@ int launch_racestep_traced(const RaceParams& P, int grid, int smem, void* stream
 #if defined(ARL_RACESTEP_TRACED_TU)
 template <bool SM>
 int launch_racestep_traced(const RaceParams& P, int grid, int smem, void* stream) {
-  return launch_clustered(racestep_kernel<SM, true>, P, grid, smem, stream, "racestep_kernel");
+  return launch_group(racestep_kernel<SM, true>, racestep_kernel<SM, true, VoteSlot*>, P, grid,
+                      smem, stream, "racestep_kernel", P.C.early_exit != 0);
 }
 
 template int launch_racestep_traced<true>(const RaceParams&, int, int, void*);
@@ -532,7 +538,8 @@ template int launch_racestep_traced<false>(const RaceParams&, int, int, void*);
 template <bool SM>
 int launch_racestep_as(const RaceParams& P, int grid, int smem, void* stream) {
   return P.sec ? launch_racestep_traced<SM>(P, grid, smem, stream)
-               : launch_clustered(racestep_kernel<SM, false>, P, grid, smem, stream, "racestep_kernel");
+               : launch_group(racestep_kernel<SM, false>, racestep_kernel<SM, false, VoteSlot*>, P,
+                              grid, smem, stream, "racestep_kernel", P.C.early_exit != 0);
 }
 
 }  // namespace arl
@@ -542,8 +549,8 @@ int launch_racestep_as(const RaceParams& P, int grid, int smem, void* stream) {
 // the order of ops/racestep_kernel.py::_racestep_cuda (the last two ints:
 // operands in shared memory, its bytes per block). Returns -1 on an operand-count
 // mismatch, -2 on a workspace- or shared-memory-size mismatch, -3 on a bad
-// size, -4 if the card cannot hold one cluster of the shape, else the CUDA
-// error of the launch.
+// size, -4 if the card cannot hold one cluster of the shape (a launch that
+// takes the clustered path), else the CUDA error of the launch.
 extern "C" int arl_racestep(void** ptrs, int n_ptrs, const float* fv, int n_f, const int* iv,
                             int n_i, int device, void* stream) {
   using namespace arl;

@@ -21,8 +21,11 @@ every lane of the group has a done-at; the remainder tail runs only if
 some lane has not. Both the dynamic (nx=6) and the kinematic (nx=4) model.
 
 On the card a lane is a group of ``THREADS_PER_LANE`` threads and the
-128-lane group a cluster of thread blocks; :func:`launch_shape` gives the
-shape and where the stage operands live (the racestep uses it too).
+128-lane group 8 thread blocks, launched as a cluster, or co-resident where
+the launch votes, holds more groups than the card holds clusters at once
+and fits the card whole (``csrc/arl_sync.cuh``, ``launch_group``; the C
+entry chooses); :func:`launch_shape` gives the shape and where the stage
+operands live (the racestep uses it too).
 
 This module also holds what the three tracker kernels share in plain
 PyTorch: the constant operands (``_make_consts``), the batch-last
@@ -54,7 +57,7 @@ from .stage_math import (
     unpack_params,
 )
 
-GROUP = 128   # lanes that exit the ADMM loop together (one CUDA thread block cluster)
+GROUP = 128   # lanes that exit the ADMM loop together (8 thread blocks)
 THREADS_PER_LANE = 8          # csrc/arl_sync.cuh LANE_THREADS
 LANES_PER_BLOCK = 16          # csrc/arl_sync.cuh BLOCK_LANES
 BLOCK_SMEM = 232_448          # bytes of shared memory one block may use on the H100
@@ -148,8 +151,9 @@ def core_workspace(N: int, model: str = "dynamic") -> int:
 class LaunchShape(NamedTuple):
     """Launch shape of the group core's kernels (megastep, racestep, fused):
     THREADS_PER_LANE adjacent threads own a lane, a block holds
-    LANES_PER_BLOCK lanes, a cluster of ``cluster`` blocks the GROUP lanes
-    of one early-exit vote (fixed in ``csrc/arl_sync.cuh``); the
+    LANES_PER_BLOCK lanes, ``cluster`` blocks the GROUP lanes of one
+    early-exit vote, as a cluster or co-resident (fixed in
+    ``csrc/arl_sync.cuh``); the
     per-iteration ADMM operands live in ``smem_bytes`` of dynamic shared
     memory per block, or in the device-memory workspace when
     ``ops_in_smem`` is False."""

@@ -16,9 +16,10 @@ SURVEY.md §5 "Tracing / profiling").
   and fused kernels (:data:`SECTIONS`, the racestep's with
   :data:`RACE_SECTIONS` after them; read by :func:`sections`). Off, a
   wrapper call costs one flag read and its launch one null pointer.
-- :func:`clusters_per_wave`: how many clusters of a group kernel the card
-  holds at once, as its launches found (kept whether or not a profiler
-  records).
+- :func:`clusters_per_wave`: how many 128-lane groups of a group kernel
+  the card holds at once, as its launches found (kept whether or not a
+  profiler records); :func:`group_fits` the same per launch path, clustered
+  or co-resident.
 """
 
 from __future__ import annotations
@@ -108,26 +109,42 @@ def reset_sections() -> None:
         b.zero_()
 
 
-def clusters_per_wave(kernel: str) -> Dict[Tuple[int, int], int]:
-    """{(device index, dynamic shared-memory bytes per block): clusters} of
-    the group kernel ``kernel`` ("megastep_kernel", "fused_kernel",
-    "racestep_kernel"): how many of its 128-lane clusters the card holds at
-    once at that launch shape, so that B lanes run in ceil(B / 128 /
-    clusters) waves. Each launch shape is asked once, at its first launch
-    (``cudaOccupancyMaxActiveClusters``); where two instantiations of the
-    kernel (traced and untraced) share a shape, the fewer. Empty where the
-    kernel library is not loaded (a CPU run) or the kernel has not run."""
+def group_fits(kernel: str) -> Dict[Tuple[int, int, bool], int]:
+    """{(device index, dynamic shared-memory bytes per block, co-resident):
+    groups} of the group kernel ``kernel`` ("megastep_kernel",
+    "fused_kernel", "racestep_kernel"): how many of its 128-lane groups the
+    card holds at once at that launch shape, on the launch's path. A
+    clustered launch (co-resident False) holds the clusters
+    ``cudaOccupancyMaxActiveClusters`` gives and runs B lanes in
+    ceil(B / 128 / groups) waves; a co-resident one (``ops/csrc/arl_sync.cuh``,
+    ``launch_group``: early exit, more groups than the clusters, the whole
+    grid on the card at once) holds the card's block places over 8 and runs
+    in one wave. Each shape and path is asked once, at its first launch;
+    where two instantiations of the kernel (traced and untraced) share one,
+    the fewer. Empty where the kernel library is not loaded (a CPU run) or
+    the kernel has not run."""
     from ..ops import _cuda
 
     if not _cuda.library.cache_info().currsize:
         return {}
     cap = 64
-    out = (ctypes.c_int * (3 * cap))()
+    out = (ctypes.c_int * (4 * cap))()
     n = min(_cuda.library().arl_cluster_fits(kernel.encode(), out, cap), cap)
-    fits: Dict[Tuple[int, int], int] = {}
+    fits: Dict[Tuple[int, int, bool], int] = {}
     for i in range(n):
-        key, clusters = (out[3 * i], out[3 * i + 1]), out[3 * i + 2]
-        fits[key] = min(fits.get(key, clusters), clusters)
+        key, groups = (out[4 * i], out[4 * i + 1], bool(out[4 * i + 3])), out[4 * i + 2]
+        fits[key] = min(fits.get(key, groups), groups)
+    return fits
+
+
+def clusters_per_wave(kernel: str) -> Dict[Tuple[int, int], int]:
+    """{(device index, dynamic shared-memory bytes per block): groups} of
+    the group kernel ``kernel``: :func:`group_fits` over both launch paths,
+    the fewer where both ran at a shape (a clustered launch's clusters, a
+    co-resident launch's groups held at once)."""
+    fits: Dict[Tuple[int, int], int] = {}
+    for (dev, smem, _), groups in group_fits(kernel).items():
+        fits[(dev, smem)] = min(fits.get((dev, smem), groups), groups)
     return fits
 
 

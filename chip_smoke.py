@@ -706,6 +706,18 @@ def step_device_ms(fn, n, kernel):
     return sum(ks) / len(ks) / 1e3, sum(us for _, us in ev) / n / 1e3
 
 
+def fits_note(kernel):
+    """"; groups held at once ..." of the kernel's launch shapes so far, per
+    path (utils.profiling.group_fits), or "" on a port without the reader."""
+    from autonomous_racing_lpv_mpp_mpc_tpu_torch.utils import profiling
+
+    read = getattr(profiling, "group_fits", None)
+    if read is None:
+        return ""
+    return "; groups held at once: " + ", ".join(
+        f"{smem} B {'co-resident' if res else 'clustered'} {n}" for (_, smem, res), n in sorted(read(kernel).items()))
+
+
 def ptxas_usage(build_log, *parts):
     """(registers, spill store bytes) that ptxas reported for the kernel
     entry whose mangled name holds every one of `parts`."""
@@ -1157,18 +1169,25 @@ def main():
         from autonomous_racing_lpv_mpp_mpc_tpu_torch.ops.fused_kernel import (
             LANES_PER_BLOCK, THREADS_PER_LANE, launch_shape,
         )
-        for name, model, n_h, entry in (("megastep_kernel", "dynamic", N_MAIN, ("megastep_kernel", "Dynamic")),
-                                        ("megastep_kernel_kinematic", "kinematic", 10, ("megastep_kernel", "Kinematic")),
-                                        ("fused_kernel", "dynamic", N_MAIN, ("fused_kernel", "Dynamic")),
-                                        ("fused_kernel_kinematic", "kinematic", 10, ("fused_kernel", "Kinematic")),
-                                        ("racestep_kernel", "dynamic", N_MAIN, ("racestep_kernel",))):
+        # (entry, the untraced instantiation's flags after the operand
+        # placement: the megastep's CACHE and TRACE, the others' TRACE; then
+        # the vote slots' parameter pack, empty in the clustered one)
+        for name, model, n_h, entry, mid in (
+                ("megastep_kernel", "dynamic", N_MAIN, ("megastep_kernel", "Dynamic"), 2),
+                ("megastep_kernel_kinematic", "kinematic", 10, ("megastep_kernel", "Kinematic"), 2),
+                ("fused_kernel", "dynamic", N_MAIN, ("fused_kernel", "Dynamic"), 1),
+                ("fused_kernel_kinematic", "kinematic", 10, ("fused_kernel", "Kinematic"), 1),
+                ("racestep_kernel", "dynamic", N_MAIN, ("racestep_kernel",), 1)):
             sh = launch_shape(n_h, model)
-            regs, spills = ptxas_usage(build_log, *entry, f"Lb{int(sh.ops_in_smem)}E")
+            flags = f"Lb{int(sh.ops_in_smem)}E" + "Lb0E" * mid
+            regs, spills = ptxas_usage(build_log, *entry, flags + "JEE")          # no vote slots
+            regs_r, spills_r = ptxas_usage(build_log, *entry, flags + "JPNS_8VoteSlotE")
             log(f"[shape] {name} N={n_h}: {THREADS_PER_LANE} threads per lane, {LANES_PER_BLOCK} lanes "
-                f"per block ({THREADS_PER_LANE * LANES_PER_BLOCK} threads), clusters of {sh.cluster} "
+                f"per block ({THREADS_PER_LANE * LANES_PER_BLOCK} threads), groups of {sh.cluster} "
                 f"blocks, {-(-B_MAIN // 128) * sh.cluster} blocks at B={B_MAIN}, "
                 f"{sh.smem_bytes} B dynamic shared memory per block (operands in "
-                f"{'shared' if sh.ops_in_smem else 'device'} memory), {regs} registers, {spills} B spill stores")
+                f"{'shared' if sh.ops_in_smem else 'device'} memory), clustered {regs} registers, "
+                f"{spills} B spill stores; co-resident {regs_r} registers, {spills_r} B spill stores")
         for name, na, n_h in (("admm_kernel", 8, N_MAIN), ("admm_kernel_kinematic", 6, 10)):
             sh = admm_launch_shape(n_h, na)
             regs, spills = ptxas_usage(build_log, "admm_kernel", f"ILi{na}ELb{int(sh.ops_in_smem)}E")
@@ -1526,8 +1545,10 @@ def main():
     kin_dev_ms = kernel_ms(lambda: megastep(kcfg, scfg, oval, kprm, kref, kc0, n_sub=4), 10, "megastep_kernel")
     kin_plain_ms = cuda_time_ms(lambda: megastep_plain(kcfg, scfg, oval, kprm, kref, kc0, n_sub=4), 3)
     log(f"[mega-kin] first step: {kin_dev_ms:.4f} ms kernel (device), {kin_plain_ms:.3f} ms plain ({card})")
-    # ---- 5d. the chosen shape on the first nb lanes: a launch holding more
-    # clusters than the card runs at once takes a second wave ----
+    # ---- 5d. the chosen shape on the first nb lanes: a clustered launch
+    # holding more clusters than the card runs at once takes a second wave;
+    # with early exit, a launch that fits the card whole runs co-resident,
+    # in one wave (ops/csrc/arl_sync.cuh, launch_group) ----
     def first_lanes(args, nb):
         cut = lambda v: v[:nb] if torch.is_tensor(v) and v.dim() >= 1 else v
         pb = args[2]
@@ -1540,7 +1561,8 @@ def main():
             cut_args = first_lanes(args, nb)
             wave_ms[nb] = kernel_ms(lambda: fused_mpc_solve(*cut_args), 5, "fused_kernel")
         log(f"[waves] fused {name}, device ms on the first B lanes: " + ", ".join(
-            f"B={nb} ({-(-nb // 128)} clusters) {ms:.4f}" for nb, ms in wave_ms.items()) + f" ({card})")
+            f"B={nb} ({-(-nb // 128)} groups) {ms:.4f}" for nb, ms in wave_ms.items()) + fits_note("fused_kernel")
+            + f" ({card})")
     for name, (mcfg, mtrack, mprm, mref, mc0) in (("dynamic", (cfg, track, prm, x_ref, c0)),
                                                   ("kinematic", (kcfg, oval, kprm, kref, kc0))):
         wave_ms = {}
@@ -1550,8 +1572,8 @@ def main():
             wave_ms[nb] = kernel_ms(lambda: megastep(mcfg, scfg, mtrack, cut_prm, mref, cut_car, n_sub=4), 5,
                                     "megastep_kernel")
         log(f"[waves] megastep {name} N={mcfg.N}, device ms of the first step on the first B lanes: "
-            + ", ".join(f"B={nb} ({-(-nb // 128)} clusters) {ms:.4f}" for nb, ms in wave_ms.items())
-            + f" ({card})")
+            + ", ".join(f"B={nb} ({-(-nb // 128)} groups) {ms:.4f}" for nb, ms in wave_ms.items())
+            + fits_note("megastep_kernel") + f" ({card})")
     if "admm_kernel" in admm and not ab:
         # the solver-only kernel: 16 QPs per block, one block per SM at na=8,
         # N=20 (its shared memory), so 2,112 QPs per wave of the 132 SMs
